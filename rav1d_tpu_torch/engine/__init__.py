@@ -1,0 +1,27 @@
+"""The device engine on torch: packers, programs and the frame runner.
+
+Counterpart of rav1d_tpu/engine/__init__.py for the port's slice (intra
+8-bit 4:2:0 frames without superres). `stats` counts the frames the engine
+was asked to decode and the ones it handed to the reference's host path
+(the reference's own gates: intra block copy).
+"""
+
+from __future__ import annotations
+
+stats = {"frames": 0, "fallback": 0}
+
+
+def run_dense(t, f, up) -> bool:
+    """Run the frame's dense pass on the device of `up` (an engine/blob.py
+    Uploader). Returns False when the reference's planner declines the
+    frame (caller runs the host path)."""
+    from rav1d_tpu.engine.plan import build_plan
+
+    from .run import execute
+
+    stats["frames"] += 1
+    plan = build_plan(t, f)
+    ok = plan is not None and execute(f, plan, up)
+    if not ok:
+        stats["fallback"] += 1
+    return ok

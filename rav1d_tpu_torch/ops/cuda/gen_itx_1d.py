@@ -1,0 +1,116 @@
+"""Generate csrc/itx_1d.cuh: the 1-D AV1 butterflies as straight-line C.
+
+The butterflies' one normative source is rav1d_tpu/ops/ref/itx.py
+(`_FAMILY`, parity src/itx_1d.rs). Rather than retype ~900 lines of
+integer arithmetic, this script runs those same Python functions over
+symbolic values that record every operation, and prints one C function per
+(variant, size) that the itx kernel needs. Every add, subtract, multiply
+and negate goes through the wrapping helpers of csrc/itx.cu, so the C code
+wraps exactly as int32 arithmetic does in numpy, torch and JAX (signed
+overflow is undefined in C++). `>>` on a negative int is arithmetic in
+nvcc and g++, as in the frameworks.
+
+    python -m rav1d_tpu_torch.ops.cuda.gen_itx_1d > rav1d_tpu_torch/csrc/itx_1d.cuh
+
+tests/test_torch_itx.py checks that the committed header is this script's
+output and runs it, compiled for the host, against the plain torch twin.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from ..itx import Lanes, apply_1d
+
+# the (variant, n) pairs of the nine kernel classes (4/8/16-point)
+FUNCS = [(name, n) for name in ("dct", "adst", "flipadst", "identity")
+         for n in (4, 8, 16)]
+
+
+class _Sym:
+    """An int32 value in the C program being written."""
+
+    __slots__ = ("expr", "em")
+
+    def __init__(self, expr, em):
+        self.expr = expr
+        self.em = em
+
+    def _bin(self, fn, other, swap=False):
+        o = other.expr if isinstance(other, _Sym) else str(int(other))
+        a, b = (o, self.expr) if swap else (self.expr, o)
+        return self.em.temp(f"{fn}({a}, {b})")
+
+    def __add__(self, o):
+        return self._bin("wadd", o)
+
+    def __radd__(self, o):
+        return self._bin("wadd", o, swap=True)
+
+    def __sub__(self, o):
+        return self._bin("wsub", o)
+
+    def __rsub__(self, o):
+        return self._bin("wsub", o, swap=True)
+
+    def __mul__(self, o):
+        return self._bin("wmul", o)
+
+    def __rmul__(self, o):
+        return self._bin("wmul", o, swap=True)
+
+    def __rshift__(self, k):
+        assert isinstance(k, int) and 0 <= k < 32
+        return self.em.temp(f"({self.expr} >> {k})")
+
+    def __neg__(self):
+        return self.em.temp(f"wneg({self.expr})")
+
+    def clip(self, mn, mx):
+        return self.em.temp(f"clip3({self.expr}, {mn.expr}, {mx.expr})")
+
+
+class _Emitter:
+    def __init__(self):
+        self.lines = []
+        self.n = 0
+
+    def temp(self, expr):
+        name = f"t{self.n}"
+        self.n += 1
+        self.lines.append(f"    const int {name} = {expr};")
+        return _Sym(name, self)
+
+
+def emit_function(name, n):
+    em = _Emitter()
+    # inputs are read into locals first, so the stores at the end can
+    # never overwrite an input that a later store still reads
+    em.lines = [f"    const int i{i} = c[{i}];" for i in range(n)]
+    lanes = Lanes([_Sym(f"i{i}", em) for i in range(n)])
+    apply_1d(name, n, lanes, _Sym("mn", em), _Sym("mx", em))
+    outs = [lanes.vals[i].expr for i in range(n)]
+    body = em.lines + [f"    c[{i}] = {outs[i]};" for i in range(n)]
+    return "\n".join(
+        [f"RAV1D_HD void {name}{n}(int* c, int mn, int mx) {{",
+         "    (void)mn; (void)mx;"] + body + ["}"]
+    )
+
+
+def generate():
+    parts = [
+        "// Generated by rav1d_tpu_torch/ops/cuda/gen_itx_1d.py from",
+        "// rav1d_tpu/ops/ref/itx.py (_FAMILY): do not edit by hand.",
+        "// Each function runs one n-point 1-D inverse transform in place on",
+        "// c[0..n); mn/mx are the clip bounds of the pass.",
+        "#pragma once",
+        "",
+    ]
+    for name, n in FUNCS:
+        parts.append(emit_function(name, n))
+        parts.append("")
+    return "\n".join(parts)
+
+
+if __name__ == "__main__":
+    sys.stdout.write(generate())

@@ -1,0 +1,323 @@
+"""Seeded synthetic AV1 streams: hand-written headers, random tile data.
+
+An AV1 entropy decoder turns any byte string into a valid symbol sequence,
+so a frame whose uncompressed header is well formed and whose tile payload
+is random bytes is a valid picture that exercises whatever tools the header
+allows. `still_picture` writes the Section-5 OBUs of one 8-bit 4:2:0 key
+frame (temporal delimiter, sequence header, one frame OBU) with screen
+content tools (palette), filter intra, the intra edge filter, CDEF with
+eight nonzero strengths, switchable loop restoration on all three planes
+and TX_MODE_SELECT, so one frame carries every intra tool of the device
+engine's intra path. Options write the frames that lie outside it (high
+bit depth, superres, a following inter frame), for the tests that check
+the port refuses them.
+
+This is test input, not a decoder feature: the oracle for a decode of
+these bytes is the reference decoder's host path.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+OBU_SEQ_HDR = 1
+OBU_TD = 2
+OBU_FRAME = 6
+
+
+class _Bits:
+    """MSB-first bit writer (the inverse of rav1d_tpu.bits.GetBits)."""
+
+    def __init__(self):
+        self.bits = []
+
+    def put(self, value, n):
+        for i in range(n - 1, -1, -1):
+            self.bits.append((value >> i) & 1)
+
+    def trailing(self):
+        """trailing_bits(): a one bit, then zeros to the byte boundary."""
+        self.bits.append(1)
+        self.align()
+
+    def align(self):
+        while len(self.bits) % 8:
+            self.bits.append(0)
+
+    def bytes(self):
+        assert len(self.bits) % 8 == 0
+        out = bytearray()
+        for i in range(0, len(self.bits), 8):
+            v = 0
+            for b in self.bits[i : i + 8]:
+                v = (v << 1) | b
+            out.append(v)
+        return bytes(out)
+
+
+def _leb128(n):
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _obu(obu_type, payload):
+    return bytes([(obu_type << 3) | 2]) + _leb128(len(payload)) + payload
+
+
+def _tile_log2(sz, tgt):
+    k = 0
+    while (sz << k) < tgt:
+        k += 1
+    return k
+
+
+def _seq_header(w, h, *, reduced, bpc, superres):
+    b = _Bits()
+    b.put(0, 3)  # seq_profile: Main (4:2:0, 8 or 10 bit)
+    b.put(1 if reduced else 0, 1)  # still_picture
+    b.put(1 if reduced else 0, 1)  # reduced_still_picture_header
+    level = 8  # seq_level_idx 4.0: up to 2048x1152
+    if reduced:
+        b.put(level, 5)
+    else:
+        b.put(0, 1)  # timing_info_present_flag
+        b.put(0, 1)  # initial_display_delay_present_flag
+        b.put(0, 5)  # operating_points_cnt_minus_1
+        b.put(0, 12)  # operating_point_idc[0]
+        b.put(level, 5)
+        b.put(0, 1)  # seq_tier[0] (level > 7)
+    wb = max((w - 1).bit_length(), 1)
+    hb = max((h - 1).bit_length(), 1)
+    b.put(wb - 1, 4)
+    b.put(hb - 1, 4)
+    b.put(w - 1, wb)
+    b.put(h - 1, hb)
+    if not reduced:
+        b.put(0, 1)  # frame_id_numbers_present_flag
+    b.put(0, 1)  # use_128x128_superblock
+    b.put(1, 1)  # enable_filter_intra
+    b.put(1, 1)  # enable_intra_edge_filter
+    if not reduced:
+        b.put(0, 1)  # enable_interintra_compound
+        b.put(0, 1)  # enable_masked_compound
+        b.put(0, 1)  # enable_warped_motion
+        b.put(0, 1)  # enable_dual_filter
+        b.put(0, 1)  # enable_order_hint
+        b.put(1, 1)  # seq_choose_screen_content_tools (adaptive)
+        b.put(1, 1)  # seq_choose_integer_mv (adaptive)
+    b.put(1 if superres else 0, 1)  # enable_superres
+    b.put(1, 1)  # enable_cdef
+    b.put(1, 1)  # enable_restoration
+    b.put(1 if bpc == 10 else 0, 1)  # high_bitdepth
+    b.put(0, 1)  # mono_chrome
+    b.put(0, 1)  # color_description_present_flag
+    b.put(0, 1)  # color_range
+    b.put(0, 2)  # chroma_sample_position
+    b.put(0, 1)  # separate_uv_delta_q
+    b.put(0, 1)  # film_grain_params_present
+    b.trailing()
+    return b.bytes()
+
+
+def _frame_tail(b, w, h, rng, *, key, q):
+    """Everything from tile_info() to film_grain_params() (obu.py
+    parse_frame_hdr from _parse_tiling on), for 64x64 superblocks."""
+    # tile_info: uniform spacing, one tile
+    sbw = (w + 63) >> 6
+    sbh = (h + 63) >> 6
+    b.put(1, 1)  # uniform_tile_spacing_flag
+    min_log2_cols = _tile_log2(64, sbw)
+    max_log2_cols = _tile_log2(1, min(sbw, 64))
+    max_log2_rows = _tile_log2(1, min(sbh, 64))
+    min_log2_tiles = max(_tile_log2(2304, sbw * sbh), min_log2_cols)
+    assert min_log2_cols == 0 and min_log2_tiles == 0, "one tile only"
+    if max_log2_cols > 0:
+        b.put(0, 1)  # increment_tile_cols_log2
+    if max_log2_rows > 0:
+        b.put(0, 1)  # increment_tile_rows_log2
+    # quantization_params
+    b.put(q, 8)  # base_q_idx
+    b.put(0, 1)  # DeltaQYDc
+    b.put(0, 1)  # DeltaQUDc
+    b.put(0, 1)  # DeltaQUAc
+    b.put(0, 1)  # using_qmatrix
+    b.put(0, 1)  # segmentation_enabled
+    b.put(0, 1)  # delta_q_present
+    # loop_filter_params: nonzero levels on every plane and direction
+    for lv in rng.integers(8, 40, size=4):
+        b.put(int(lv), 6)
+    b.put(int(rng.integers(0, 8)), 3)  # loop_filter_sharpness
+    b.put(0, 1)  # loop_filter_delta_enabled
+    # cdef_params: cdef_bits = 3, eight nonzero strength pairs
+    b.put(int(rng.integers(0, 4)), 2)  # cdef_damping_minus_3
+    b.put(3, 2)  # cdef_bits
+    for _ in range(8):
+        b.put(int(rng.integers(1, 64)), 6)  # cdef_y strength
+        b.put(int(rng.integers(1, 64)), 6)  # cdef_uv strength
+    # lr_params: switchable on all three planes
+    for _ in range(3):
+        b.put(1, 2)  # lr_type: RESTORE_SWITCHABLE
+    b.put(1, 1)  # lr_unit_shift (64 -> 128)
+    b.put(0, 1)  # lr_unit_extra_shift
+    b.put(1, 1)  # lr_uv_shift (4:2:0)
+    b.put(1, 1)  # tx_mode_select
+    if not key:
+        b.put(0, 1)  # reference_select
+        # skip_mode_present is not coded without order hints
+    b.put(0, 1)  # reduced_tx_set
+    if not key:
+        for _ in range(7):
+            b.put(0, 1)  # is_global: identity
+
+
+def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
+               refresh=0xFF):
+    b = _Bits()
+    if not reduced:
+        b.put(0, 1)  # show_existing_frame
+        b.put(0 if key else 1, 2)  # frame_type: KEY / INTER
+        b.put(1, 1)  # show_frame
+        if not key:
+            b.put(1, 1)  # error_resilient_mode
+    b.put(0, 1)  # disable_cdf_update
+    b.put(1 if key else 0, 1)  # allow_screen_content_tools
+    if key:
+        b.put(0, 1)  # force_integer_mv (seq adaptive)
+    if not reduced:
+        b.put(0, 1)  # frame_size_override_flag
+    if not key:
+        b.put(refresh, 8)  # refresh_frame_flags
+        for _ in range(7):
+            b.put(0, 3)  # ref_frame_idx: all slot 0 (the key frame)
+    if superres:
+        b.put(1, 1)  # use_superres
+        b.put(0, 3)  # coded_denom: 9/8
+    b.put(0, 1)  # render_and_frame_size_different
+    if key:
+        if not superres:
+            b.put(0, 1)  # allow_intrabc
+    else:
+        b.put(0, 1)  # allow_high_precision_mv
+        b.put(1, 1)  # is_filter_switchable
+        b.put(0, 1)  # is_motion_mode_switchable
+    if not reduced:
+        b.put(0, 1)  # disable_frame_end_update_cdf
+    _frame_tail(b, w, h, rng, key=key, q=q)
+    b.align()  # byte_alignment() before the tile group
+    # tile_group_obu with one tile: no tile_start_and_end_present_flag;
+    # the last tile's data runs to the end of the OBU
+    tile = rng.integers(0, 256, size=payload_bytes, dtype=np.uint8).tobytes()
+    return _obu(OBU_FRAME, b.bytes() + tile)
+
+
+def still_picture(w, h, seed, *, bpc=8, superres=False):
+    """One temporal unit: TD + sequence header + one key frame OBU whose
+    tile payload is `numpy.random.default_rng(seed)` bytes, about one byte
+    per two pixels (random symbols consume more than real ones)."""
+    rng = np.random.default_rng(seed)
+    q = int(rng.integers(60, 160))
+    seq = _seq_header(w, h, reduced=True, bpc=bpc, superres=superres)
+    frame = _frame_obu(w, h, rng, reduced=True, key=True, q=q,
+                       payload_bytes=max(w * h // 2, 256), superres=superres)
+    return _obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + frame
+
+
+def key_then_inter(w, h, seed):
+    """Two temporal units: a key frame, then an inter frame that predicts
+    from it (the inter path is outside the intra slice)."""
+    rng = np.random.default_rng(seed)
+    seq = _seq_header(w, h, reduced=False, bpc=8, superres=False)
+    key = _frame_obu(w, h, rng, reduced=False, key=True, q=100,
+                     payload_bytes=max(w * h // 2, 256), superres=False)
+    inter = _frame_obu(w, h, rng, reduced=False, key=False, q=100,
+                       payload_bytes=max(w * h // 2, 256), superres=False)
+    return [_obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + key,
+            _obu(OBU_TD, b"") + inter]
+
+
+def picture_md5(pic):
+    """MD5 over the visible planes (the md5 muxer's digest)."""
+    import hashlib
+
+    m = hashlib.md5()
+    for rows in pic.iter_plane_rows():
+        m.update(rows)
+    return m.hexdigest()
+
+
+def decode_md5s(dec, packets):
+    """Feed `packets` to a decoder with the rav1d_tpu API; MD5 per picture."""
+    from rav1d_tpu.decoder import EAgain
+
+    out = []
+    for data in packets:
+        dec.send_data(data)
+        while True:
+            try:
+                out.append(picture_md5(dec.get_picture()))
+            except EAgain:
+                break
+    return out
+
+
+def capture_frames(packets):
+    """Decode on the reference host path and return each frame's context
+    as its dense pass starts (syntax done, work items materialized), with
+    the reference planner's plan: [(f, plan)]. Each frame's dense pass
+    then runs on the host as usual."""
+    from rav1d_tpu.decoder import Decoder, Settings
+    from rav1d_tpu.engine.plan import build_plan
+    from rav1d_tpu.recon import frame as _frame
+
+    got = []
+    orig = _frame.decode_frame_dense
+
+    def hook(f):
+        _frame.materialize_work_items(f)
+        got.append((f, build_plan(f._dense_args[0], f)))
+        return orig(f)
+
+    _frame.decode_frame_dense = hook
+    try:
+        decode_md5s(Decoder(Settings(apply_grain=False)), packets)
+    finally:
+        _frame.decode_frame_dense = orig
+    return got
+
+
+def features(f, plan):
+    """What a captured frame exercises: item counts per intra tool, LR
+    stripe chunks per kind, chunks of the 32- and 64-point transform
+    classes, and the filled lanes of each transform class ("WxH": N)."""
+    from rav1d_tpu.engine.plan import MODE_CFL_DC
+    from rav1d_tpu.syntax.levels import FILTER_PRED, Z1_PRED, Z2_PRED, Z3_PRED
+
+    from .engine.layout import LR0, R0, SIZES
+    from .engine.pack import pack_frame
+
+    pack = pack_frame(f, plan)
+    hdr = pack.hdr
+    modes = {}
+    for it in plan.items:
+        modes[it.mode] = modes.get(it.mode, 0) + 1
+    lr = {kind: sum(int(hdr[LR0 + 2 * (4 * pl + ki) + 1]) for pl in range(3))
+          for ki, kind in enumerate(("wiener", "sgr5x5", "sgr3x3", "sgrmix"))}
+    big = sum(int(hdr[R0 + 2 * si + 1]) for si, (w, h) in enumerate(SIZES)
+              if max(w, h) >= 32)
+    return {
+        "items": len(plan.items), "waves": plan.n_waves,
+        "palette": len(plan.pal),
+        "filter": modes.get(FILTER_PRED, 0),
+        "directional": sum(modes.get(m, 0) for m in (Z1_PRED, Z2_PRED, Z3_PRED)),
+        "cfl": sum(v for m, v in modes.items() if m >= MODE_CFL_DC),
+        "lr_chunks": lr, "tx32_64_chunks": big,
+        "tx_lanes": {"%dx%d" % SIZES[k]: n for k, n in pack.tx_valid.items()
+                     if k != "wht"},
+    }

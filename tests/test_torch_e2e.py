@@ -1,0 +1,123 @@
+"""Whole decodes through rav1d_tpu_torch.Decoder on the CPU.
+
+Seeded synthetic still pictures (rav1d_tpu_torch/synth.py) at small sizes
+that are not multiples of 64 decode through the port's Decoder with
+device="cpu" (every program, with the kernels' plain versions) to the same
+MD5 as the rav1d_tpu host path, with every frame on the engine and no
+fallback. Frames outside the slice (inter, 10-bit, superres) raise
+NotImplementedError. Where the dav1d test vectors exist, two conformance
+streams are held to their meson MD5s; elsewhere that test skips.
+"""
+
+import os
+
+import pytest
+
+import rav1d_tpu
+import rav1d_tpu_torch as T
+from rav1d_tpu_torch import synth
+from rav1d_tpu_torch.engine import run
+
+CASES = [(200, 120, 0), (200, 120, 1), (72, 136, 0), (72, 136, 2),
+         (120, 72, 6), (136, 96, 10)]
+
+
+def _host(packets):
+    return synth.decode_md5s(
+        rav1d_tpu.Decoder(rav1d_tpu.Settings(apply_grain=False)), packets)
+
+
+@pytest.mark.parametrize("w,h,seed", CASES)
+def test_synthetic_matches_host_path(w, h, seed):
+    packets = [synth.still_picture(w, h, seed)]
+    want = _host(packets)
+    before = dict(T.engine.stats)
+    run.reset_stats()
+    got = synth.decode_md5s(
+        T.Decoder(rav1d_tpu.Settings(apply_grain=False), device="cpu"), packets)
+    assert got == want
+    assert T.engine.stats["frames"] - before["frames"] == 1
+    assert T.engine.stats["fallback"] == before["fallback"]
+    assert set(run.stage_ms) >= {"pack", "upload", "resid", "wave", "filter",
+                                 "fetch", "programs"}
+    assert run.stage_ms["programs"] > 0
+
+
+def test_one_decoder_many_pictures():
+    """One Decoder, several pictures of different sizes: the reused upload
+    staging buffer and the per-frame state carry nothing across frames."""
+    packets = [synth.still_picture(136, 96, 10), synth.still_picture(200, 120, 0),
+               synth.still_picture(136, 96, 6)]
+    want = _host(packets)
+    got = synth.decode_md5s(
+        T.Decoder(rav1d_tpu.Settings(apply_grain=False), device="cpu"), packets)
+    assert got == want and len(got) == 3
+
+
+@pytest.mark.parametrize("seed", [1, 6])
+def test_synthetic_frame_exercises_the_slice(seed):
+    """A synthetic picture carries every intra tool of the slice: palette,
+    filter intra, directional and CfL modes, all LR kinds, 32/64-point
+    transforms, and blocks of every kernel class."""
+    from rav1d_tpu_torch.engine.layout import KERNEL_SIZES
+
+    (fp,) = synth.capture_frames([synth.still_picture(512, 256, seed)])
+    ft = synth.features(*fp)
+    for k in ("palette", "filter", "directional", "cfl", "tx32_64_chunks"):
+        assert ft[k] > 0, (k, ft)
+    assert ft["lr_chunks"]["wiener"] > 0, ft
+    assert ft["lr_chunks"]["sgr5x5"] + ft["lr_chunks"]["sgrmix"] > 0, ft
+    assert ft["lr_chunks"]["sgr3x3"] + ft["lr_chunks"]["sgrmix"] > 0, ft
+    assert {"%dx%d" % wh for wh in KERNEL_SIZES} <= set(ft["tx_lanes"]), ft
+
+
+@pytest.mark.parametrize("kind", ["inter", "10bit", "superres"])
+def test_outside_slice_raises(kind):
+    packets = {
+        "inter": lambda: synth.key_then_inter(96, 64, 1),
+        "10bit": lambda: [synth.still_picture(96, 64, 1, bpc=10)],
+        "superres": lambda: [synth.still_picture(96, 64, 1, superres=True)],
+    }[kind]()
+    assert len(_host(packets)) == len(packets)  # valid streams
+    dec = T.Decoder(rav1d_tpu.Settings(apply_grain=False), device="cpu")
+    with pytest.raises(NotImplementedError):
+        synth.decode_md5s(dec, packets)
+
+
+VECTORS = [
+    ("8-bit/issues/324_tennis.ivf", "53a0ba36b3a3656e6a12efb358d71f9e"),
+    ("8-bit/issues/320_tennis.ivf", "86e9c91b80bb738693c3781e728fd7f5"),
+]
+
+
+def _data_dir():
+    # $RAV1D_TEST_DATA, or the directory tests/conftest.py names
+    from conftest import TEST_DATA
+
+    for d in (os.environ.get("RAV1D_TEST_DATA"), TEST_DATA):
+        if d and os.path.isdir(d):
+            return d
+    return None
+
+
+@pytest.mark.parametrize("rel,md5", VECTORS, ids=["324_tennis", "320_tennis"])
+def test_conformance_vectors(rel, md5):
+    d = _data_dir()
+    if d is None or not os.path.exists(os.path.join(d, rel)):
+        pytest.skip("dav1d-test-data not present")
+    import hashlib
+
+    from rav1d_tpu.io.ivf import IvfDemuxer
+
+    dec = T.Decoder(rav1d_tpu.Settings(apply_grain=False), device="cpu")
+    m = hashlib.md5()
+    for pkt in IvfDemuxer(os.path.join(d, rel)):
+        dec.send_data(pkt.data, pkt.timestamp)
+        while True:
+            try:
+                pic = dec.get_picture()
+            except rav1d_tpu.EAgain:
+                break
+            for rows in pic.iter_plane_rows():
+                m.update(rows)
+    assert m.hexdigest() == md5
