@@ -1,5 +1,6 @@
-// Batched 2-D AV1 inverse transform for the nine small tx classes
-// (4x4 ... 16x16), CUDA C++ for sm_90a.
+// Batched 2-D AV1 inverse transforms, CUDA C++ for sm_90a: the nine small
+// tx classes (4x4 ... 16x16, rav1d_itx) and the 8x8 DCT_DCT batch
+// (rav1d_idct8x8, at the end of the file).
 //
 // Replaces the TPU kernel rav1d_tpu/ops/pallas/itx_all.py itx_pallas_core:
 // the same function, bit-exact with rav1d_tpu/ops/ref/itx.py (the 1-D
@@ -9,10 +10,14 @@
 // the class shift and clip to the column bounds, run the column pass by
 // the second code, output (v + 8) >> 4.
 //
-// Bound: device-memory bytes. Each coefficient is read once (4 B) plus the
+// Bound: close to balanced. Each coefficient is read once (4 B) plus the
 // block's two codes, and each residual written once (4 B): about 8 B of
-// traffic per coefficient against about 100 integer operations, far below
-// what would make the H100's integer units the limit.
+// traffic per coefficient against 14 (4x4 identity) to 53 (16x16 adst)
+// 32-bit integer operations (ops/cuda/gen_itx_1d.py op_count), 2 to 7 per
+// byte, while the H100 issues about 5 int32 operations in the time it moves
+// one byte (132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, NVIDIA's Hopper
+// whitepaper, against 3.35 TB/s). Which limit binds depends on the mix of
+// classes and 1-D types; chip_smoke.py computes it for the main path's.
 //
 // Design: one thread per transform block, the w*h coefficients in local
 // memory, one template instance per (w, h); the thread branches on the
@@ -119,6 +124,41 @@ RAV1D_HD void itx_clips(int bpc, int* b) {
     b[0] = rmn; b[1] = ~rmn; b[2] = cmn; b[3] = ~cmn;
 }
 
+// ---------------------------------------------------------------------------
+// 8x8 DCT_DCT batch. Replaces the TPU kernel rav1d_tpu/ops/pallas/itx8.py
+// idct8x8_batch_pallas: per block, the row DCT8 clipped to the row bounds,
+// (v + 1) >> 1 clipped to the column bounds, the column DCT8, (v + 8) >> 4
+// (the itx kernel's 8x8 class with both codes 0). Both 1-D passes are the
+// compile-time dct8 of itx_1d.cuh: no per-block codes, no branch on them.
+//
+// Bound: device-memory bytes, narrowly. 512 B move per block (each
+// coefficient read once, each residual written once) against 1,952 integer
+// operations (ops/cuda/gen_itx_1d.py op_count), 3.8 per byte, while the
+// card issues about 5 int32 operations in the time it moves one byte (see
+// the itx kernel's note above).
+//
+// Design: a thread block of 128 threads takes 16 blocks; it loads their
+// 1,024 consecutive words coalesced into shared memory, each thread then
+// runs one row (row pass) and one column (column pass) of one block in
+// place, and the block stores coalesced. Rows are padded to 9 words, so the
+// 32 threads of a warp hit 32 different banks in both passes.
+
+// the row pass of one row (8 values at stride s, in place)
+RAV1D_HD void idct8x8_row(int* v, int s, int rmn, int rmx, int cmn, int cmx) {
+    int c[8];
+    for (int i = 0; i < 8; i++) c[i] = v[i * s];
+    dct8(c, rmn, rmx);
+    for (int i = 0; i < 8; i++) v[i * s] = clip3(wadd(c[i], 1) >> 1, cmn, cmx);
+}
+
+// the column pass of one column (8 values at stride s, in place)
+RAV1D_HD void idct8x8_col(int* v, int s, int cmn, int cmx) {
+    int c[8];
+    for (int i = 0; i < 8; i++) c[i] = v[i * s];
+    dct8(c, cmn, cmx);
+    for (int i = 0; i < 8; i++) v[i * s] = wadd(c[i], 8) >> 4;
+}
+
 #ifdef __CUDACC__
 
 template <int W, int H>
@@ -172,7 +212,46 @@ extern "C" int rav1d_itx(const void* cb, const void* first,
     return (int)cudaGetLastError();
 }
 
-#else  // a host build of the same block function, for the CPU tests
+#define I8_BLOCKS 16               // 8x8 blocks per thread block
+#define I8_PITCH 9                 // shared-memory row pitch, in words
+#define I8_TILE (8 * I8_PITCH)     // one block's words in shared memory
+
+__global__ void __launch_bounds__(128)
+idct8x8_kernel(const int* __restrict__ cb, int* __restrict__ out, int n,
+               int rmn, int rmx, int cmn, int cmx) {
+    __shared__ int tile[I8_BLOCKS * I8_TILE];
+    const int t = threadIdx.x;
+    const size_t base = (size_t)blockIdx.x * (I8_BLOCKS * 64);
+    const int nb = min(I8_BLOCKS, n - (int)blockIdx.x * I8_BLOCKS);
+    for (int k = t; k < nb * 64; k += blockDim.x)
+        tile[(k >> 6) * I8_TILE + ((k >> 3) & 7) * I8_PITCH + (k & 7)] =
+            cb[base + k];
+    __syncthreads();
+    const int b = t >> 3, r = t & 7;
+    if (b < nb)
+        idct8x8_row(&tile[b * I8_TILE + r * I8_PITCH], 1, rmn, rmx, cmn, cmx);
+    __syncthreads();
+    if (b < nb) idct8x8_col(&tile[b * I8_TILE + r], I8_PITCH, cmn, cmx);
+    __syncthreads();
+    for (int k = t; k < nb * 64; k += blockDim.x)
+        out[base + k] =
+            tile[(k >> 6) * I8_TILE + ((k >> 3) & 7) * I8_PITCH + (k & 7)];
+}
+
+// Plain C entry (bound with ctypes). cb/out: (n, 8, 8) int32 contiguous.
+// Launches on `stream` and returns the launch's cudaGetLastError().
+extern "C" int rav1d_idct8x8(const void* cb, void* out, int n, int bpc,
+                             void* stream) {
+    if (n <= 0) return 0;
+    int b[4];
+    itx_clips(bpc, b);
+    const int grid = (n + I8_BLOCKS - 1) / I8_BLOCKS;
+    idct8x8_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+        (const int*)cb, (int*)out, n, b[0], b[1], b[2], b[3]);
+    return (int)cudaGetLastError();
+}
+
+#else  // a host build of the same block functions, for the CPU tests
 
 template <int W, int H>
 static void host_loop(const int* cb, const int* f, const int* s, int* out,
@@ -197,6 +276,20 @@ extern "C" int rav1d_itx_host(const int* cb, const int* f, const int* s,
         case 1608: host_loop<16, 8>(cb, f, s, o, n, b); break;
         case 1616: host_loop<16, 16>(cb, f, s, o, n, b); break;
         default: return -1;
+    }
+    return 0;
+}
+
+extern "C" int rav1d_idct8x8_host(const int* cb, int* o, int n, int bpc) {
+    int b[4];
+    itx_clips(bpc, b);
+    for (int i = 0; i < n; i++) {
+        int v[64];
+        for (int k = 0; k < 64; k++) v[k] = cb[(size_t)i * 64 + k];
+        for (int r = 0; r < 8; r++)
+            idct8x8_row(v + r * 8, 1, b[0], b[1], b[2], b[3]);
+        for (int c = 0; c < 8; c++) idct8x8_col(v + c, 8, b[2], b[3]);
+        for (int k = 0; k < 64; k++) o[(size_t)i * 64 + k] = v[k];
     }
     return 0;
 }

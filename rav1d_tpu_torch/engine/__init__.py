@@ -2,8 +2,8 @@
 
 Counterpart of rav1d_tpu/engine/__init__.py for the port's slice (intra
 8-bit 4:2:0 frames without superres). `stats` counts the frames the engine
-was asked to decode and the ones it handed to the reference's host path
-(the reference's own gates: intra block copy).
+was asked to decode and the ones it handed to the numpy host path (the
+planner's own gate: intra block copy).
 """
 
 from __future__ import annotations
@@ -13,10 +13,9 @@ stats = {"frames": 0, "fallback": 0}
 
 def run_dense(t, f, up) -> bool:
     """Run the frame's dense pass on the device of `up` (an engine/blob.py
-    Uploader). Returns False when the reference's planner declines the
-    frame (caller runs the host path)."""
-    from rav1d_tpu.engine.plan import build_plan
-
+    Uploader). Returns False when the planner declines the frame (caller
+    runs the host path)."""
+    from .plan import build_plan
     from .run import execute
 
     stats["frames"] += 1

@@ -1,20 +1,79 @@
-"""Upload of the packed frame blob: one int32 device tensor per frame.
+"""The frame blob: its host word allocator and its upload, one int32 device
+tensor per frame.
 
-Port of rav1d_tpu/engine/blob2.py FrameBlob.upload. The used prefix of the
-blob is written into a reused staging buffer (page-locked for a CUDA
-device), copied to the device in one host-to-device transfer, and
-zero-padded there to the capacity the JAX engine pads to
-(run2.det_cap_words, rounded up to a power of two), so every region read
-lands inside the tensor exactly as it does in the reference.
+`bucket_pow2` and `FrameBlob` (its allocator half) are copies of
+rav1d_tpu/engine/blob2.py, and `det_cap_words` of run2.det_cap_words;
+`Uploader` ports FrameBlob.upload. The used prefix of the blob is written
+into a reused staging buffer (page-locked for a CUDA device), copied to the
+device in one host-to-device transfer, and zero-padded there to the
+capacity the JAX engine pads to (det_cap_words, rounded up to a power of
+two), so every region read lands inside the tensor exactly as it does in
+the reference.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from rav1d_tpu.engine.blob2 import bucket_pow2
 
-from .pack import det_cap_words
+def bucket_pow2(n, lo=4096):
+    b = lo
+    while b < n:
+        b <<= 1
+    return b
+
+
+def det_cap_words(psz, bpc):
+    """Device blob capacity for a frame geometry, the one the JAX engine
+    pads to (a stable compile key there); a frame that overflows it pads
+    to the next power of two of its own size."""
+    return bucket_pow2(psz * (8 if bpc == 8 else 16))
+
+
+class FrameBlob:
+    """Sequential word allocator over the frame's staging buffer."""
+
+    __slots__ = ("parts", "zparts", "pos")
+
+    def __init__(self, hdr_len):
+        self.parts = []
+        self.zparts = []  # (off, n) regions explicitly zeroed at upload
+        self.pos = hdr_len  # header region occupies [0, hdr_len)
+
+    def alloc_zeros(self, n):
+        """Reserve an n-word all-zero region (e.g. a no-op filter map);
+        zeroed at upload since the staging buffer is reused across frames."""
+        off = self.pos
+        self.pos += n
+        self.zparts.append((off, n))
+        return off
+
+    def add_words(self, arr_i32):
+        """Append an int32 ndarray; returns its word offset."""
+        a = np.ascontiguousarray(arr_i32, dtype=np.int32).reshape(-1)
+        off = self.pos
+        self.parts.append((off, a))
+        self.pos += a.size
+        return off
+
+    def add_i16(self, arr):
+        """Append an int16 array packed two-per-word (little-endian pair
+        order matches lax.bitcast_convert_type int32->int16 lane order).
+        Returns the word offset; element i lives at word off + i//2."""
+        a = np.ascontiguousarray(arr, dtype=np.int16).reshape(-1)
+        if a.size & 1:
+            a = np.concatenate([a, np.zeros(1, np.int16)])
+        return self.add_words(a.view(np.int32))
+
+    def add_u8(self, arr):
+        """Append a uint8 array packed four-per-word; element i lives in
+        byte lane i%4 of word off + i//4."""
+        a = np.ascontiguousarray(arr, dtype=np.uint8).reshape(-1)
+        pad = (-a.size) % 4
+        if pad:
+            a = np.concatenate([a, np.zeros(pad, np.uint8)])
+        return self.add_words(a.view(np.int32))
 
 
 class Uploader:

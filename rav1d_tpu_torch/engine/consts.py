@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from rav1d_tpu.tables.spec_data import (
+from ..tables.spec_data import (
     DR_INTRA_DERIVATIVE,
     FILTER_INTRA_TAPS,
     SGR_X_BY_X,

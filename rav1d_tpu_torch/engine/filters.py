@@ -14,11 +14,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from rav1d_tpu.ops.ref.lf import WRITE_EXTENT
-
 from ..ops.cdef import MISSING, cdef_filter_batch, find_dir_batch, ulog2
 from ..ops.lf import filter_lines_batch
 from ..ops.lr import sgr_batch, wiener_batch
+from ..ops.ref.lf import WRITE_EXTENT
 from .consts import tables
 
 I32 = torch.int32

@@ -12,9 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from rav1d_tpu.ops.ref import itx as R
-
 from ..ops.itx import Lanes, apply_1d
+from ..ops.ref import itx as R
 from .layout import _VCODE, variants_for
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from rav1d_tpu.ops.ref import itx as R
+from ..ops.ref import itx as R
 
 # ------------------------------- header ----------------------------------
 

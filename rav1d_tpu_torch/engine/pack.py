@@ -1,8 +1,9 @@
 """Host packers: serialize one decoded frame's plan into the frame blob.
 
-The functions from det_cap_words to _pack_lr are copies of
+The functions from _chunked to _pack_lr are copies of
 rav1d_tpu/engine/run2.py's numpy packers (that module imports JAX at load
-time), changed only in their import lines; tests/test_torch_pack.py holds
+time), changed only in their import lines and without run2's
+RAV1D_ENGINE_SKIP stage switch; tests/test_torch_pack.py holds
 the blobs they write to run2's word for word. `pack_frame` is the packing
 half of run2.execute for an intra frame, and also returns the host-side
 counts the device programs branch on, so no program reads a count back
@@ -14,29 +15,17 @@ outside this port's slice.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
-from rav1d_tpu.engine.blob2 import FrameBlob
-from rav1d_tpu.engine.plan import CAP, MODE_CFL_DC, MODE_IDENT, item_class
-from rav1d_tpu.syntax.levels import WHT_WHT
-
+from ..syntax.levels import WHT_WHT
+from .blob import FrameBlob
 from .layout import (
     CDEF0, CF0, DB0, FI, HDR_LEN, LR0, LRB, PAL0, PAL_B, R0, SIZES,
     TXTP_FIRST, TXTP_SECOND, WAVE0, WHT0, WHT_B, chunk_for,
 )
+from .plan import CAP, MODE_CFL_DC, MODE_IDENT, item_class
 
 SIZE_IDX = {wh: i for i, wh in enumerate(SIZES)}
-
-
-def det_cap_words(psz, bpc):
-    """Deterministic device blob capacity for a frame geometry: a stable
-    compile key the warm thread can predict before the first pack. Frames
-    that overflow it fall back to the power-of-2 high-water path."""
-    from rav1d_tpu.engine.blob2 import bucket_pow2
-
-    return bucket_pow2(psz * (8 if bpc == 8 else 16))
 
 
 def _chunked(cols_rows, n, B, pads=None):
@@ -135,7 +124,7 @@ def _pack_class(items, NW, B, psz):
     descriptor expanded on device by wave2._build_coords). Lane 0 carries
     the per-wave feature flags and item count that let the device
     cond-skip absent features."""
-    from rav1d_tpu.syntax.levels import FILTER_PRED, Z1_PRED, Z2_PRED, Z3_PRED
+    from ..syntax.levels import FILTER_PRED, Z1_PRED, Z2_PRED, Z3_PRED
     from .layout import (
         F_CFL, F_FILTER, F_IDENT, F_II, F_Z, FIELDS, N_FIELDS,
     )
@@ -203,20 +192,13 @@ def _pack_wave(blob, hdr, plan, psz, aw):
 
 
 
-def _skip(stage):
-    """RAV1D_ENGINE_SKIP=deblock,cdef,lr,resid,wave,inter — debugging aid:
-    zero the stage's descriptor counts/maps (traced data, so no recompile)
-    to bisect engine-vs-host mismatches per stage."""
-    return stage in os.environ.get("RAV1D_ENGINE_SKIP", "").split(",")
-
-
 def _pack_deblock(f, blob, hdr):
     """Byte-packed final class|level maps (host-resolved: neighbour-level
     fallback + tile fixups; lf_apply.rs:597). Absent deblock points at a
     zeroed region (level 0 = no-op)."""
-    from rav1d_tpu.headers import PixelLayout
-    from rav1d_tpu.ops.ref.lf import calc_eih
-    from rav1d_tpu.recon.lf import _fix_tile_cols
+    from ..headers import PixelLayout
+    from ..ops.ref.lf import calc_eih
+    from ..recon.lf import _fix_tile_cols
 
     frame_hdr = f.frame_hdr
     layout = f.cur.layout
@@ -234,8 +216,6 @@ def _pack_deblock(f, blob, hdr):
         layout != PixelLayout.I400
         and (frame_hdr.loopfilter.level_u or frame_hdr.loopfilter.level_v)
     )
-    if _skip("deblock"):
-        have_y = have_uv = False
     if have_y or have_uv:
         _fix_tile_cols(f)
 
@@ -284,7 +264,7 @@ def _pack_cdef(f, blob, hdr):
     active = any(
         cdef.y_strength[i] or cdef.uv_strength[i]
         for i in range(1 << cdef.n_bits)
-    ) and not _skip("cdef")
+    )
     if not active:
         hdr[CDEF0] = blob.alloc_zeros((nby * nbx + 3) // 4)
         hdr[CDEF0 + 1] = blob.alloc_zeros((nby * nbx + 3) // 4)
@@ -309,8 +289,8 @@ def _collect_lr(f):
     """Walk the LR unit grid exactly like recon/lr_apply.py apply_lr and
     collect per-stripe descriptors grouped by (kind, plane)
     (lr_apply.rs:261). Returns (groups, (Wy, Wc))."""
-    from rav1d_tpu.headers import PixelLayout, RestorationType
-    from rav1d_tpu.recon.lr_apply import RestorationUnit, restore_planes_mask
+    from ..headers import PixelLayout, RestorationType
+    from ..recon.lr_apply import RestorationUnit, restore_planes_mask
 
     frame_hdr = f.frame_hdr
     restore_planes = restore_planes_mask(frame_hdr)
@@ -352,7 +332,7 @@ def _collect_lr(f):
                 p = (lr.filter_h[0], lr.filter_h[1], lr.filter_h[2],
                      lr.filter_v[0], lr.filter_v[1], lr.filter_v[2])
             else:
-                from rav1d_tpu.tables.spec_data import SGR_PARAMS
+                from ..tables.spec_data import SGR_PARAMS
 
                 s0 = int(SGR_PARAMS[lr.sgr_idx][0])
                 s1 = int(SGR_PARAMS[lr.sgr_idx][1])
@@ -433,8 +413,6 @@ _KINDS = ("w", 0, 1, 2)
 
 
 def _pack_lr(f, blob, hdr):
-    if _skip("lr"):
-        return (96, 96)
     groups, lr_ws = _collect_lr(f)
     for (kind, pl), cols in groups.items():
         a = np.asarray(cols, np.int32).T  # (16, n)

@@ -17,16 +17,15 @@ from __future__ import annotations
 
 import torch
 
-from rav1d_tpu.engine.plan import CAP, CLS_L, CLS_S
-from rav1d_tpu.syntax.levels import FILTER_PRED
-
 from ..ops.cuda import itx as cuda_itx
+from ..syntax.levels import FILTER_PRED
 from . import filters as FL
 from .kernels import itx_any_core, wht_core
 from .layout import (
     CDEF0, CF0, DB0, FI, KERNEL_SIZES, LR0, LRB, N_FIELDS, PAL0, PAL_B, R0,
     SIZES, WAVE0, WHT0, WHT_B, chunk_for,
 )
+from .plan import CAP, CLS_L, CLS_S
 from .wave import build_coords, class_step, unpack
 
 I32 = torch.int32

@@ -18,8 +18,7 @@ import time
 
 import torch
 
-from rav1d_tpu.headers import PixelLayout
-
+from ..headers import PixelLayout
 from . import programs as P
 from .pack import pack_frame
 

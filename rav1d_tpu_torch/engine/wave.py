@@ -17,17 +17,16 @@ from __future__ import annotations
 
 import torch
 
-from rav1d_tpu.engine.plan import (
-    MODE_CFL_128, MODE_CFL_DC, MODE_CFL_LEFT, MODE_CFL_TOP, MODE_IDENT,
-)
-from rav1d_tpu.syntax.levels import (
+from ..ops import ipred_dyn as D
+from ..syntax.levels import (
     DC_128_PRED, DC_PRED, FILTER_PRED, HOR_PRED, LEFT_DC_PRED, PAETH_PRED,
     SMOOTH_H_PRED, SMOOTH_PRED, SMOOTH_V_PRED, TOP_DC_PRED, VERT_PRED,
     Z1_PRED, Z2_PRED, Z3_PRED,
 )
-
-from ..ops import ipred_dyn as D
 from .layout import F_II, FIELDS
+from .plan import (
+    MODE_CFL_128, MODE_CFL_DC, MODE_CFL_LEFT, MODE_CFL_TOP, MODE_IDENT,
+)
 
 I32 = torch.int32
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rav1d_tpu.tables.spec_data import CDEF_DIRECTIONS
+from ..tables.spec_data import CDEF_DIRECTIONS
 
 MISSING = -32768
 I32 = torch.int32

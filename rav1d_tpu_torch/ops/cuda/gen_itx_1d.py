@@ -97,6 +97,15 @@ def emit_function(name, n):
     )
 
 
+def op_count(name, n):
+    """32-bit integer operations of one generated 1-D transform: each
+    add, subtract, multiply, shift and negate counts one, a clip two (a
+    min and a max). Used for the kernels' bounds."""
+    body = emit_function(name, n).splitlines()
+    temps = [ln for ln in body if ln.startswith("    const int t")]
+    return len(temps) + sum("clip3(" in ln for ln in temps)
+
+
 def generate():
     parts = [
         "// Generated by rav1d_tpu_torch/ops/cuda/gen_itx_1d.py from",

@@ -22,15 +22,22 @@ launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LIB = None
 
 
 def lib():
-    """Build (at first use) and load the kernel library."""
-    so = build.build("itx", "itx.cu", deps=("itx_1d.cuh",))
-    fn = so.rav1d_itx
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-    fn.restype = _I
-    return so
+    """Build (at first use) and load the kernel library (csrc/itx.cu: the
+    itx kernel and the 8x8 DCT_DCT kernel of ops/itx8.py); the handle and
+    its entry points' signatures are set up once."""
+    global _LIB
+    if _LIB is None:
+        so = build.build("itx", "itx.cu", deps=("itx_1d.cuh",))
+        so.rav1d_itx.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        so.rav1d_itx.restype = _I
+        so.rav1d_idct8x8.argtypes = [_P, _P, _I, _I, _P]
+        so.rav1d_idct8x8.restype = _I
+        _LIB = so
+    return _LIB
 
 
 def itx(cb, firstv, secondv, w, h, bpc):

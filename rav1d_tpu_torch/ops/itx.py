@@ -9,7 +9,7 @@ wraps like the JAX engine's int32 arithmetic.
 
 from __future__ import annotations
 
-from rav1d_tpu.ops.ref import itx as R
+from .ref import itx as R
 
 
 class Lanes:

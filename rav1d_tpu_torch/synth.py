@@ -26,7 +26,7 @@ OBU_FRAME = 6
 
 
 class _Bits:
-    """MSB-first bit writer (the inverse of rav1d_tpu.bits.GetBits)."""
+    """MSB-first bit writer (the inverse of bits.GetBits)."""
 
     def __init__(self):
         self.bits = []
@@ -252,9 +252,12 @@ def picture_md5(pic):
     return m.hexdigest()
 
 
-def decode_md5s(dec, packets):
-    """Feed `packets` to a decoder with the rav1d_tpu API; MD5 per picture."""
-    from rav1d_tpu.decoder import EAgain
+def decode_md5s(dec, packets, eagain=None):
+    """Feed `packets` to a decoder with the rav1d_tpu API; MD5 per picture.
+    `eagain` is the class get_picture raises when no picture is ready
+    (default: this package's EAgain)."""
+    if eagain is None:
+        from .decoder import EAgain as eagain
 
     out = []
     for data in packets:
@@ -262,33 +265,29 @@ def decode_md5s(dec, packets):
         while True:
             try:
                 out.append(picture_md5(dec.get_picture()))
-            except EAgain:
+            except eagain:
                 break
     return out
 
 
 def capture_frames(packets):
-    """Decode on the reference host path and return each frame's context
-    as its dense pass starts (syntax done, work items materialized), with
-    the reference planner's plan: [(f, plan)]. Each frame's dense pass
-    then runs on the host as usual."""
-    from rav1d_tpu.decoder import Decoder, Settings
-    from rav1d_tpu.engine.plan import build_plan
-    from rav1d_tpu.recon import frame as _frame
+    """Decode on the port's host path and return each frame's context as
+    its dense pass starts (syntax done, work items materialized), with the
+    planner's plan: [(f, plan)]. Each frame's dense pass then runs on the
+    host as usual."""
+    from .decoder import Decoder, Settings
+    from .engine.plan import build_plan
+    from .recon.frame import materialize_work_items
 
     got = []
-    orig = _frame.decode_frame_dense
 
-    def hook(f):
-        _frame.materialize_work_items(f)
-        got.append((f, build_plan(f._dense_args[0], f)))
-        return orig(f)
+    class _Capture(Decoder):
+        def _decode_dense(self, f):
+            materialize_work_items(f)
+            got.append((f, build_plan(f._dense_args[0], f)))
+            super()._decode_dense(f)
 
-    _frame.decode_frame_dense = hook
-    try:
-        decode_md5s(Decoder(Settings(apply_grain=False)), packets)
-    finally:
-        _frame.decode_frame_dense = orig
+    decode_md5s(_Capture(Settings(apply_grain=False), host_path=True), packets)
     return got
 
 
@@ -296,11 +295,10 @@ def features(f, plan):
     """What a captured frame exercises: item counts per intra tool, LR
     stripe chunks per kind, chunks of the 32- and 64-point transform
     classes, and the filled lanes of each transform class ("WxH": N)."""
-    from rav1d_tpu.engine.plan import MODE_CFL_DC
-    from rav1d_tpu.syntax.levels import FILTER_PRED, Z1_PRED, Z2_PRED, Z3_PRED
-
     from .engine.layout import LR0, R0, SIZES
     from .engine.pack import pack_frame
+    from .engine.plan import MODE_CFL_DC
+    from .syntax.levels import FILTER_PRED, Z1_PRED, Z2_PRED, Z3_PRED
 
     pack = pack_frame(f, plan)
     hdr = pack.hdr

@@ -24,7 +24,8 @@ CASES = [(200, 120, 0), (200, 120, 1), (72, 136, 0), (72, 136, 2),
 
 def _host(packets):
     return synth.decode_md5s(
-        rav1d_tpu.Decoder(rav1d_tpu.Settings(apply_grain=False)), packets)
+        rav1d_tpu.Decoder(rav1d_tpu.Settings(apply_grain=False)), packets,
+        eagain=rav1d_tpu.EAgain)
 
 
 @pytest.mark.parametrize("w,h,seed", CASES)
@@ -34,7 +35,7 @@ def test_synthetic_matches_host_path(w, h, seed):
     before = dict(T.engine.stats)
     run.reset_stats()
     got = synth.decode_md5s(
-        T.Decoder(rav1d_tpu.Settings(apply_grain=False), device="cpu"), packets)
+        T.Decoder(T.Settings(apply_grain=False), device="cpu"), packets)
     assert got == want
     assert T.engine.stats["frames"] - before["frames"] == 1
     assert T.engine.stats["fallback"] == before["fallback"]
@@ -50,7 +51,7 @@ def test_one_decoder_many_pictures():
                synth.still_picture(136, 96, 6)]
     want = _host(packets)
     got = synth.decode_md5s(
-        T.Decoder(rav1d_tpu.Settings(apply_grain=False), device="cpu"), packets)
+        T.Decoder(T.Settings(apply_grain=False), device="cpu"), packets)
     assert got == want and len(got) == 3
 
 
@@ -79,7 +80,7 @@ def test_outside_slice_raises(kind):
         "superres": lambda: [synth.still_picture(96, 64, 1, superres=True)],
     }[kind]()
     assert len(_host(packets)) == len(packets)  # valid streams
-    dec = T.Decoder(rav1d_tpu.Settings(apply_grain=False), device="cpu")
+    dec = T.Decoder(T.Settings(apply_grain=False), device="cpu")
     with pytest.raises(NotImplementedError):
         synth.decode_md5s(dec, packets)
 
@@ -107,16 +108,16 @@ def test_conformance_vectors(rel, md5):
         pytest.skip("dav1d-test-data not present")
     import hashlib
 
-    from rav1d_tpu.io.ivf import IvfDemuxer
+    from rav1d_tpu_torch.io.ivf import IvfDemuxer
 
-    dec = T.Decoder(rav1d_tpu.Settings(apply_grain=False), device="cpu")
+    dec = T.Decoder(T.Settings(apply_grain=False), device="cpu")
     m = hashlib.md5()
     for pkt in IvfDemuxer(os.path.join(d, rel)):
         dec.send_data(pkt.data, pkt.timestamp)
         while True:
             try:
                 pic = dec.get_picture()
-            except rav1d_tpu.EAgain:
+            except T.EAgain:
                 break
             for rows in pic.iter_plane_rows():
                 m.update(rows)

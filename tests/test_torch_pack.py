@@ -2,11 +2,15 @@
 
 - every constant of rav1d_tpu_torch/engine/layout.py equals its original
   in rav1d_tpu/engine/mega.py, wave2.py and kernels.py;
-- pack_frame writes a header and blob word-identical to run2's packers on
-  the same decoded synthetic frames;
+- pack_frame, on a frame decoded by the port's own front end, writes a
+  header and blob word-identical to run2's packers on the same bytes'
+  frame decoded by rav1d_tpu's front end;
 - the device blob is the used prefix zero-padded to run2's capacity;
 - importing rav1d_tpu_torch and decoding a picture on the CPU never
-  imports JAX (a fresh subprocess).
+  imports JAX or rav1d_tpu (a fresh subprocess).
+
+`ref_capture` and `run2_pack` (the reference's side of that comparison)
+are also used by tests/test_torch_programs.py.
 """
 
 import os
@@ -17,15 +21,17 @@ import numpy as np
 import pytest
 import torch
 
+import rav1d_tpu
 from rav1d_tpu.engine import kernels as JK
 from rav1d_tpu.engine import mega as JM
 from rav1d_tpu.engine import run2 as J2
 from rav1d_tpu.engine import wave2 as JW
-from rav1d_tpu.engine.blob2 import FrameBlob, bucket_pow2
+from rav1d_tpu.engine.blob2 import FrameBlob as RefFrameBlob
+from rav1d_tpu.engine.blob2 import bucket_pow2
 from rav1d_tpu.ops.pallas.itx_all import PALLAS_SIZES
 from rav1d_tpu_torch import synth
 from rav1d_tpu_torch.engine import layout as L
-from rav1d_tpu_torch.engine.blob import Uploader
+from rav1d_tpu_torch.engine.blob import FrameBlob, Uploader, det_cap_words
 from rav1d_tpu_torch.engine.pack import pack_frame
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,13 +59,45 @@ def test_wave_and_itx_constants_match():
         assert L.variants_for(w) == JK._variants_for(w)
 
 
-def _run2_pack(f, plan):
-    """run2.execute's packing half on the same frame (intra, no superres)."""
+class _RefCapture(rav1d_tpu.Decoder):
+    """rav1d_tpu's decoder on its host path, keeping each frame's context
+    and plan as its dense pass starts. It enters through the decoder's own
+    frame-ring hook (_submit_dense), run inline, so nothing of rav1d_tpu is
+    patched."""
+
+    def __init__(self):
+        super().__init__(rav1d_tpu.Settings(apply_grain=False))
+        self.got = []
+
+    def _frame_delay(self):
+        return 2
+
+    def _submit_dense(self, f):
+        from rav1d_tpu.engine.plan import build_plan
+        from rav1d_tpu.recon.frame import (
+            decode_frame_dense, materialize_work_items,
+        )
+
+        materialize_work_items(f)
+        self.got.append((f, build_plan(f._dense_args[0], f)))
+        decode_frame_dense(f)
+
+
+def ref_capture(packets):
+    """[(f, plan)] of each frame, from rav1d_tpu's own front end."""
+    dec = _RefCapture()
+    synth.decode_md5s(dec, packets, eagain=rav1d_tpu.EAgain)
+    return dec.got
+
+
+def run2_pack(f, plan):
+    """run2.execute's packing half on a rav1d_tpu frame (intra, no
+    superres): (hdr, blob, lr_ws)."""
     ah, aw = plan.ah, plan.aw
     psz = ah * aw
     store = f.coef_store
     hdr = np.zeros(J2.HDR_LEN, np.int32)
-    blob = FrameBlob(J2.HDR_LEN)
+    blob = RefFrameBlob(J2.HDR_LEN)
     if store.tx_pos:
         hdr[J2.CF0] = blob.add_i16(store.cf[: store.cf_pos])
     J2._pack_residuals(blob, hdr, store, plan, psz, aw)
@@ -71,7 +109,7 @@ def _run2_pack(f, plan):
     return hdr, blob, lr_ws
 
 
-def _words(hdr, blob):
+def run2_words(hdr, blob):
     buf = np.zeros(blob.pos, np.int32)
     buf[: hdr.size] = hdr
     for off, a in blob.parts:
@@ -81,13 +119,15 @@ def _words(hdr, blob):
 
 @pytest.mark.parametrize("w,h,seed", [(136, 96, 10), (120, 72, 6), (72, 136, 1)])
 def test_pack_matches_run2(w, h, seed):
-    (f, plan), = synth.capture_frames([synth.still_picture(w, h, seed)])
-    hdr, blob, lr_ws = _run2_pack(f, plan)
+    packets = [synth.still_picture(w, h, seed)]
+    (f, plan), = synth.capture_frames(packets)
+    (rf, rplan), = ref_capture(packets)
+    hdr, blob, lr_ws = run2_pack(rf, rplan)
     pk = pack_frame(f, plan)
     np.testing.assert_array_equal(pk.hdr, hdr)
     assert pk.blob.pos == blob.pos
     assert pk.lr_ws == lr_ws
-    np.testing.assert_array_equal(pk.words(), _words(hdr, blob))
+    np.testing.assert_array_equal(pk.words(), run2_words(hdr, blob))
     # the host counts agree with the blob's own
     assert len(pk.waves) == max(plan.n_waves, 1) if plan.items else not pk.waves
     n_items = sum(n for per in pk.waves for _, n, _, _ in per)
@@ -95,6 +135,7 @@ def test_pack_matches_run2(w, h, seed):
 
     psz = plan.ah * plan.aw
     dev, cap = Uploader("cpu").upload(pk, psz, 8)
+    assert det_cap_words(psz, 8) == J2.det_cap_words(psz, 8)
     assert cap == bucket_pow2(max(blob.pos, hdr.size, J2.det_cap_words(psz, 8)))
     got = dev.numpy()
     np.testing.assert_array_equal(got[: blob.pos], pk.words())
@@ -127,6 +168,8 @@ def test_port_never_imports_jax():
         "assert len(md5) == 1, md5\n"
         "assert T.engine.stats == {'frames': 1, 'fallback': 0}\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "ref = [m for m in sys.modules if m.split('.')[0] == 'rav1d_tpu']\n"
+        "assert not ref, ref\n"
         "print('ok')\n"
     )
     env = dict(os.environ)
@@ -139,9 +182,9 @@ def test_port_never_imports_jax():
 
 
 def test_packed_pair_order_matches_bitcast():
-    """int16 coefficients packed two per word (blob2.add_i16) read back in
-    order through torch's int16 view, as lax.bitcast_convert_type reads
-    them in the JAX engine; bytes (add_u8) likewise."""
+    """int16 coefficients packed two per word (FrameBlob.add_i16) read
+    back in order through torch's int16 view, as lax.bitcast_convert_type
+    reads them in the JAX engine; bytes (add_u8) likewise."""
     import jax
     import jax.numpy as jnp
 
