@@ -3,22 +3,30 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line):
-1. set-up: build the hand-written kernels (csrc/itx.cu: the itx kernel
-   and the 8x8 DCT_DCT kernel; nvcc, sm_90a). The port's native syntax
-   library (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
+1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
+   kernel and the 8x8 DCT_DCT kernel; nvcc, sm_90a) and print ptxas's
+   registers, stack frames and spills. The port's native syntax library
+   (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
    imported) must have loaded: a decode on the Python syntax anchor would
    change every host number;
-2. kernel: the itx kernel against its plain torch version on the card,
-   all nine tx classes x bpc 8/10/12, N=1000 random int32 blocks including
-   extreme values; bit-identical required;
-3. slice: decode seeded 1920x1080 synthetic AV1 still pictures
-   (rav1d_tpu_torch/synth.py) through rav1d_tpu_torch.Decoder(device="cuda")
-   and hold each to the committed host-path digest
-   (rav1d_tpu_torch/smoke_digests.json) and to the port's own host path
-   (Decoder(host_path=True)) on the same bytes; every frame on the engine,
-   no fallback, the itx kernel launched;
-4. timing: the itx kernel and its plain version at the main path's
-   per-class block counts, bit-identical there too;
+2. kernel: the itx kernel, through its per-size entry points (ops/cuda/
+   itx.py itx and wht), against the plain torch versions on the card, all
+   19 tx sizes and the WHT x bpc 8/10/12, N=1000 random int32 blocks
+   including extreme values; bit-identical required;
+3. slice: seeded 1920x1080 synthetic AV1 still pictures
+   (rav1d_tpu_torch/synth.py): the port's host path (Decoder(host_path=
+   True)) must give the committed digests
+   (rav1d_tpu_torch/smoke_digests.json); on each frame's blob, packed from
+   a capture of that decode, the residual program (one itx launch) must
+   equal resid_plain; then each picture decodes through
+   rav1d_tpu_torch.Decoder(device="cuda") to the host path's MD5, every
+   frame on the engine, no fallback, exactly one itx launch per frame and
+   no call of the plain transforms (engine/kernels.py itx_any_core,
+   wht_core);
+4. timing: on the same blobs, the frame launch and resid_plain (CUDA
+   events), and torch.profiler windows over resid calls and over each
+   class of the frame launched alone, which give the kernel's device time
+   apart from its launch;
 5. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
    entry point driven once at N=16384 with the launch count reset before
    and read after, then the kernel against idct8x8_batch_plain,
@@ -98,63 +106,109 @@ def bound(nbytes, ops):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def itx_ops(w, h, first, second):
-    """32-bit operations of the itx kernel on one batch (csrc/itx.cu
-    itx_block): the row transforms of each block's first code, the column
-    transforms of its second, and per coefficient the 181/256 scale of 2:1
-    rectangles, the round, shift and clip between the passes and the
-    output round and shift."""
+def variant(code, n):
+    """The 1-D transform an n-point pass runs for `code` (a code the size
+    does not allow runs the dct)."""
+    if n <= 16:
+        return ("dct", "adst", "flipadst", "identity")[code] if 0 <= code < 4 \
+            else "dct"
+    return "identity" if n == 32 and code == 3 else "dct"
+
+
+def itx_frame_work(words, hdr, tx_valid, bpc):
+    """(bytes, operations) of the itx frame launch on one blob: each stored
+    coefficient read once (2 B at 8 bpc), each block's descriptors (4 B a
+    row) and each residual written once (4 B); the row transforms of each
+    block's first code over its min(h,32) rows, the column transforms of
+    its second code, and per value the 181/256 scale of 2:1 rectangles, the
+    round, shift and clip between the passes and the output round and
+    shift (the WHT: its input shift and 4-point transforms)."""
     import numpy as np
 
     from rav1d_tpu_torch.ops.cuda.gen_itx_1d import op_count
+    from rav1d_tpu_torch.ops.cuda.itx import frame_table
 
-    names = ("dct", "adst", "flipadst", "identity")
+    cnt = {}
 
-    def per_code(codes, n):
-        cnt = np.bincount(codes, minlength=4)
-        return sum(int(c) * op_count(names[i], n) for i, c in enumerate(cnt))
+    def ops(name, n):
+        if (name, n) not in cnt:
+            cnt[name, n] = op_count(name, n)
+        return cnt[name, n]
 
-    rect2 = w * 2 == h or h * 2 == w
-    per_coef = (3 if rect2 else 0) + 4 + 2
-    return (h * per_code(first, w) + w * per_code(second, h)
-            + len(first) * w * h * per_coef)
+    nbytes = nops = 0
+    for wh, n, base, B in frame_table(hdr, tx_valid, words.size):
+        w, h = (4, 4) if wh == 0 else divmod(int(wh), 100)
+        rows = 2 if wh == 0 else 4
+        nc = (int(n) + B - 1) // B
+        d = words[base : base + nc * rows * B].reshape(nc, rows, B)
+        d = d.transpose(1, 0, 2).reshape(rows, -1)[:, :n]
+        sh, sw = min(h, 32), min(w, 32)
+        nbytes += int(n) * (sh * sw * (2 if bpc == 8 else 4) + 4 * rows
+                            + 4 * w * h)
+        if wh == 0:
+            nops += int(n) * (16 + 8 * ops("wht", 4))
+            continue
+        for code, k in zip(*np.unique(d[2], return_counts=True)):
+            nops += int(k) * sh * ops(variant(int(code), w), w)
+        for code, k in zip(*np.unique(d[3], return_counts=True)):
+            nops += int(k) * w * ops(variant(int(code), h), h)
+        rect2 = w * 2 == h or h * 2 == w
+        nops += int(n) * ((3 * sh * sw if rect2 else 0) + 4 * sh * w
+                          + 2 * h * w)
+    return nbytes, nops
 
 
 def kernel_inputs(w, h, bpc, n, seed, dev):
+    """(cb (n, min(h,32), min(w,32)), first codes, second codes) int32 on
+    `dev`: coefficients in the bpc's range, 1/8 of the blocks full-range
+    int32, codes 0-3 and a few that the size does not allow."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
+    shape = (n, min(h, 32), min(w, 32))
     cmax = (1 << (bpc + 7)) - 1
-    cb = rng.integers(-cmax, cmax, size=(n, h, w), dtype=np.int64)
-    cb[: n // 8] = rng.integers(-(2**31), 2**31 - 1, size=(n // 8, h, w))
+    cb = rng.integers(-cmax, cmax, size=shape, dtype=np.int64)
+    cb[: n // 8] = rng.integers(-(2**31), 2**31 - 1, size=(n // 8,) + shape[1:])
     cb = cb.astype(np.int32)
     f = rng.integers(0, 4, size=n).astype(np.int32)
     s = rng.integers(0, 4, size=n).astype(np.int32)
+    f[-3:] = s[-3:] = 5
     return [torch.from_numpy(a).to(dev) for a in (cb, f, s)]
 
 
-def kernel_phase(dev):
-    """Kernel vs plain version, every class x bitdepth. Returns max |err|."""
+def max_err(got, ref):
     import torch
 
-    from rav1d_tpu_torch.engine.kernels import itx_any_core
-    from rav1d_tpu_torch.engine.layout import KERNEL_SIZES
+    return int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+
+
+def kernel_phase(dev):
+    """Kernel vs plain version, every size and the WHT x bitdepth. Returns
+    max |err|."""
+    import torch
+
+    from rav1d_tpu_torch.engine.kernels import itx_any_core, wht_core
+    from rav1d_tpu_torch.engine.layout import SIZES
     from rav1d_tpu_torch.ops.cuda import itx as I
 
     worst = 0
-    for w, h in sorted(KERNEL_SIZES):
+    for w, h in SIZES + [(0, 0)]:
         for bpc in (8, 10, 12):
-            args = kernel_inputs(w, h, bpc, 1000, w * 100 + h * 7 + bpc, dev)
-            got = I.itx(*args, w, h, bpc)
-            ref = itx_any_core(*args, w, h, bpc)
+            if w:
+                args = kernel_inputs(w, h, bpc, 1000, w * 100 + h * 7 + bpc, dev)
+                got = I.itx(*args, w, h, bpc)
+                ref = itx_any_core(*args, w, h, bpc)
+            else:
+                cb = kernel_inputs(4, 4, bpc, 1000, 4400 + bpc, dev)[0]
+                got, ref = I.wht(cb), wht_core(cb)
             torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
-            worst = max(worst, err)
+            worst = max(worst, max_err(got, ref))
             if not torch.equal(got, ref):
-                raise AssertionError(f"itx kernel != plain at {w}x{h} bpc {bpc}")
-    log("kernel phase: itx kernel bit-identical to its plain version on "
-        "9 classes x bpc 8/10/12 (N=1000)")
+                raise AssertionError(f"itx kernel != plain at {w}x{h} "
+                                     f"(0x0: the WHT) bpc {bpc}")
+    log(f"kernel phase: itx kernel bit-identical to its plain versions on "
+        f"{len(SIZES)} sizes and the WHT x bpc 8/10/12 (N=1000)")
     return worst
 
 
@@ -169,12 +223,17 @@ def host_decode(data):
 
 
 def slice_phase(dev):
-    """The main path: synthetic 1080p pictures through the port."""
+    """The main path: synthetic 1080p pictures through the port. Returns
+    (itx launches, max |err| of ra against resid_plain, the frames' blobs
+    as (seed, dev, hdr, tx_valid, ah, aw))."""
     import torch
 
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import synth
-    from rav1d_tpu_torch.engine import run
+    from rav1d_tpu_torch.engine import kernels, run
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.blob import Uploader
+    from rav1d_tpu_torch.engine.pack import pack_frame
     from rav1d_tpu_torch.ops.cuda import itx as I
 
     with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
@@ -183,7 +242,7 @@ def slice_phase(dev):
         raise AssertionError("smoke_digests.json is for another picture size")
     streams = [synth.still_picture(W, H, s) for s in SEEDS]
     oracle = []
-    feats = []
+    frames = []
     for s, data in zip(SEEDS, streams):
         md5, ms = host_decode(data)
         want = digests["md5"][str(s)]
@@ -194,8 +253,28 @@ def slice_phase(dev):
                                  "committed digest")
         oracle.append(md5)
         (fp,) = synth.capture_frames([data])
-        feats.append(synth.features(*fp))
-        log("  features " + json.dumps(feats[-1]))
+        frames.append(fp)
+        log("  features " + json.dumps(synth.features(*fp)))
+
+    # the residual program on each frame's blob against its plain version;
+    # this also brings the caching allocator to the frame's buffer sizes, so
+    # the decodes below read steady-state stage times (a process's first
+    # frame of a size otherwise pays cudaMalloc for its buffers)
+    worst = 0
+    blobs = []
+    for s, (f, plan) in zip(SEEDS, frames):
+        pk = pack_frame(f, plan)
+        ah, aw = plan.ah, plan.aw
+        d, _ = Uploader(dev).upload(pk, ah * aw, 8)
+        ra = P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
+        ref = P.resid_plain(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
+        torch.cuda.synchronize()
+        worst = max(worst, max_err(ra, ref))
+        if not torch.equal(ra, ref):
+            raise AssertionError(f"seed {s}: resid (itx kernel) != resid_plain")
+        blobs.append((s, d, pk.hdr, pk.tx_valid, ah, aw))
+    log(f"resid (one itx launch) == resid_plain on the {len(blobs)} frames' "
+        "blobs")
 
     # warm-up (CUDA context, lazy module loads) on a small picture
     synth.decode_md5s(T.Decoder(T.Settings(apply_grain=False), device=dev),
@@ -204,6 +283,7 @@ def slice_phase(dev):
 
     T.engine.stats.update(frames=0, fallback=0)
     I.launches = 0
+    kernels.calls = 0
     got = []
     wall = []
     stages = []
@@ -215,60 +295,98 @@ def slice_phase(dev):
         wall.append((time.perf_counter() - t0) * 1e3)
         stages.append(dict(run.stage_ms))
     launches = I.launches
+    plain_calls = kernels.calls
     stats = dict(T.engine.stats)
 
     for s, st, ms, g, o in zip(SEEDS, stages, wall, got, oracle):
         log(f"port seed {s} {W}x{H}: {ms:.1f} ms wall  md5 {g[0]}  "
             f"{'==' if g == o else '!='} host")
         log("  stage_ms " + json.dumps({k: round(v, 3) for k, v in st.items()}))
-    log(f"engine stats {stats}  itx launches {launches}")
+    log(f"engine stats {stats}  itx launches {launches}  plain transform "
+        f"calls {plain_calls}")
     if got != oracle:
         raise AssertionError("port output differs from the host path")
     if stats["frames"] != len(streams) or stats["fallback"] != 0:
         raise AssertionError(f"engine did not decode every frame: {stats}")
-    if launches <= 0:
-        raise AssertionError("the itx kernel was not launched on the main path")
-    return launches, feats
+    if launches != len(streams):
+        raise AssertionError(f"{launches} itx launches for {len(streams)} "
+                             "frames: the main path must launch once a frame")
+    if plain_calls:
+        raise AssertionError(f"{plain_calls} plain transform calls on the card")
+
+    return launches, worst, blobs
 
 
-def timing_phase(dev, feats):
-    """Kernel and plain version at the main path's block counts (the
-    largest per-class count of the slice's frames), summed over classes;
-    the two outputs at those shapes must be bit-identical too. Returns
-    (kernel ms, plain ms, max |err|, bytes, operations)."""
+def profiled_kernel_ms(fn, name, reps):
+    """Device time per launch of the kernel whose name contains `name`, in a
+    torch.profiler window over `reps` calls of fn; None if the profiler
+    shows no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window now and then records no device time
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if name in e.key and e.count:
+                us = getattr(e, "device_time_total", None)
+                if us is None:
+                    us = e.cuda_time_total
+                if us:
+                    return us / e.count / 1e3
+    return None
+
+
+def timing_phase(blobs):
+    """On each frame's blob: the itx frame launch (CUDA events, host launch
+    included; and its device time from torch.profiler), the whole resid
+    program and resid_plain. Returns per-frame means (launch ms, device ms
+    or None, plain ms, bytes, operations)."""
     import torch
 
-    from rav1d_tpu_torch.engine.kernels import itx_any_core
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.layout import SIZES
     from rav1d_tpu_torch.ops.cuda import itx as I
 
-    lanes = {}
-    for ft in feats:
-        for k, n in ft["tx_lanes"].items():
-            lanes[k] = max(lanes.get(k, 0), n)
-    tk = tp = 0.0
-    worst = nbytes = ops = 0
-    for key in sorted(lanes, key=lambda k: tuple(map(int, k.split("x")))):
-        w, h = map(int, key.split("x"))
-        if (w, h) not in I.KERNEL_SIZES:
-            continue
-        n = lanes[key]
-        args = kernel_inputs(w, h, 8, n, n, dev)
-        got = I.itx(*args, w, h, 8)
-        ref = itx_any_core(*args, w, h, 8)
-        worst = max(worst, int((got.to(torch.int64) - ref.to(torch.int64))
-                               .abs().max()))
-        if not torch.equal(got, ref):
-            raise AssertionError(f"itx kernel != plain at {key} N={n}")
-        k_ms = cuda_ms(lambda: I.itx(*args, w, h, 8), 20)
-        p_ms = cuda_ms(lambda: itx_any_core(*args, w, h, 8), 5)
-        tk += k_ms
-        tp += p_ms
-        nbytes += n * (2 * w * h + 2) * 4
-        ops += itx_ops(w, h, args[1].cpu().numpy(), args[2].cpu().numpy())
-        log(f"itx {key:>5} N={n:6d}: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms")
-    log(f"itx per frame (all classes): kernel {tk:.4f} ms  plain {tp:.4f} ms"
-        f" (outputs bit-identical at these N); {nbytes} bytes, {ops} ops")
-    return tk, tp, worst, nbytes, ops
+    rows = []
+    for s, d, hdr, tv, ah, aw in blobs:
+        ra = torch.zeros(6 * ah * aw, dtype=torch.int32, device=d.device)
+        k_ms = cuda_ms(lambda: I.itx_frame(d, hdr, tv, ra, aw, 8), 50)
+        dev_ms = profiled_kernel_ms(
+            lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=8), "itx_frame_kernel",
+            10)
+        r_ms = cuda_ms(lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=8), 20)
+        p_ms = cuda_ms(lambda: P.resid_plain(d, hdr, tv, ah=ah, aw=aw, bpc=8), 3)
+        nbytes, ops = itx_frame_work(d.cpu().numpy(), hdr, tv, 8)
+        b_ms, b_by = bound(nbytes, ops)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.5f} ms"
+        log(f"itx frame seed {s}: {sum(tv.values())} blocks in {len(tv)} "
+            f"classes; launch {k_ms:.5f} ms (CUDA events), kernel device "
+            f"time {dev_txt} (torch.profiler), resid {r_ms:.5f} ms, "
+            f"resid_plain {p_ms:.4f} ms; {nbytes} bytes, {ops} ops, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+        rows.append((k_ms, dev_ms, p_ms, nbytes, ops))
+        # each class of the frame alone: a launch over its part of the table
+        per = []
+        for key in [k for k in list(range(len(SIZES))) + ["wht"] if k in tv]:
+            n = tv[key]
+            name = "wht" if key == "wht" else "%dx%d" % SIZES[key]
+            ms = profiled_kernel_ms(
+                lambda: I.itx_frame(d, hdr, {key: n}, ra, aw, 8),
+                "itx_frame_kernel", 5)
+            per.append(f"{name} {n}: "
+                       + ("not measured" if ms is None else f"{ms:.5f}"))
+        log(f"  seed {s} device ms per class alone (blocks: ms): "
+            + "; ".join(per))
+    mean = [sum(r[i] for r in rows) / len(rows) for i in (0, 2, 3, 4)]
+    devs = [r[1] for r in rows]
+    dev_mean = None if None in devs else sum(devs) / len(devs)
+    return mean[0], dev_mean, mean[1], mean[2], mean[3]
 
 
 def idct8x8_phase(dev):
@@ -357,6 +475,7 @@ def main():
     import rav1d_tpu_torch  # noqa: F401  (fails outside a checkout)
     from rav1d_tpu_torch.native import BUILD
     from rav1d_tpu_torch.native import syntax as native_syntax
+    from rav1d_tpu_torch.ops.cuda import build
     from rav1d_tpu_torch.ops.cuda import itx as I
 
     dev = torch.device("cuda")
@@ -374,10 +493,14 @@ def main():
     I.lib()
     log(f"set-up: itx and idct8x8 kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    for ln in build.LOGS.get("itx", "").splitlines():  # ptxas -v
+        if any(k in ln for k in ("entry function", "Function properties",
+                                 "Used", "stack frame")):
+            log("  " + ln.replace("ptxas info    :", "").strip())
 
     worst = kernel_phase(dev)
-    launches, feats = slice_phase(dev)
-    k_ms, p_ms, worst_main, itx_bytes, itx_ops_n = timing_phase(dev, feats)
+    launches, worst_main, blobs = slice_phase(dev)
+    k_ms, dev_ms, p_ms, itx_bytes, itx_ops_n = timing_phase(blobs)
     worst = max(worst, worst_main)
     i8 = idct8x8_phase(dev)
     vector_phase(dev)
@@ -388,6 +511,10 @@ def main():
     if ref:
         raise AssertionError(f"modules of rav1d_tpu were imported: {ref}")
 
+    b_ms, b_by = bound(itx_bytes, itx_ops_n)
+    log(f"itx per frame (mean of {len(blobs)}): launch {k_ms:.5f} ms, device "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.5f} ms'}, "
+        f"bound {b_ms:.5f} ms ({b_by}), resid_plain {p_ms:.4f} ms")
     kernels = []
     for name, replaces, n_launch, err, ms, pms, nbytes, ops in (
         ("itx", "rav1d_tpu/ops/pallas/itx_all.py:110", launches, worst,

@@ -2,10 +2,11 @@
 
 `itx_any_core` is the torch twin of rav1d_tpu/engine/kernels.py
 itx_any_core: a batch of blocks with per-block tx types, every 1-D variant
-the size allows computed and selected per block. On the card it runs the
-32- and 64-point classes (the JAX engine leaves those to XLA); for the
-nine small classes it is the plain version of the hand-written kernel
-(ops/cuda/itx.py). `wht_core` is the lossless 4x4 Walsh-Hadamard.
+the size allows computed and selected per block. `wht_core` is the
+lossless 4x4 Walsh-Hadamard. Both are the plain versions of the
+hand-written itx kernel (ops/cuda/itx.py), which runs every size on the
+card; `calls` counts their calls, so a run can show that the card's
+residual stage made none.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import torch
 from ..ops.itx import Lanes, apply_1d
 from ..ops.ref import itx as R
 from .layout import _VCODE, variants_for
+
+calls = 0
 
 
 def _clips(bpc):
@@ -51,6 +54,8 @@ def itx_any_core(cb, firstv, secondv, w, h, bpc):
     """cb: (N, min(h,32), min(w,32)) int32 coefficients in natural (y, x)
     order; firstv/secondv: (N,) variant codes. Returns (N, h, w) int32
     residuals, bit-exact with the JAX engine's itx_any_core."""
+    global calls
+    calls += 1
     shift = R._SHIFTS[(w, h)]
     is_rect2 = w * 2 == h or h * 2 == w
     rnd = (1 << shift) >> 1
@@ -80,6 +85,8 @@ def itx_any_core(cb, firstv, secondv, w, h, bpc):
 def wht_core(cb):
     """4x4 Walsh-Hadamard (lossless; src/itx_1d.rs inv_wht4_1d).
     cb: (N, 4, 4) int32. Returns (N, 4, 4) int32 residuals."""
+    global calls
+    calls += 1
     t = cb >> 2
 
     def wht4(l0, l1, l2, l3):

@@ -66,14 +66,6 @@ for _tp, (_f, _s) in R._TXTP_1D.items():
     TXTP_FIRST[_tp] = _VCODE[_f]
     TXTP_SECOND[_tp] = _VCODE[_s]
 
-# the (w, h) classes that run on the hand-written itx kernel (the TPU
-# engine's Pallas classes, rav1d_tpu/ops/pallas/itx_all.py PALLAS_SIZES)
-KERNEL_SIZES = {
-    (4, 4), (4, 8), (8, 4), (8, 8),
-    (4, 16), (16, 4), (8, 16), (16, 8), (16, 16),
-}
-
-
 def variants_for(n):
     """1-D variants AV1 allows at size n (adst families stop at 16)."""
     if n <= 16:

@@ -22,8 +22,8 @@ from ..syntax.levels import FILTER_PRED
 from . import filters as FL
 from .kernels import itx_any_core, wht_core
 from .layout import (
-    CDEF0, CF0, DB0, FI, KERNEL_SIZES, LR0, LRB, N_FIELDS, PAL0, PAL_B, R0,
-    SIZES, WAVE0, WHT0, WHT_B, chunk_for,
+    CDEF0, CF0, DB0, FI, LR0, LRB, N_FIELDS, PAL0, PAL_B, R0, SIZES, WAVE0,
+    WHT0, WHT_B, chunk_for,
 )
 from .plan import CAP, CLS_L, CLS_S
 from .wave import build_coords, class_step, unpack
@@ -75,8 +75,23 @@ def u8_region(dev, base, n):
 
 def resid(dev, hdr, tx_valid, *, ah, aw, bpc):
     """Inverse-transform every coefficient block of the frame into the
-    residual buffer. tx_valid: {size index or 'wht': filled lanes} from
-    the packer (lanes past it are chunk padding). Returns (ra, planes)."""
+    residual buffer: one launch of the itx kernel on the card
+    (ops/cuda/itx.py itx_frame), the plain version `resid_plain` on the
+    CPU. tx_valid: {size index or 'wht': filled lanes} from the packer
+    (lanes past it are chunk padding). Returns (ra, planes)."""
+    if dev.device.type == "cpu":
+        return resid_plain(dev, hdr, tx_valid, ah=ah, aw=aw, bpc=bpc)
+    psz = ah * aw
+    ra = torch.zeros(6 * psz, dtype=I32, device=dev.device)
+    cuda_itx.itx_frame(dev, hdr, tx_valid, ra, aw, bpc)
+    return ra, torch.zeros((3, ah, aw), dtype=I32, device=dev.device)
+
+
+def resid_plain(dev, hdr, tx_valid, *, ah, aw, bpc):
+    """The plain version of `resid` (mega.py resid_prog in torch): per
+    class, gather the coefficients, transform them with
+    kernels.itx_any_core (wht_core for the lossless WHT) and scatter the
+    residuals, dropping out-of-range destinations."""
     d_ = dev.device
     psz = ah * aw
     ra = torch.zeros(6 * psz + 1, dtype=I32, device=d_)
@@ -94,10 +109,7 @@ def resid(dev, hdr, tx_valid, *, ah, aw, bpc):
         offs, flat0, f0, f1 = d[0], d[1], d[2].contiguous(), d[3].contiguous()
         cfs = _coefs(dev, cf_base, offs, sh_ * sw_, bpc)
         cb = cfs.reshape(n, sw_, sh_).transpose(1, 2)
-        if (w, h) in KERNEL_SIZES:
-            res = cuda_itx.itx(cb.contiguous(), f0, f1, w, h, bpc)
-        else:
-            res = itx_any_core(cb, f0, f1, w, h, bpc)
+        res = itx_any_core(cb, f0, f1, w, h, bpc)
         idx = (flat0[:, None, None] + _ar(h, d_)[None, :, None] * aw
                + _ar(w, d_)[None, None, :])
         _scatter_drop(ra, idx, res)

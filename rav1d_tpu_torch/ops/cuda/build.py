@@ -3,7 +3,9 @@
 Each library is compiled by nvcc for sm_90a from the checkout's sources
 (csrc/) into rav1d_tpu_torch/build/, named by a hash of its sources so an
 edited source rebuilds, and loaded with ctypes. A failed build raises with
-the compiler's output. Nothing here runs at import time.
+the compiler's output; a build that succeeds keeps it in `LOGS` (ptxas's
+registers, stack frame and spills of every kernel and function). Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
 
 _LIBS = {}
+LOGS = {}  # library name -> compiler output of its build in this process
 _LOCK = threading.Lock()
 
 
@@ -55,8 +58,8 @@ def build(name, main, deps=()):
             tmp = f"{so}.tmp{os.getpid()}"
             cmd = [
                 nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-o", tmp, srcs[0],
+                "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                "-Xcompiler", "-fPIC", "-o", tmp, srcs[0],
             ]
             r = subprocess.run(cmd, capture_output=True, text=True)
             if r.returncode != 0:
@@ -64,6 +67,7 @@ def build(name, main, deps=()):
                     "nvcc failed for %s:\n%s%s" % (main, r.stdout, r.stderr)
                 )
             os.replace(tmp, so)
+            LOGS[name] = r.stdout + r.stderr
         lib = ctypes.CDLL(so)
         _LIBS[name] = lib
         return lib

@@ -1,14 +1,14 @@
 """Generate csrc/itx_1d.cuh: the 1-D AV1 butterflies as straight-line C.
 
 The butterflies' one normative source is rav1d_tpu/ops/ref/itx.py
-(`_FAMILY`, parity src/itx_1d.rs). Rather than retype ~900 lines of
-integer arithmetic, this script runs those same Python functions over
-symbolic values that record every operation, and prints one C function per
-(variant, size) that the itx kernel needs. Every add, subtract, multiply
-and negate goes through the wrapping helpers of csrc/itx.cu, so the C code
-wraps exactly as int32 arithmetic does in numpy, torch and JAX (signed
-overflow is undefined in C++). `>>` on a negative int is arithmetic in
-nvcc and g++, as in the frameworks.
+(`_FAMILY` and `_wht4`, parity src/itx_1d.rs). Rather than retype ~900
+lines of integer arithmetic, this script runs those same Python functions
+over symbolic values that record every operation, and prints one C
+function per (variant, size) that the itx kernel needs. Every add,
+subtract, multiply and negate goes through the wrapping helpers of
+csrc/itx.cu, so the C code wraps exactly as int32 arithmetic does in
+numpy, torch and JAX (signed overflow is undefined in C++). `>>` on a
+negative int is arithmetic in nvcc and g++, as in the frameworks.
 
     python -m rav1d_tpu_torch.ops.cuda.gen_itx_1d > rav1d_tpu_torch/csrc/itx_1d.cuh
 
@@ -21,10 +21,14 @@ from __future__ import annotations
 import sys
 
 from ..itx import Lanes, apply_1d
+from ..ref import itx as R
 
-# the (variant, n) pairs of the nine kernel classes (4/8/16-point)
-FUNCS = [(name, n) for name in ("dct", "adst", "flipadst", "identity")
-         for n in (4, 8, 16)]
+# the (variant, n) pairs of the 19 tx sizes (AV1 allows the adst families
+# up to 16 points, the identity up to 32, the dct up to 64; the 64-point
+# dct reads only its first 32 inputs), and the lossless 4-point WHT
+FUNCS = ([(name, n) for name in ("dct", "adst", "flipadst", "identity")
+          for n in (4, 8, 16)]
+         + [("dct", 32), ("identity", 32), ("dct", 64), ("wht", 4)])
 
 
 class _Sym:
@@ -88,7 +92,10 @@ def emit_function(name, n):
     # never overwrite an input that a later store still reads
     em.lines = [f"    const int i{i} = c[{i}];" for i in range(n)]
     lanes = Lanes([_Sym(f"i{i}", em) for i in range(n)])
-    apply_1d(name, n, lanes, _Sym("mn", em), _Sym("mx", em))
+    if name == "wht":
+        R._wht4(lanes)
+    else:
+        apply_1d(name, n, lanes, _Sym("mn", em), _Sym("mx", em))
     outs = [lanes.vals[i].expr for i in range(n)]
     body = em.lines + [f"    c[{i}] = {outs[i]};" for i in range(n)]
     return "\n".join(
@@ -109,7 +116,7 @@ def op_count(name, n):
 def generate():
     parts = [
         "// Generated by rav1d_tpu_torch/ops/cuda/gen_itx_1d.py from",
-        "// rav1d_tpu/ops/ref/itx.py (_FAMILY): do not edit by hand.",
+        "// rav1d_tpu/ops/ref/itx.py (_FAMILY, _wht4): do not edit by hand.",
         "// Each function runs one n-point 1-D inverse transform in place on",
         "// c[0..n); mn/mx are the clip bounds of the pass.",
         "#pragma once",

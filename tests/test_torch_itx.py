@@ -6,10 +6,15 @@
 - the twin against the Pallas kernel itx_pallas_core in interpret mode
   for the classes tests/test_pallas_itx_all.py runs on the CPU;
 - WHT against wht_core;
-- the CUDA source's block function, compiled for the host with g++,
-  against the twin (the kernel itself builds and runs only on the card,
-  where chip_smoke.py holds it to the twin);
+- the CUDA source compiled for the host with g++ (its host entry walks the
+  kernel's class table with the kernel's own step functions, thread by
+  thread) against the twin, for all 19 sizes and the WHT, through the
+  per-size entry point's one-class table (the kernel itself builds and
+  runs only on the card, where chip_smoke.py holds it to the twin);
 - the generated butterfly header against its generator.
+
+tests/test_torch_resid_kernel.py holds the host build's frame entry to
+the plain resid program on packed blobs.
 
 Inputs come from numpy seeds and include extreme coefficients (the int32
 wrap of the multiplies matters there). Tolerance: exact; integer code has
@@ -28,7 +33,6 @@ from rav1d_tpu.engine.kernels import itx_any_core as jax_itx_any_core
 from rav1d_tpu.engine.kernels import wht_core as jax_wht_core
 from rav1d_tpu.ops.ref.itx import _SHIFTS
 from rav1d_tpu_torch.engine import kernels as TK
-from rav1d_tpu_torch.engine.layout import KERNEL_SIZES
 from rav1d_tpu_torch.ops.cuda import gen_itx_1d
 from rav1d_tpu_torch.ops.cuda import itx as cuda_itx
 
@@ -94,31 +98,43 @@ def test_generated_header_is_current():
         assert fh.read() == gen_itx_1d.generate()
 
 
-@pytest.fixture(scope="module")
-def host_itx(tmp_path_factory):
-    so = str(tmp_path_factory.mktemp("itx") / "libitx_host.so")
+def build_host_itx(tmp_dir):
+    """Compile csrc/itx.cu for the host with g++ and load it."""
+    so = os.path.join(str(tmp_dir), "libitx_host.so")
     src = os.path.join(CSRC, "itx.cu")
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
                     "-fPIC", "-o", so, src], check=True)
     lib = ctypes.CDLL(so)
     P = ctypes.c_void_p
-    lib.rav1d_itx_host.argtypes = [P, P, P, P] + [ctypes.c_int] * 4
-    lib.rav1d_itx_host.restype = ctypes.c_int
+    lib.rav1d_itx_frame_host.argtypes = ([P, P, P] + [ctypes.c_int] * 7
+                                         + [P, ctypes.c_int])
+    lib.rav1d_itx_frame_host.restype = ctypes.c_int
     return lib
 
 
-@pytest.mark.parametrize("bpc", [8, 10, 12])
-@pytest.mark.parametrize("wh", sorted(KERNEL_SIZES),
-                         ids=[f"{w}x{h}" for w, h in sorted(KERNEL_SIZES)])
-def test_kernel_source_matches_twin_on_host(host_itx, wh, bpc):
-    w, h = wh
-    cb, f, s = _inputs(w, h, bpc, 1000, 31 * w + h + bpc)
-    out = np.zeros_like(cb)
-    rc = host_itx.rav1d_itx_host(cb.ctypes.data, f.ctypes.data,
-                                 s.ctypes.data, out.ctypes.data,
-                                 cb.shape[0], w, h, bpc)
-    assert rc == 0
-    ref = TK.itx_any_core(torch.from_numpy(cb), torch.from_numpy(f),
-                          torch.from_numpy(s), w, h, bpc).numpy()
-    np.testing.assert_array_equal(out, ref)
+def run_host(lib, args):
+    """Run the host build over frame_args'/batch_args' tuple."""
+    assert lib.rav1d_itx_frame_host(*cuda_itx.c_args(args)) == 0
 
+
+@pytest.fixture(scope="module")
+def host_itx(tmp_path_factory):
+    return build_host_itx(tmp_path_factory.mktemp("itx"))
+
+
+@pytest.mark.parametrize("bpc", [8, 10, 12])
+@pytest.mark.parametrize("wh", SIZES + ["wht"],
+                         ids=[f"{w}x{h}" for w, h in SIZES] + ["wht"])
+def test_kernel_source_matches_twin_on_host(host_itx, wh, bpc):
+    w, h = (4, 4) if wh == "wht" else wh
+    cb, f, s = _inputs(w, h, bpc, 1000, 31 * w + h + bpc)
+    cb, f, s = map(torch.from_numpy, (cb, f, s))
+    out = torch.zeros((cb.shape[0], h, w), dtype=torch.int32)
+    if wh == "wht":
+        args = cuda_itx.batch_args(cb, [], out, w, h, bpc)
+        ref = TK.wht_core(cb)
+    else:
+        args = cuda_itx.batch_args(cb, [f, s], out, w, h, bpc)
+        ref = TK.itx_any_core(cb, f, s, w, h, bpc)
+    run_host(host_itx, args)
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())

@@ -28,7 +28,6 @@ from rav1d_tpu.engine import run2 as J2
 from rav1d_tpu.engine import wave2 as JW
 from rav1d_tpu.engine.blob2 import FrameBlob as RefFrameBlob
 from rav1d_tpu.engine.blob2 import bucket_pow2
-from rav1d_tpu.ops.pallas.itx_all import PALLAS_SIZES
 from rav1d_tpu_torch import synth
 from rav1d_tpu_torch.engine import layout as L
 from rav1d_tpu_torch.engine.blob import FrameBlob, Uploader, det_cap_words
@@ -53,7 +52,6 @@ def test_wave_and_itx_constants_match():
     assert L.VARIANTS == JK.VARIANTS
     np.testing.assert_array_equal(L.TXTP_FIRST, JK.TXTP_FIRST)
     np.testing.assert_array_equal(L.TXTP_SECOND, JK.TXTP_SECOND)
-    assert L.KERNEL_SIZES == PALLAS_SIZES
     for w, h in L.SIZES:
         assert L.chunk_for(w, h) == JK.chunk_for(w, h)
         assert L.variants_for(w) == JK._variants_for(w)
