@@ -1,4 +1,5 @@
-"""Drive rav1d_tpu_torch's intra path once on a CUDA card, end to end.
+"""Drive rav1d_tpu_torch's intra and inter paths once on a CUDA card, end
+to end.
 
     python3 chip_smoke.py
 
@@ -27,17 +28,30 @@ Phases (any failure exits non-zero before the last line):
    events), and torch.profiler windows over resid calls and over each
    class of the frame launched alone, which give the kernel's device time
    apart from its launch;
-5. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
+5. inter: a seeded 1920x1080 synthetic inter sequence (synth.
+   inter_sequence: a key frame and two inter frames with every inter tool
+   of 4:2:0) must give the committed digests on the host path; on each
+   frame's blob the residual program must equal resid_plain; then it
+   decodes through one Decoder(device="cuda") to the same MD5s, frame by
+   frame, with no fallback, no upload of a host reference plane (every
+   reference is the engine's own device output), exactly one itx launch
+   per frame and no call of the plain transforms; every inter slot but
+   segy00/segy10 (4:2:2 and 4:4:4 only) must carry tiles, and interintra
+   wave items must be present;
+6. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
    entry point driven once at N=16384 with the launch count reset before
    and read after, then the kernel against idct8x8_batch_plain,
    bit-identical at N=256 for bpc 8/10/12 (1/8 of the blocks full-range
    int32) and at N=16384, where both are timed;
-6. vectors: where $RAV1D_TEST_DATA names a dav1d-test-data directory,
-   two conformance streams against their meson MD5s.
+7. vectors: where $RAV1D_TEST_DATA names a dav1d-test-data directory,
+   two conformance streams against their meson MD5s, and the first 16
+   frames of the bench's inter stream against the port's host path, with
+   no fallback.
 Then neither JAX nor any module of rav1d_tpu may have been imported.
 
 Prints the card's name and power limit, the syntax backend, per-frame
-stage times (CUDA events), the host path's time on the same frames, a
+stage times (CUDA events), the host path's time on the same frames, the
+inter slots' tile counts per frame, the script's own seconds, a
 JSON line describing each kernel (its bound: the larger of the bytes it
 must move over the H100's 3.35 TB/s and its 32-bit integer operations over
 the card's int32 issue rate, 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s
@@ -67,6 +81,9 @@ VECTORS = [
     ("8-bit/issues/324_tennis.ivf", "53a0ba36b3a3656e6a12efb358d71f9e"),
     ("8-bit/issues/320_tennis.ivf", "86e9c91b80bb738693c3781e728fd7f5"),
 ]
+BENCH_STREAM, BENCH_FRAMES = "8-bit/data/00000627.ivf", 16
+# inter slots that only 4:2:2 and 4:4:4 reach
+NOT_420 = ("segy00", "segy10")
 
 
 def log(*a):
@@ -317,6 +334,158 @@ def slice_phase(dev):
     return launches, worst, blobs
 
 
+def inter_phase(dev):
+    """The inter path: synth.inter_sequence at 1080p through one Decoder on
+    the card. Returns the itx launches of its decode."""
+    import torch
+
+    import rav1d_tpu_torch as T
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine import kernels, run
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.blob import Uploader
+    from rav1d_tpu_torch.engine.layout import SLOTS
+    from rav1d_tpu_torch.engine.pack import pack_frame
+    from rav1d_tpu_torch.ops.cuda import itx as I
+
+    with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
+        want = json.load(fh)["inter"]
+    packets = synth.inter_sequence(W, H, want["seed"])
+    t0 = time.perf_counter()
+    host = synth.decode_md5s(
+        T.Decoder(T.Settings(apply_grain=False), host_path=True), packets)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    log(f"inter host path seed {want['seed']} {W}x{H}, {len(packets)} "
+        f"frames: {host_ms:.1f} ms  md5 {host}  "
+        f"{'==' if host == want['md5'] else '!='} committed digests")
+    if host != want["md5"]:
+        raise AssertionError("inter host path differs from the committed "
+                             "digests")
+    frames = synth.capture_frames(packets)
+    tiles = dict.fromkeys(SLOTS, 0)
+    ii = 0
+    for i, fp in enumerate(frames):
+        ft = synth.features(*fp)
+        line = {k: ft[k] for k in ("items", "waves")}
+        if "inter_tiles" in ft:
+            for k, v in ft["inter_tiles"].items():
+                tiles[k] += v
+            ii += ft["ii_items"]
+            line.update((k, ft[k]) for k in ("inter_tiles", "ii_items",
+                                             "pool_rows", "lap_rows",
+                                             "pool_cap"))
+        log(f"  inter frame {i} features " + json.dumps(line))
+    empty = sorted(k for k, v in tiles.items() if not v and k not in NOT_420)
+    if empty or not ii:
+        raise AssertionError(f"inter slots without tiles {empty}, "
+                             f"interintra items {ii}")
+
+    # the residual program on each frame's blob against its plain version
+    # (and the allocator brought to the frame's buffer sizes)
+    for i, (f, plan) in enumerate(frames):
+        pk = pack_frame(f, plan)
+        ah, aw = plan.ah, plan.aw
+        d, _ = Uploader(dev).upload(pk, ah * aw, 8)
+        ra = P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
+        ref = P.resid_plain(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(ra, ref):
+            raise AssertionError(f"inter frame {i}: resid != resid_plain")
+    log(f"resid (one itx launch) == resid_plain on the {len(frames)} inter "
+        "sequence frames' blobs")
+
+    T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
+    I.launches = 0
+    kernels.calls = 0
+    dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
+    got = []
+    for i, data in enumerate(packets):  # frame by frame: stage_ms per frame
+        run.reset_stats()
+        t0 = time.perf_counter()
+        got += synth.decode_md5s(dec, [data])
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"port inter frame {i} {W}x{H}: {ms:.1f} ms wall  md5 {got[-1]}  "
+            f"{'==' if got[-1] == host[i] else '!='} host")
+        log("  stage_ms " + json.dumps({k: round(v, 3)
+                                        for k, v in run.stage_ms.items()}))
+    launches = I.launches
+    plain_calls = kernels.calls
+    stats = dict(T.engine.stats)
+    log(f"inter engine stats {stats}  itx launches {launches}  plain "
+        f"transform calls {plain_calls}")
+    if got != host:
+        raise AssertionError("port inter output differs from the host path")
+    if stats["frames"] != len(packets) or stats["fallback"]:
+        raise AssertionError(f"engine did not decode every frame: {stats}")
+    if stats["ref_uploads"]:
+        raise AssertionError("a reference plane was uploaded from the host")
+    if launches != len(packets):
+        raise AssertionError(f"{launches} itx launches for {len(packets)} "
+                             "frames: the main path must launch once a frame")
+    if plain_calls:
+        raise AssertionError(f"{plain_calls} plain transform calls on the card")
+    inter_timing(dev, frames)
+    return launches
+
+
+def inter_timing(dev, frames):
+    """The inter program alone on each inter frame's blob: per call, CUDA
+    events (host dispatch included) and the device time of all its
+    kernels (torch.profiler), whose ratio is the device's busy share of
+    the stage."""
+    import torch
+
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.blob import Uploader
+    from rav1d_tpu_torch.engine.pack import pack_frame
+    from rav1d_tpu_torch.engine.run import stack_planes
+
+    for i, (f, plan) in enumerate(frames):
+        pk = pack_frame(f, plan)
+        if pk.srcs is None:
+            continue
+        ah, aw = plan.ah, plan.aw
+        d, _ = Uploader(dev).upload(pk, ah * aw, 8)
+        ra = P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
+        sY = stack_planes(pk.srcs[0], dev, (ah, aw))
+        sC = stack_planes(pk.srcs[1], dev, f.cur.u.shape)
+        zeros = torch.zeros((3, ah, aw), dtype=torch.int32, device=dev)
+
+        def call():
+            P.inter(zeros, ra, d, pk.hdr, pk.inter_runs, sY, sC, ah=ah,
+                    aw=aw, bpc=8, vwY=f.cur.w, vhY=f.cur.h,
+                    vwC=(f.cur.w + 1) >> 1, vhC=(f.cur.h + 1) >> 1)
+
+        ms = cuda_ms(call, 10)
+        dms = profiled_device_ms(call, 5)
+        log(f"inter program frame {i}: {ms:.3f} ms per call (CUDA events), "
+            f"device {'not measured' if dms is None else f'{dms:.3f} ms'} "
+            f"(torch.profiler, all kernels)"
+            + ("" if dms is None else f", busy {100 * dms / ms:.1f}%"))
+
+
+def profiled_device_ms(fn, reps):
+    """Device time per call of every kernel fn launches, in a
+    torch.profiler window over `reps` calls; None if it shows none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            t = getattr(e, "device_time_total", None)
+            us += e.cuda_time_total if t is None else t
+    return us / reps / 1e3 if us else None
+
+
 def profiled_kernel_ms(fn, name, reps):
     """Device time per launch of the kernel whose name contains `name`, in a
     torch.profiler window over `reps` calls of fn; None if the profiler
@@ -464,11 +633,43 @@ def vector_phase(dev):
         log(f"vector {rel}: md5 {m.hexdigest()} (meson {want}) fallback {fb}")
         if m.hexdigest() != want:
             raise AssertionError(f"{rel}: md5 mismatch")
+    bench_stream_phase(dev, d)
+
+
+def bench_stream_phase(dev, d):
+    """The first BENCH_FRAMES frames of the bench's inter stream, frame by
+    frame against the port's host path, with no fallback."""
+    import rav1d_tpu_torch as T
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.io.ivf import IvfDemuxer
+
+    path = os.path.join(d, BENCH_STREAM)
+    if not os.path.exists(path):
+        log(f"vector phase: {BENCH_STREAM} not found; skipped")
+        return
+    host = T.Decoder(T.Settings(apply_grain=False), host_path=True)
+    packets, want = [], []
+    for pkt in IvfDemuxer(path):
+        if len(want) >= BENCH_FRAMES:
+            break
+        packets.append(pkt.data)
+        want += synth.decode_md5s(host, [pkt.data])
+    before = dict(T.engine.stats)
+    got = synth.decode_md5s(
+        T.Decoder(T.Settings(apply_grain=False), device=dev), packets)
+    fb = T.engine.stats["fallback"] - before["fallback"]
+    log(f"vector {BENCH_STREAM}: {len(got)} frames, "
+        f"{sum(a == b for a, b in zip(got, want))} equal to the host path, "
+        f"fallback {fb}")
+    if got != want or fb:
+        raise AssertionError(f"{BENCH_STREAM}: differs from the host path "
+                             f"or fell back ({fb})")
 
 
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script runs only on the card")
@@ -502,6 +703,7 @@ def main():
     launches, worst_main, blobs = slice_phase(dev)
     k_ms, dev_ms, p_ms, itx_bytes, itx_ops_n = timing_phase(blobs)
     worst = max(worst, worst_main)
+    launches += inter_phase(dev)
     i8 = idct8x8_phase(dev)
     vector_phase(dev)
     if "jax" in sys.modules:
@@ -531,6 +733,7 @@ def main():
             # transform bit-exactly
             "library_ms": None,
         })
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

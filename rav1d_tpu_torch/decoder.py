@@ -11,9 +11,12 @@ The dense pass runs on a torch device (`Decoder(device=...)`, default the
 first CUDA card) through the port's engine (engine/), which owns the
 upload buffer (engine/blob.py Uploader) and receives it explicitly from
 this class. Frames outside the port's slice raise NotImplementedError
-instead of decoding on the host: inter frames, bit depths other than 8,
-layouts other than 4:2:0, superres. The planner's own host gate (intra
-block copy) still runs the host path, counted in engine.stats["fallback"].
+instead of decoding on the host: bit depths other than 8, layouts other
+than 4:2:0, superres. The reference engine's own host gates (intra block
+copy, scaled references, an inter pool that would overflow) still run the
+host path, counted in engine.stats["fallback"]. The engine keeps each
+picture it decodes on the device for later frames to predict from
+(engine/run.py dev_plane).
 `Decoder(host_path=True)` runs every frame on the numpy host path instead
 (no device); nothing chooses it automatically.
 """
@@ -129,8 +132,6 @@ def check_slice(f):
     """Raise NotImplementedError for a frame the port's engine does not
     decode."""
     fh = f.frame_hdr
-    if not fh.frame_type.is_key_or_intra:
-        raise NotImplementedError("inter frames are not ported yet")
     if f.cur.bpc != 8:
         raise NotImplementedError(f"{f.cur.bpc}-bit frames are not ported yet")
     if f.cur.layout != PixelLayout.I420:

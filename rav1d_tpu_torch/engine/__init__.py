@@ -1,14 +1,16 @@
 """The device engine on torch: packers, programs and the frame runner.
 
-Counterpart of rav1d_tpu/engine/__init__.py for the port's slice (intra
-8-bit 4:2:0 frames without superres). `stats` counts the frames the engine
-was asked to decode and the ones it handed to the numpy host path (the
-planner's own gate: intra block copy).
+Counterpart of rav1d_tpu/engine/__init__.py for the port's slice (8-bit
+4:2:0 frames, intra and inter, without superres). `stats` counts the frames
+the engine was asked to decode, the ones it handed to the numpy host path
+(the reference's own gates: intra block copy, scaled references, an inter
+pool that would overflow), and the host reference planes it uploaded
+(engine/run.py dev_plane: planes of pictures the host path decoded).
 """
 
 from __future__ import annotations
 
-stats = {"frames": 0, "fallback": 0}
+stats = {"frames": 0, "fallback": 0, "ref_uploads": 0}
 
 
 def run_dense(t, f, up) -> bool:

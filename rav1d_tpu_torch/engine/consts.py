@@ -13,9 +13,12 @@ import functools
 import numpy as np
 import torch
 
+from ..ops.ref.mc import FILTER_DIR
 from ..tables.spec_data import (
     DR_INTRA_DERIVATIVE,
     FILTER_INTRA_TAPS,
+    MC_SUBPEL_FILTERS,
+    MC_WARP_FILTER,
     SGR_X_BY_X,
     SM_WEIGHTS,
 )
@@ -37,6 +40,11 @@ def numpy_tables():
         # chroma CDEF direction remap, 4:2:0/4:4:4 row then 4:2:2 row
         "uv_dirs": np.asarray(
             [[0, 1, 2, 3, 4, 5, 6, 7], [7, 0, 2, 4, 5, 6, 6, 6]], np.int32),
+        # inter: 8-tap subpel filters (6, 15, 8), warp filters (193, 8),
+        # the (h, v) filter types of each 2-D filter code
+        "mc_subpel_filters": np.asarray(MC_SUBPEL_FILTERS, np.int32),
+        "mc_warp_filter": np.asarray(MC_WARP_FILTER, np.int32),
+        "filter_dir": np.asarray(FILTER_DIR, np.int32),
     }
 
 

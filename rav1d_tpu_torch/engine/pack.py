@@ -1,16 +1,14 @@
 """Host packers: serialize one decoded frame's plan into the frame blob.
 
-The functions from _chunked to _pack_lr are copies of
-rav1d_tpu/engine/run2.py's numpy packers (that module imports JAX at load
-time), changed only in their import lines and without run2's
-RAV1D_ENGINE_SKIP stage switch; tests/test_torch_pack.py holds
-the blobs they write to run2's word for word. `pack_frame` is the packing
-half of run2.execute for an intra frame, and also returns the host-side
-counts the device programs branch on, so no program reads a count back
-from the device.
-
-The inter packer (run2._plan_inter_v3) is not here: inter frames are
-outside this port's slice.
+The functions from _chunked to _pack_lr, the inter packer (_pack_slot,
+_plan_inter_v3) included, are copies of rav1d_tpu/engine/run2.py's numpy
+packers (that module imports JAX at load time), changed only in their
+import lines and without run2's RAV1D_ENGINE_SKIP stage switch;
+tests/test_torch_pack.py and tests/test_torch_inter.py hold the blobs they
+write to run2's word for word. `pack_frame` is the packing half of
+run2.execute (without superres), and also returns the host-side counts the
+device programs loop and branch on, so no program reads a count back from
+the device.
 """
 
 from __future__ import annotations
@@ -20,8 +18,9 @@ import numpy as np
 from ..syntax.levels import WHT_WHT
 from .blob import FrameBlob
 from .layout import (
-    CDEF0, CF0, DB0, FI, HDR_LEN, LR0, LRB, PAL0, PAL_B, R0, SIZES,
-    TXTP_FIRST, TXTP_SECOND, WAVE0, WHT0, WHT_B, chunk_for,
+    B_MRS, B_TW, C_TW, CDEF0, CF0, D_TW, DB0, FI, HB, HDR_LEN, IH0, INTER0,
+    LR0, LRB, NBLEND, NCOMB, NPUT, NWARP, PAL0, PAL_B, R0, SIZES, SLOTS, TB,
+    TXTP_FIRST, TXTP_SECOND, W_TW, WAVE0, WHT0, WHT_B, chunk_for,
 )
 from .plan import CAP, MODE_CFL_DC, MODE_IDENT, item_class
 
@@ -190,6 +189,336 @@ def _pack_wave(blob, hdr, plan, psz, aw):
     hdr[WAVE0 + 1] = blob.add_words(_pack_class(sitems, NW, CAP[0], psz))
     hdr[WAVE0 + 2] = blob.add_words(_pack_class(litems, NW, CAP[1], psz))
 
+
+# -------------------------------- inter ----------------------------------
+
+
+def _pack_slot(blob, hdr, name, cols, rows, B=TB, case_row=None):
+    """Pack a slot's tile descriptors into (nc, rows, B) chunks. With
+    case_row set, chunks are CASE-PURE (grouped by that column): the
+    device body lax.switches once per chunk and computes only that
+    filter case's gather + taps."""
+    if not cols:
+        return
+    a = np.asarray(cols, np.int32)
+    if case_row is None:
+        groups = [a]
+    else:
+        groups = [a[a[:, case_row] == c]
+                  for c in np.unique(a[:, case_row])]
+    chunks = []
+    total = 0
+    for g in groups:
+        d, nc = _chunked(list(g.T), g.shape[0], B)
+        if case_row is not None:
+            d[:, case_row, :] = g[0, case_row]
+        chunks.append(d)
+        total += nc
+    hdr[INTER0 + 2 * SLOTS[name]] = blob.add_words(np.concatenate(chunks))
+    hdr[INTER0 + 2 * SLOTS[name] + 1] = total
+
+
+def _plan_inter_v3(f, plan, blob, hdr, psz, aw):
+    """Serialize the collected inter job lists into slot descriptor chunks
+    (see engine/inter.py collect_inter for the job collection walk and
+    engine/mega.py for the slot set). Returns (srcsY, srcsC) or None when
+    a pool capacity would overflow (caller falls back to the host path)."""
+    from ..recon.inter import _PrepHandle, _WarpPrepHandle
+    from ..tables.spec_data import OBMC_MASKS
+
+    jobs = plan.inter
+    POOLROWS = (8 * psz) // 64
+
+    srcsY, srcsC = [], []
+    srcrow = {}
+    _src_pics = {}
+    for refp in f.refp:
+        if refp is None:
+            continue
+        for pl, arr in enumerate((refp.y, refp.u, refp.v)):
+            if arr is not None and id(arr) not in _src_pics:
+                _src_pics[id(arr)] = (refp, pl)
+
+    def src_of(plane):
+        key = id(plane)
+        if key not in srcrow:
+            pic, pl = _src_pics[key]
+            if pl == 0:
+                srcrow[key] = (0, len(srcsY))
+                srcsY.append((pic, pl))
+            else:
+                srcrow[key] = (1, len(srcsC))
+                srcsC.append((pic, pl))
+        return srcrow[key]
+
+    dstmap = {id(f.cur.y): 0}
+    if f.cur.u is not None:
+        dstmap[id(f.cur.u)] = 1
+        dstmap[id(f.cur.v)] = 2
+
+    # --- OBMC lap pool rows ---
+    lap_rows = {}
+    nlap = 0
+    for kind, dst, dy, dx, lap, w, h in jobs.blends:
+        if id(lap) not in lap_rows:
+            lh, lw = lap.shape
+            ntx = (lw + 7) >> 3
+            nty = (lh + 7) >> 3
+            lap_rows[id(lap)] = (nlap, ntx, nty, lw, lh)
+            nlap += ntx * nty
+    if nlap > POOLROWS:
+        return None
+
+    # --- puts (8-tap + bilin share slots; phases/bilin are data) ---
+    put_cols = {("putY"): [], ("putC"): [], ("lapY"): [], ("lapC"): []}
+
+    def add_put(job, bilin):
+        dst, dsty, dstx, plane, dy, dx, w, h, fmx, fmy, f2d, vw, vh = job
+        kind, row = src_of(plane)
+        di = dstmap.get(id(dst))
+        if di is None:
+            g = put_cols["lapY" if kind == 0 else "lapC"]
+        else:
+            g = put_cols["putY" if kind == 0 else "putC"]
+        # filter case (mega._put_out): 0 hv / 1 h / 2 v / 3 copy / 4 bilin
+        if bilin:
+            case = 4
+        elif fmy:
+            case = 0 if fmx else 2
+        else:
+            case = 1 if fmx else 3
+        for ty in range(0, h, 8):
+            th = min(8, h - ty)
+            for tx in range(0, w, 8):
+                tw = min(8, w - tx)
+                if di is not None:
+                    flat0 = di * psz + (dsty + ty) * aw + (dstx + tx)
+                else:
+                    base, ntx, nty, lw, lh = lap_rows[id(dst)]
+                    if dsty + ty >= lh or dstx + tx >= lw:
+                        continue
+                    flat0 = (base + ((dsty + ty) >> 3) * ntx
+                             + ((dstx + tx) >> 3)) * 64
+                g.append((row, dy + ty, dx + tx, fmx, fmy, f2d, flat0,
+                          tw, th, w, h, case))
+
+    for job in jobs.mc:
+        add_put(job, False)
+    for job in jobs.bilin:
+        add_put(job, True)
+    for name, cols in put_cols.items():
+        _pack_slot(blob, hdr, name, cols, NPUT, case_row=11)
+
+    # --- warp puts ---
+    warp_cols = {0: [], 1: []}
+    for dst, dsty, dstx, plane, dy, dx, abcd, mx, my, vw, vh in jobs.warp:
+        kind, row = src_of(plane)
+        di = dstmap[id(dst)]
+        flat0 = di * psz + dsty * aw + dstx
+        warp_cols[kind].append(
+            (row, dy, dx, abcd[0], abcd[1], abcd[2], abcd[3], mx, my,
+             flat0, 8, 8)
+        )
+    _pack_slot(blob, hdr, "warpY", warp_cols[0], NWARP)
+    _pack_slot(blob, hdr, "warpC", warp_cols[1], NWARP)
+
+    # --- compound prep pool ---
+    pool_rows = {}
+    npool = 0
+    prep_cols = {0: [], 1: []}
+    for idx, (plane, dy, dx, w, h, fmx, fmy, f2d, vw, vh) in enumerate(
+            jobs.prep):
+        kind, row = src_of(plane)
+        ntx = (w + 7) >> 3
+        nty = (h + 7) >> 3
+        pool_rows[("p", idx)] = (npool, ntx)
+        g = prep_cols[kind]
+        if fmy:
+            case = 0 if fmx else 2
+        else:
+            case = 1 if fmx else 3
+        for ty in range(0, h, 8):
+            th = min(8, h - ty)
+            for tx in range(0, w, 8):
+                tw = min(8, w - tx)
+                flat0 = (npool + (ty >> 3) * ntx + (tx >> 3)) * 64
+                g.append((row, dy + ty, dx + tx, fmx, fmy, f2d, flat0,
+                          tw, th, w, h, case))
+        npool += ntx * nty
+    _pack_slot(blob, hdr, "prepY", prep_cols[0], NPUT, case_row=11)
+    _pack_slot(blob, hdr, "prepC", prep_cols[1], NPUT, case_row=11)
+
+    wh_base = {}
+    for hnd in jobs.warp_handles:
+        ntx = (hnd.w + 7) >> 3
+        nty = (hnd.h + 7) >> 3
+        wh_base[hnd.idx] = (npool, ntx)
+        pool_rows[("w", hnd.idx)] = (npool, ntx)
+        npool += ntx * nty
+    wprep_cols = {0: [], 1: []}
+    for hidx, y, x, plane, dy, dx, abcd, mx, my, vw, vh in jobs.warp_prep:
+        kind, row = src_of(plane)
+        base, ntx = wh_base[hidx]
+        flat0 = (base + (y >> 3) * ntx + (x >> 3)) * 64
+        wprep_cols[kind].append(
+            (row, dy, dx, abcd[0], abcd[1], abcd[2], abcd[3], mx, my,
+             flat0, 8, 8)
+        )
+    _pack_slot(blob, hdr, "wprepY", wprep_cols[0], NWARP)
+    _pack_slot(blob, hdr, "wprepC", wprep_cols[1], NWARP)
+
+    # --- host-computed preps (rare: bilinear compound) ---
+    host_rows = []
+    host_tiles = []
+
+    def host_pool_rows(arr):
+        nonlocal npool
+        h, w = arr.shape
+        ntx = (w + 7) >> 3
+        nty = (h + 7) >> 3
+        base = npool
+        a = np.zeros((nty * 8, ntx * 8), np.int32)
+        a[:h, :w] = arr
+        for ty in range(nty):
+            for tx in range(ntx):
+                host_rows.append(base + ty * ntx + tx)
+                host_tiles.append(a[ty * 8 : ty * 8 + 8, tx * 8 : tx * 8 + 8])
+        npool += ntx * nty
+        return (base, ntx)
+
+    def rows_of(s):
+        if isinstance(s, _PrepHandle):
+            return pool_rows[("p", s.idx)]
+        if isinstance(s, _WarpPrepHandle):
+            return pool_rows[("w", s.idx)]
+        return host_pool_rows(np.asarray(s, np.int32))
+
+    # --- compound combine tiles ---
+    hmask_parts = []
+    hmask_off = 0
+    comb = {"avg": [], "mask": [], "seguv": [],
+            "segy00": [], "segy10": [], "segy11": []}
+    seg_off = {}
+    mask_off = 0
+    for rec in jobs.recs:
+        kind, pl, dy, dx, w, h, s0, s1, extra = rec
+        (b0, ntx0) = rows_of(s0)
+        (b1, ntx1) = rows_of(s1)
+        flat00 = pl * psz + dy * aw + dx
+        for ty in range(0, h, 8):
+            th = min(8, h - ty)
+            for tx in range(0, w, 8):
+                tw = min(8, w - tx)
+                r0 = b0 + (ty >> 3) * ntx0 + (tx >> 3)
+                r1 = b1 + (ty >> 3) * ntx1 + (tx >> 3)
+                flat0 = flat00 + ty * aw + tx
+                if kind in ("avg", "wavg"):
+                    wt = 8 if kind == "avg" else extra
+                    comb["avg"].append((r0, r1, flat0, wt, 0, 0, tw, th))
+                elif kind == "mask":
+                    moff = hmask_off + ty * w + tx
+                    comb["mask"].append((r0, r1, flat0, moff, w, 0, tw, th))
+                elif kind == "seg_y":
+                    sign, sh_, sv_, seg_id = extra
+                    if seg_id not in seg_off:
+                        seg_off[seg_id] = (mask_off, w >> sh_, sh_, sv_)
+                        mask_off += (w >> sh_) * (h >> sv_)
+                    mo, mw, _, _ = seg_off[seg_id]
+                    p0 = mo + (ty >> sv_) * mw + (tx >> sh_)
+                    comb[f"segy{sh_}{sv_}"].append(
+                        (r0, r1, flat0, p0, mw, sign, tw, th)
+                    )
+                else:  # seg_uv
+                    mo, mw, _, _ = seg_off[extra]
+                    p0 = mo + ty * mw + tx
+                    comb["seguv"].append((r0, r1, flat0, p0, mw, 0, tw, th))
+        if kind == "mask":
+            m = np.zeros((h, w), np.int32)
+            me = np.asarray(extra)
+            if me.ndim == 2:
+                m[: me.shape[0], : me.shape[1]] = me[:h, :w]
+            else:
+                m[:, :] = np.broadcast_to(
+                    me.reshape(-1)[: h * w].reshape(h, w), (h, w)
+                )
+            hmask_parts.append(m.reshape(-1))
+            hmask_off += h * w
+    if npool > POOLROWS or mask_off > psz:
+        return None
+    for name in ("avg", "mask", "seguv", "segy00", "segy10", "segy11"):
+        _pack_slot(blob, hdr, name, comb[name], NCOMB)
+
+    if host_tiles:
+        rows = np.asarray(host_rows, np.int32)
+        tiles = np.stack(host_tiles).reshape(len(host_rows), 64)
+        nh = rows.size
+        nc = (nh + HB - 1) // HB
+        d = np.full((nc, 65, HB), 0, np.int32)
+        d[:, 0, :] = np.concatenate(
+            [rows, np.full(nc * HB - nh, 1 << 30, np.int32)]
+        ).reshape(nc, HB)
+        tp = np.zeros((nc * HB, 64), np.int32)
+        tp[:nh] = tiles
+        d[:, 1:, :] = tp.reshape(nc, HB, 64).transpose(0, 2, 1)
+        hdr[INTER0 + 2 * SLOTS["hostpool"]] = blob.add_words(d)
+        hdr[INTER0 + 2 * SLOTS["hostpool"] + 1] = nc
+
+    # --- OBMC blend tiles (tops packed before lefts: recon.rs obmc order)
+    omask_off = {}
+    blend_cols = {"h": [], "v": []}
+    for kind, dst, dy, dx, lap, w, h in jobs.blends:
+        di = dstmap[id(dst)]
+        base, ntx, nty, lw, lh = lap_rows[id(lap)]
+        n = h if kind == "h" else w
+        mk = (kind, n)
+        if mk not in omask_off:
+            vn = (n * 3) >> 2
+            vec = np.zeros(n, np.int32)
+            vec[:vn] = np.asarray(OBMC_MASKS[n : n + vn], np.int32)
+            omask_off[mk] = hmask_off
+            hmask_parts.append(vec)
+            hmask_off += n
+        mo = omask_off[mk]
+        for ty in range(0, h, 8):
+            th = min(8, h - ty)
+            for tx in range(0, w, 8):
+                tw = min(8, w - tx)
+                flat0 = di * psz + (dy + ty) * aw + (dx + tx)
+                if ty < lh and tx < lw:
+                    row = base + (ty >> 3) * ntx + (tx >> 3)
+                else:
+                    row = base  # mask is zero there; any valid row works
+                if kind == "h":
+                    moff, mrs, mcs = mo + ty, 1, 0
+                else:
+                    moff, mrs, mcs = mo + tx, 0, 1
+                blend_cols[kind].append((row, flat0, moff, mrs, mcs, tw, th))
+    # A chunk's tiles all read pf BEFORE any of the chunk's writes, so
+    # overlapping blends must land in different chunks. The only
+    # overlaps are a block's own top-lap x left-lap corner (top rows x
+    # left cols), so: all top blends, pad to a chunk boundary, then
+    # all left blends — left corners then read post-top-blend pixels,
+    # exactly the host's per-block h-then-v order.
+    hc, nh = _chunked(
+        list(np.asarray(blend_cols["h"], np.int32).T),
+        len(blend_cols["h"]), TB,
+    ) if blend_cols["h"] else (np.zeros((0, NBLEND, TB), np.int32), 0)
+    vc, nv = _chunked(
+        list(np.asarray(blend_cols["v"], np.int32).T),
+        len(blend_cols["v"]), TB,
+    ) if blend_cols["v"] else (np.zeros((0, NBLEND, TB), np.int32), 0)
+    if nh or nv:
+        hdr[INTER0 + 2 * SLOTS["blend"]] = blob.add_words(
+            np.concatenate([hc, vc])
+        )
+        hdr[INTER0 + 2 * SLOTS["blend"] + 1] = nh + nv
+
+    if hmask_parts:
+        hdr[IH0] = blob.add_words(np.concatenate(hmask_parts))
+    return srcsY, srcsC
+
+
+# ------------------------------- filters ---------------------------------
 
 
 def _pack_deblock(f, blob, hdr):
@@ -432,17 +761,19 @@ def _pack_lr(f, blob, hdr):
 
 
 # ---------------------------------------------------------------------------
-# the intra frame's packing pass (run2.execute minus inter and superres)
+# the frame's packing pass (run2.execute without superres)
 # ---------------------------------------------------------------------------
 
 
 class FramePack:
     """A packed frame: the header words, the blob allocator holding every
-    region, the static LR stripe widths, and the host-side counts."""
+    region, the static LR stripe widths, the host-side counts, and an
+    inter frame's reference sources."""
 
-    __slots__ = ("hdr", "blob", "lr_ws", "waves", "tx_valid")
+    __slots__ = ("hdr", "blob", "lr_ws", "waves", "tx_valid", "srcs",
+                 "inter_runs")
 
-    def __init__(self, hdr, blob, lr_ws, waves, tx_valid):
+    def __init__(self, hdr, blob, lr_ws, waves, tx_valid, srcs, inter_runs):
         self.hdr = hdr
         self.blob = blob
         self.lr_ws = lr_ws
@@ -451,6 +782,11 @@ class FramePack:
         self.waves = waves
         # {size index, or "wht": filled lanes of its chunks}
         self.tx_valid = tx_valid
+        # inter frames: (srcsY, srcsC), the distinct reference planes the
+        # tile descriptors' stack rows name, as [(picture, plane index)]
+        self.srcs = srcs
+        # inter frames: {slot name: [InterRun]} for every slot with chunks
+        self.inter_runs = inter_runs
 
     def write_into(self, buf):
         """Write the used prefix of the blob (header first, zeroed regions
@@ -466,6 +802,70 @@ class FramePack:
     def words(self):
         """The used prefix of the blob as one new int32 array."""
         return self.write_into(np.zeros(self.blob.pos, np.int32))
+
+
+class InterRun:
+    """A run of consecutive chunks of one inter slot that the device
+    program executes as one batch: chunks [c0, c0 + nc) of the slot, the
+    first n lanes of them filled (the rest is padding of the run's last
+    chunk). `case` is the filter case of a put or prep run (0 8-tap h+v,
+    1 h, 2 v, 3 copy, 4 bilinear), "top" or "left" for the OBMC blend
+    slot's two runs, None elsewhere."""
+
+    __slots__ = ("case", "c0", "nc", "n")
+
+    def __init__(self, case, c0, nc, n):
+        self.case, self.c0, self.nc, self.n = case, c0, nc, n
+
+
+# descriptor rows and the row that is nonzero on a filled lane, per slot
+_SLOT_ROWS = {
+    "putY": (NPUT, D_TW), "putC": (NPUT, D_TW), "lapY": (NPUT, D_TW),
+    "lapC": (NPUT, D_TW), "prepY": (NPUT, D_TW), "prepC": (NPUT, D_TW),
+    "warpY": (NWARP, W_TW), "warpC": (NWARP, W_TW),
+    "wprepY": (NWARP, W_TW), "wprepC": (NWARP, W_TW),
+    "hostpool": (65, None),
+    "avg": (NCOMB, C_TW), "segy00": (NCOMB, C_TW), "segy10": (NCOMB, C_TW),
+    "segy11": (NCOMB, C_TW), "mask": (NCOMB, C_TW), "seguv": (NCOMB, C_TW),
+    "blend": (NBLEND, B_TW),
+}
+_CASE_SLOTS = ("putY", "putC", "lapY", "lapC", "prepY", "prepC")
+
+
+def _inter_runs(blob, hdr):
+    """Host view of the inter slots _plan_inter_v3 wrote: {slot name:
+    [InterRun]}. Put and prep slots split into their case-pure runs, the
+    blend slot into its top-lap and left-lap runs."""
+    parts = dict(blob.parts)
+    out = {}
+    for name, (rows, live) in _SLOT_ROWS.items():
+        nc = int(hdr[INTER0 + 2 * SLOTS[name] + 1])
+        if not nc:
+            continue
+        B = HB if name == "hostpool" else TB
+        d = parts[int(hdr[INTER0 + 2 * SLOTS[name]])].reshape(nc, rows, B)
+        if name == "hostpool":
+            filled = d[:, 0, :] != (1 << 30)
+        else:
+            filled = d[:, live, :] > 0
+        if name in _CASE_SLOTS:
+            cases = d[:, 11, 0].tolist()
+        elif name == "blend":
+            cases = ["top" if v == 1 else "left" for v in d[:, B_MRS, 0]]
+        else:
+            cases = [None] * nc
+        runs = []
+        c0 = 0
+        for c in range(1, nc + 1):
+            if c < nc and cases[c] == cases[c0]:
+                continue
+            fl = filled[c0:c].reshape(-1)
+            n = int(fl.sum())
+            assert fl[:n].all(), "padding lanes must come last in a run"
+            runs.append(InterRun(cases[c0], c0, c - c0, n))
+            c0 = c
+        out[name] = runs
+    return out
 
 
 def _wave_classes(blob, hdr, plan, psz, aw):
@@ -513,7 +913,9 @@ def _tx_valid(blob, hdr, psz):
 
 
 def pack_frame(f, plan):
-    """Pack an intra frame: returns a FramePack."""
+    """Pack a frame: returns a FramePack, or None when an inter frame would
+    overflow a pool of the inter program (the caller runs the host path,
+    as run2.execute does)."""
     ah, aw = plan.ah, plan.aw
     psz = ah * aw
     bpc = f.cur.bpc
@@ -525,10 +927,16 @@ def pack_frame(f, plan):
         cf = store.cf[: store.cf_pos]
         hdr[CF0] = blob.add_i16(cf) if bpc == 8 else blob.add_words(cf)
     _pack_residuals(blob, hdr, store, plan, psz, aw)
+    srcs = None
+    if plan.inter is not None:
+        srcs = _plan_inter_v3(f, plan, blob, hdr, psz, aw)
+        if srcs is None:
+            return None
     _pack_palette(blob, hdr, plan, psz, aw)
     _pack_wave(blob, hdr, plan, psz, aw)
     _pack_deblock(f, blob, hdr)
     _pack_cdef(f, blob, hdr)
     lr_ws = _pack_lr(f, blob, hdr)
     return FramePack(hdr, blob, lr_ws, _wave_classes(blob, hdr, plan, psz, aw),
-                     _tx_valid(blob, hdr, psz))
+                     _tx_valid(blob, hdr, psz), srcs,
+                     _inter_runs(blob, hdr) if srcs is not None else {})

@@ -217,11 +217,10 @@ def build_plan(t, f):
     else:
         if any(f.svc[i][0]["scale"] for i in range(7)):
             return _fb("scaled references (svc)")
-        # the inter planner (rav1d_tpu/engine/inter.py collect_inter) is
-        # not ported yet: it comes with the inter_prog slice
-        raise NotImplementedError(
-            "inter frames are not ported yet (collect_inter comes with "
-            "the inter_prog slice)")
+        from .inter import collect_inter
+
+        if not collect_inter(t, f, plan):
+            return _fb("collect_inter: uncovered inter feature")
 
     _assign_waves(plan, f)
     return plan

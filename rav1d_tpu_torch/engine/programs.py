@@ -1,11 +1,12 @@
-"""The device engine's three intra-frame programs on torch.
+"""The device engine's four programs on torch.
 
-Ports of rav1d_tpu/engine/mega.py resid_prog, wave_prog and filter_prog
-(without superres). Every program reads the frame's descriptors from the
-one uploaded int32 blob `dev`, at the word offsets of the header; the trip
-counts and feature gates that JAX reads from the device blob come from the
-host header `hdr` and the packer's counts instead, so no count is ever
-read back from the device during a frame.
+Ports of rav1d_tpu/engine/mega.py resid_prog, inter_prog, wave_prog and
+filter_prog (without superres). Every program reads the frame's
+descriptors from the one uploaded int32 blob `dev`, at the word offsets of
+the header; the trip counts, filter cases and feature gates that JAX reads
+from the device blob come from the host header `hdr` and the packer's
+counts instead, so no count is ever read back from the device during a
+frame.
 
 Layout conventions (as in the JAX engine): `ra` is the (6*psz,) residual
 buffer, [0, 3psz) for the wavefront's blocks; planes are (3, ah, aw)
@@ -18,11 +19,18 @@ from __future__ import annotations
 import torch
 
 from ..ops.cuda import itx as cuda_itx
+from ..ops.ref.mc import intermediate_bits
 from ..syntax.levels import FILTER_PRED
 from . import filters as FL
+from . import tiles as T
+from .consts import tables
 from .kernels import itx_any_core, wht_core
 from .layout import (
-    CDEF0, CF0, DB0, FI, LR0, LRB, N_FIELDS, PAL0, PAL_B, R0, SIZES, WAVE0,
+    B_FLAT0, B_MCS, B_MOFF, B_MRS, B_ROW, B_TH, B_TW, C_FLAT0, C_P0, C_P1,
+    C_P2, C_R0, C_R1, C_TH, C_TW, CDEF0, CF0, D_FLAT0, D_MX, D_MY, D_SROW,
+    D_SX, D_SY, D_TH, D_TW, DB0, FI, HB, IH0, INTER0, LR0, LRB, N_FIELDS,
+    NBLEND, NCOMB, NPUT, NWARP, PAL0, PAL_B, R0, SIZES, SLOTS, TB, W_A, W_B,
+    W_C, W_D, W_FLAT0, W_MX, W_MY, W_SROW, W_SX, W_SY, W_TH, W_TW, WAVE0,
     WHT0, WHT_B, chunk_for,
 )
 from .plan import CAP, CLS_L, CLS_S
@@ -129,6 +137,285 @@ def resid_plain(dev, hdr, tx_valid, *, ah, aw, bpc):
     return ra[: 6 * psz], planes
 
 
+# -------------------------------- inter ----------------------------------
+
+
+def _run_rows(dev, hdr, name, rows, run, B=TB):
+    """(rows, run.n) descriptors of a run of one slot's chunks."""
+    base = int(hdr[INTER0 + 2 * SLOTS[name]]) + run.c0 * rows * B
+    d = _region(dev, base, run.nc * rows * B).view(run.nc, rows, B)
+    return d.permute(1, 0, 2).reshape(rows, run.nc * B)[:, : run.n]
+
+
+def _scatter8(buf, out, flat0, tw, th, stride):
+    """Write each lane's 8x8 tile at flat0 + r*stride + c, its rows below
+    th and columns below tw only (mega.py _scatter8)."""
+    r = _ar(8, buf.device)
+    idx = flat0[:, None, None] + r[None, :, None] * stride + r[None, None, :]
+    valid = (r[None, :, None] < th[:, None, None]) & (
+        r[None, None, :] < tw[:, None, None])
+    _scatter_drop(buf, torch.where(valid, idx, torch.full_like(idx, -1)), out)
+
+
+def _put_out(stack, d, case, vw, vh, bpc):
+    """One case of 8-tap or bilinear put tiles (mega.py _put_out): 0 = h+v,
+    1 = h only, 2 = v only, 3 = copy, 4 = bilinear."""
+    ib = intermediate_bits(bpc)
+    pxmax = (1 << bpc) - 1
+    sh = 6 - ib
+    if case == 0:
+        win = T._gather(stack, d[D_SROW], d[D_SY] - 3, 15, d[D_SX] - 3, 15,
+                        vw, vh)
+        fh, fv = T._filters(d)
+        mid = T._i16((T.htap(win, fh) + ((1 << sh) >> 1)) >> sh)
+        sh2 = 6 + ib
+        return ((T.vtap(mid, fv) + ((1 << sh2) >> 1)) >> sh2).clamp(0, pxmax)
+    if case == 1:
+        win = T._gather(stack, d[D_SROW], d[D_SY], 8, d[D_SX] - 3, 15, vw, vh)
+        ho = T.htap(win, T._filters(d)[0])
+        return ((ho + 32 + ((1 << sh) >> 1)) >> 6).clamp(0, pxmax)
+    if case == 2:
+        win = T._gather(stack, d[D_SROW], d[D_SY] - 3, 15, d[D_SX], 8, vw, vh)
+        vo = T.vtap(win, T._filters(d)[1])
+        return ((vo + 32) >> 6).clamp(0, pxmax)
+    if case == 3:
+        return T._gather(stack, d[D_SROW], d[D_SY], 8, d[D_SX], 8, vw, vh)
+    b = T._gather(stack, d[D_SROW], d[D_SY], 9, d[D_SX], 9, vw, vh)
+    mx = d[D_MX][:, None, None]
+    my = d[D_MY][:, None, None]
+    sh_h = 4 - ib
+    hrnd = (1 << sh_h) >> 1
+    hsrc = b[:, :, :8]
+    hf = 16 * hsrc + mx * (b[:, :, 1:9] - hsrc)
+    mid_f = T._i16((hf + hrnd) >> sh_h)
+    vf_f = 16 * mid_f[:, :8, :] + my * (mid_f[:, 1:9, :] - mid_f[:, :8, :])
+    vf_r = 16 * hsrc[:, :8, :] + my * (hsrc[:, 1:9, :] - hsrc[:, :8, :])
+    sh_v = 4 + ib
+    ird = (1 << ib) >> 1
+    outb = torch.where(
+        my != 0,
+        torch.where(mx != 0, (vf_f + ((1 << sh_v) >> 1)) >> sh_v,
+                    (vf_r + 8) >> 4),
+        torch.where(mx != 0, (mid_f[:, :8, :] + ird) >> ib, hsrc[:, :8, :]),
+    )
+    return outb.clamp(0, pxmax)
+
+
+def _prep_out(stack, d, case, vw, vh, bpc):
+    """One case of 8-tap prep tiles (mega.py _prep_out): 0 = h+v, 1 = h,
+    2 = v, 3 = copy; int16 intermediates."""
+    ib = intermediate_bits(bpc)
+    bias = 0 if bpc == 8 else 8192
+    sh = 6 - ib
+    if case == 0:
+        win = T._gather(stack, d[D_SROW], d[D_SY] - 3, 15, d[D_SX] - 3, 15,
+                        vw, vh)
+        fh, fv = T._filters(d)
+        mid = T._i16((T.htap(win, fh) + ((1 << sh) >> 1)) >> sh)
+        out = ((T.vtap(mid, fv) + 32) >> 6) - bias
+    elif case == 1:
+        win = T._gather(stack, d[D_SROW], d[D_SY], 8, d[D_SX] - 3, 15, vw, vh)
+        ho = T.htap(win, T._filters(d)[0])
+        out = ((ho + ((1 << sh) >> 1)) >> sh) - bias
+    elif case == 2:
+        win = T._gather(stack, d[D_SROW], d[D_SY] - 3, 15, d[D_SX], 8, vw, vh)
+        vo = T.vtap(win, T._filters(d)[1])
+        out = ((vo + ((1 << sh) >> 1)) >> sh) - bias
+    else:
+        win = T._gather(stack, d[D_SROW], d[D_SY], 8, d[D_SX], 8, vw, vh)
+        out = (win << ib) - bias
+    return T._i16(out)
+
+
+def _warp_out(stack, d, vw, vh, bpc):
+    """8x8 affine warp tiles before their final rounding (mega.py
+    _warp_out); the filter index is clamped to the table."""
+    F = tables(stack.device)["mc_warp_filter"]
+    nF = F.shape[0] - 1
+    d_ = stack.device
+    ib = intermediate_bits(bpc)
+    region = T._gather(stack, d[W_SROW], d[W_SY] - 3, 15, d[W_SX] - 3, 15,
+                       vw, vh)
+    ys = _ar(15, d_)[None, :, None]
+    xs = _ar(8, d_)[None, None, :]
+    tmx = (d[W_MX][:, None, None] + ys * d[W_B][:, None, None]
+           + xs * d[W_A][:, None, None])
+    taps = F[(64 + ((tmx + 512) >> 10)).clamp(0, nF).long()]
+    sh = 7 - ib
+    mid = (region.unfold(2, 8, 1) * taps).sum(-1, dtype=I32)
+    mid = T._i16((mid + ((1 << sh) >> 1)) >> sh)
+    ys8 = _ar(8, d_)[None, :, None]
+    tmy = (d[W_MY][:, None, None] + ys8 * d[W_D][:, None, None]
+           + xs * d[W_C][:, None, None])
+    vtaps = F[(64 + ((tmy + 512) >> 10)).clamp(0, nF).long()]
+    return (mid.unfold(1, 8, 1) * vtaps).sum(-1, dtype=I32)
+
+
+def inter(planes, ra, dev, hdr, runs, stackY, stackC, *, ah, aw, bpc, vwY,
+          vhY, vwC, vhC):
+    """The frame's whole inter phase (mega.py inter_prog): puts and warps
+    into the planes, OBMC laps into the lap pool, preps into the compound
+    pool, the compound combines, the OBMC lap blends, then the batch
+    residual add. `runs` is the packer's {slot: [InterRun]}
+    (engine/pack.py), `stackY` and `stackC` the uint8 reference planes the
+    descriptors' stack rows name. Each run is one batch: the tiles of a
+    slot write disjoint pixels, except the blends, whose top-lap run is
+    finished before the left-lap run starts. Pools are sized to the
+    packer's limit, (8 * psz) // 64 rows (the JAX program allocates 6/8
+    of it and clamps beyond)."""
+    d_ = dev.device
+    psz = ah * aw
+    ib = intermediate_bits(bpc)
+    pxmax = (1 << bpc) - 1
+    poolrows = (8 * psz) // 64
+    hbase = int(hdr[IH0])
+    pf = torch.cat([planes.reshape(-1), torch.zeros(1, dtype=I32, device=d_)])
+    pools = {}
+
+    def pool(name, n):
+        if name not in pools:
+            pools[name] = torch.zeros(n + 1, dtype=I32, device=d_)
+        return pools[name]
+
+    def pool_tiles(name, rows):
+        p = pool(name, poolrows * 64)[:-1].view(poolrows, 8, 8)
+        return p[rows.clamp(0, poolrows - 1).long()]
+
+    def each(name, rows):
+        for run in runs.get(name, ()):
+            yield run, _run_rows(dev, hdr, name, rows, run)
+
+    geo = {"Y": (stackY, vwY, vhY), "C": (stackC, vwC, vhC)}
+
+    # 1. puts into the planes / the OBMC lap pool
+    for kind in ("put", "lap"):
+        for pl in ("Y", "C"):
+            stack, vw, vh = geo[pl]
+            for run, d in each(kind + pl, NPUT):
+                out = _put_out(stack, d, min(max(run.case, 0), 4), vw, vh,
+                               bpc)
+                if kind == "lap":
+                    _scatter8(pool("lap", poolrows * 64), out, d[D_FLAT0],
+                              d[D_TW], d[D_TH], 8)
+                else:
+                    _scatter8(pf, out, d[D_FLAT0], d[D_TW], d[D_TH], aw)
+
+    # 2. warp puts
+    for pl in ("Y", "C"):
+        stack, vw, vh = geo[pl]
+        for _, d in each("warp" + pl, NWARP):
+            sh = 7 + ib
+            out = ((_warp_out(stack, d, vw, vh, bpc) + ((1 << sh) >> 1))
+                   >> sh).clamp(0, pxmax)
+            _scatter8(pf, out, d[W_FLAT0], d[W_TW], d[W_TH], aw)
+
+    # 3. compound preps into the pool: 8-tap, warp, then the host's tiles
+    for pl in ("Y", "C"):
+        stack, vw, vh = geo[pl]
+        for run, d in each("prep" + pl, NPUT):
+            out = _prep_out(stack, d, min(max(run.case, 0), 3), vw, vh, bpc)
+            _scatter8(pool("pool", poolrows * 64), out, d[D_FLAT0], d[D_TW],
+                      d[D_TH], 8)
+    for pl in ("Y", "C"):
+        stack, vw, vh = geo[pl]
+        for _, d in each("wprep" + pl, NWARP):
+            bias = 0 if bpc == 8 else 8192
+            out = T._i16(((_warp_out(stack, d, vw, vh, bpc) + 64) >> 7) - bias)
+            _scatter8(pool("pool", poolrows * 64), out, d[W_FLAT0], d[W_TW],
+                      d[W_TH], 8)
+    for run in runs.get("hostpool", ()):
+        # chunk layout: HB row ids, then HB 8x8 int32 tiles
+        d = _run_rows(dev, hdr, "hostpool", 65, run, HB)
+        idx = (d[0].long()[:, None] * 64
+               + torch.arange(64, dtype=torch.int64, device=d_)[None, :])
+        _scatter_drop(pool("pool", poolrows * 64), idx, d[1:].T)
+
+    # 4. compound combines
+    rnd_avg = (8 << ib) + (0 if bpc == 8 else 8192) * 16
+    rnd_msk = (32 << ib) + (0 if bpc == 8 else 8192) * 64
+    r8 = _ar(8, d_)
+    for _, d in each("avg", NCOMB):
+        t1 = pool_tiles("pool", d[C_R0])
+        t2 = pool_tiles("pool", d[C_R1])
+        wt = d[C_P0][:, None, None]
+        out = (t1 * wt + t2 * (16 - wt) + rnd_avg) >> (ib + 4)
+        _scatter8(pf, out.clamp(0, pxmax), d[C_FLAT0], d[C_TW], d[C_TH], aw)
+
+    mask_sh = bpc + ib - 4
+    mask_rnd = 1 << (mask_sh - 5)
+    for name, sh_, sv_ in (("segy00", 0, 0), ("segy10", 1, 0),
+                           ("segy11", 1, 1)):
+        for _, d in each(name, NCOMB):
+            t1 = pool_tiles("pool", d[C_R0])
+            t2 = pool_tiles("pool", d[C_R1])
+            m = torch.clamp(38 + (((t1 - t2).abs() + mask_rnd) >> mask_sh),
+                            max=64)
+            out = (t1 * m + t2 * (64 - m) + rnd_msk) >> (ib + 6)
+            _scatter8(pf, out.clamp(0, pxmax), d[C_FLAT0], d[C_TW], d[C_TH],
+                      aw)
+            signs = d[C_P2][:, None, None]
+            if sh_:
+                mn = m[:, :, 0::2] + m[:, :, 1::2]
+                if sv_:
+                    msk = (mn[:, 0::2, :] + mn[:, 1::2, :] + 2 - signs) >> 2
+                else:
+                    msk = (mn + 1 - signs) >> 1
+            else:
+                msk = m
+            r = _ar(8 >> sv_, d_)
+            c = _ar(8 >> sh_, d_)
+            midx = (d[C_P0][:, None, None]
+                    + r[None, :, None] * d[C_P1][:, None, None]
+                    + c[None, None, :])
+            valid = (r[None, :, None] < ((d[C_TH][:, None, None] + sv_) >> sv_)
+                     ) & (c[None, None, :]
+                          < ((d[C_TW][:, None, None] + sh_) >> sh_))
+            _scatter_drop(pool("mask", psz),
+                          torch.where(valid, midx, torch.full_like(midx, -1)),
+                          msk)
+
+    for _, d in each("mask", NCOMB):
+        # wedge masks gather from the blob's mask region
+        t1 = pool_tiles("pool", d[C_R0])
+        t2 = pool_tiles("pool", d[C_R1])
+        midx = (hbase + d[C_P0][:, None, None]
+                + r8[None, :, None] * d[C_P1][:, None, None]
+                + r8[None, None, :])
+        m = _gather(dev, midx)
+        out = (t1 * m + t2 * (64 - m) + rnd_msk) >> (ib + 6)
+        _scatter8(pf, out.clamp(0, pxmax), d[C_FLAT0], d[C_TW], d[C_TH], aw)
+
+    for _, d in each("seguv", NCOMB):
+        t1 = pool_tiles("pool", d[C_R0])
+        t2 = pool_tiles("pool", d[C_R1])
+        midx = (d[C_P0][:, None, None]
+                + r8[None, :, None] * d[C_P1][:, None, None]
+                + r8[None, None, :])
+        m = pool("mask", psz)[midx.clamp(0, psz - 1).long()]
+        out = (t1 * m + t2 * (64 - m) + rnd_msk) >> (ib + 6)
+        _scatter8(pf, out.clamp(0, pxmax), d[C_FLAT0], d[C_TW], d[C_TH], aw)
+
+    # 5. OBMC lap blends: the top-lap run, then the left-lap run
+    for _, d in each("blend", NBLEND):
+        idx = (d[B_FLAT0][:, None, None] + r8[None, :, None] * aw
+               + r8[None, None, :])
+        a = pf[idx.clamp(0, 3 * psz - 1).long()]
+        b = pool_tiles("lap", d[B_ROW])
+        midx = (hbase + d[B_MOFF][:, None, None]
+                + r8[None, :, None] * d[B_MRS][:, None, None]
+                + r8[None, None, :] * d[B_MCS][:, None, None])
+        m = _gather(dev, midx)
+        out = (a * (64 - m) + b * m + 32) >> 6
+        valid = (r8[None, :, None] < d[B_TH][:, None, None]) & (
+            r8[None, None, :] < d[B_TW][:, None, None])
+        _scatter_drop(pf, torch.where(valid, idx, torch.full_like(idx, -1)),
+                      out)
+
+    # 6. the batch-phase residual add (zero outside batch-phase blocks)
+    rb = ra[3 * psz : 6 * psz].view(3, ah, aw)
+    return (pf[: 3 * psz].view(3, ah, aw) + rb).clamp(0, pxmax)
+
+
 # ------------------------------ wavefront --------------------------------
 
 
@@ -148,6 +435,7 @@ def wave(planes, ra, dev, hdr, waves, *, ah, aw, bpc, ss_hor, ss_ver):
 
     if not waves:
         return pf[: 3 * psz].view(3, ah, aw)
+    mask_base = int(hdr[WAVE0 + 3])  # interintra masks (inter frames)
     # every wave's descriptors and edge plans, one batch per class: the
     # plans depend only on descriptors, never on pixels
     classes = []
@@ -167,7 +455,8 @@ def wave(planes, ra, dev, hdr, waves, *, ah, aw, bpc, ss_hor, ss_ver):
             filt_ext = ((int(filt[:, FI["w"]].max()), int(filt[:, FI["h"]].max()))
                         if filt.size else (0, 0))
             class_step(pf, resid_, rows[i, :n], coords[i, :n], CW, CH, bpc,
-                       ss_hor, ss_ver, aw, psz, flags, modes, filt_ext)
+                       ss_hor, ss_ver, aw, psz, flags, modes, filt_ext,
+                       dev, mask_base)
     return pf[: 3 * psz].view(3, ah, aw)
 
 

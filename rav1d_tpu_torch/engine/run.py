@@ -1,14 +1,21 @@
-"""Frame runner: pack one intra frame, upload it once, run the three
-programs, fetch the packed output into the picture's host planes.
+"""Frame runner: pack one frame, upload it once, run the programs (resid,
+inter for an inter frame, wave, filter), fetch the packed output into the
+picture's host planes.
 
-Port of rav1d_tpu/engine/run2.py execute for an intra frame. The inter
-phase, superres, the capture and trace switches, and the deferred batched
-fetch are not here: the port fetches each frame synchronously, so a
-decoded picture's planes are complete when the decoder hands it out.
+Port of rav1d_tpu/engine/run2.py execute (with run2._stack and
+engine/inter.py dev_plane). Superres, the capture and trace switches, and
+the deferred batched fetch are not here: the port fetches each frame
+synchronously, so a decoded picture's planes are complete when the decoder
+hands it out.
+
+Reference planes stay on the device. A picture the engine decoded keeps
+views of its packed uint8 output as its device planes; a picture the host
+path decoded (a fallback frame) has a host plane uploaded on first use and
+cached, each upload counted in engine.stats["ref_uploads"].
 
 `stage_ms` accumulates the same stages as run2.stage_ms (pack, upload,
 programs, fetch) over the process, with "programs" also split into resid,
-wave and filter. Device stages are timed with CUDA events on a CUDA
+inter, wave and filter. Device stages are timed with CUDA events on a CUDA
 device, with the host clock on the CPU.
 """
 
@@ -16,13 +23,16 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from ..headers import PixelLayout
 from . import programs as P
+from . import stats
 from .pack import pack_frame
 
-STAGES = ("pack", "upload", "resid", "wave", "filter", "fetch", "programs")
+STAGES = ("pack", "upload", "resid", "inter", "wave", "filter", "fetch",
+          "programs")
 stage_ms = dict.fromkeys(STAGES, 0.0)
 
 
@@ -55,10 +65,38 @@ def reset_stats():
     stage_ms.update(dict.fromkeys(STAGES, 0.0))
 
 
+def dev_plane(pic, pl, device):
+    """Plane `pl` of a decoded reference picture on `device`, cached on
+    the picture (reference pictures do not change once in the slots,
+    src/decode.rs:5002). A picture the engine decoded already holds views
+    of its output; a host plane is uploaded once, and counted."""
+    cache = getattr(pic, "_dev_planes", None)
+    if cache is None:
+        cache = pic._dev_planes = {}
+    if pl not in cache:
+        host = np.ascontiguousarray((pic.y, pic.u, pic.v)[pl])
+        cache[pl] = torch.tensor(host, device=device)
+        stats["ref_uploads"] += 1
+    return cache[pl]
+
+
+def stack_planes(srcs, device, shape):
+    """The distinct reference planes [(picture, plane)] the packer named,
+    stacked in its order: (len(srcs), *shape) uint8 (one zero plane when
+    there are none, which no tile then reads)."""
+    rows = [dev_plane(pic, pl, device) for pic, pl in srcs]
+    if not rows:
+        return torch.zeros((1,) + tuple(shape), dtype=torch.uint8,
+                           device=device)
+    return torch.stack(rows)
+
+
 def execute(f, plan, up):
-    """Run the dense pass of an intra 8-bit 4:2:0 frame on the device of
-    `up` (an engine/blob.py Uploader) and write the result into
-    f.sr_cur's host planes."""
+    """Run the dense pass of an 8-bit 4:2:0 frame on the device of `up`
+    (an engine/blob.py Uploader) and write the result into f.sr_cur's host
+    planes. Returns False, having run nothing on the device, when the
+    packer finds that an inter frame would overflow a pool (the caller
+    runs the host path)."""
     t0 = time.perf_counter()
     ah, aw = plan.ah, plan.aw
     psz = ah * aw
@@ -68,28 +106,46 @@ def execute(f, plan, up):
     ss_hor = 1 if layout != PixelLayout.I444 else 0
 
     pack = pack_frame(f, plan)
+    if pack is None:
+        return False
     hdr = pack.hdr
     pack_ms = (time.perf_counter() - t0) * 1e3
-
-    m = _Marks(up.device)
-    m.mark("start")
-    dev, _cap = up.upload(pack, psz, bpc)
-    m.mark("upload")
-    ra, planes = P.resid(dev, hdr, pack.tx_valid, ah=ah, aw=aw, bpc=bpc)
-    m.mark("resid")
-    planes = P.wave(planes, ra, dev, hdr, pack.waves, ah=ah, aw=aw, bpc=bpc,
-                    ss_hor=ss_hor, ss_ver=ss_ver)
-    m.mark("wave")
 
     out_pic = f.sr_cur
     if out_pic.u is not None:
         ach, acw = out_pic.u.shape
     else:
         ach = acw = 0
+    m = _Marks(up.device)
+    m.mark("start")
+    dev, _cap = up.upload(pack, psz, bpc)
+    m.mark("upload")
+    ra, planes = P.resid(dev, hdr, pack.tx_valid, ah=ah, aw=aw, bpc=bpc)
+    m.mark("resid")
+    if pack.srcs is not None:
+        srcsY, srcsC = pack.srcs
+        stackY = stack_planes(srcsY, up.device, (ah, aw))
+        stackC = stack_planes(srcsC, up.device, (ach, acw))
+        planes = P.inter(planes, ra, dev, hdr, pack.inter_runs, stackY,
+                         stackC, ah=ah, aw=aw, bpc=bpc, vwY=f.cur.w,
+                         vhY=f.cur.h, vwC=(f.cur.w + ss_hor) >> ss_hor,
+                         vhC=(f.cur.h + ss_ver) >> ss_ver)
+    m.mark("inter")
+    planes = P.wave(planes, ra, dev, hdr, pack.waves, ah=ah, aw=aw, bpc=bpc,
+                    ss_hor=ss_hor, ss_ver=ss_ver)
+    m.mark("wave")
+
     geom = (ah, aw, ach, acw, f.bh, f.bw, f.cur.h)
     _, packed = P.filter_(planes, dev, hdr, geom=geom, bpc=bpc,
                           layout_i=int(layout), lr_ws=pack.lr_ws)
     m.mark("filter")
+    # the output planes stay on the device as the picture's reference
+    # planes: views of the packed output, the host planes' shapes
+    out_pic._dev_planes = {0: packed[:psz].view(ah, aw)}
+    if out_pic.u is not None:
+        csz = ach * acw
+        out_pic._dev_planes[1] = packed[psz : psz + csz].view(ach, acw)
+        out_pic._dev_planes[2] = packed[psz + csz :].view(ach, acw)
     flat = packed.cpu().numpy()  # synchronous: the frame is complete here
     m.mark("fetch")
 
@@ -104,11 +160,13 @@ def execute(f, plan, up):
         "pack": pack_ms,
         "upload": sp["upload"],
         "resid": sp["resid"],
+        "inter": sp["inter"],
         "wave": sp["wave"],
         "filter": sp["filter"],
         "fetch": sp["fetch"],
     }
-    rec["programs"] = rec["resid"] + rec["wave"] + rec["filter"]
+    rec["programs"] = (rec["resid"] + rec["inter"] + rec["wave"]
+                       + rec["filter"])
     for k in STAGES:
         stage_ms[k] += rec[k]
     return True

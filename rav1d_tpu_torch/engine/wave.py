@@ -134,7 +134,7 @@ def build_coords(d, CW, CH, aw, psz, bpc):
 
 
 def class_step(pf, resid, rows, coords, CW, CH, bpc, ss_hor, ss_ver, aw,
-               psz, flags, modes, filt_ext):
+               psz, flags, modes, filt_ext, maskbuf, mask_base):
     """One wave step for one size class, in place on pf.
 
     pf: (3*psz + 1,) int32 flat planes with a trash word at 3*psz (the
@@ -142,9 +142,8 @@ def class_step(pf, resid, rows, coords, CW, CH, bpc, ss_hor, ss_ver, aw,
     (n, N_FIELDS) device descriptors of the wave's filled lanes and coords
     their build_coords edge plans; flags, modes, filt_ext: the host's
     feature bits, modes present, and the largest filter-intra block (w, h)
-    of these lanes."""
-    if flags & F_II:
-        raise NotImplementedError("interintra blends are outside the intra slice")
+    of these lanes; maskbuf: the word buffer (the frame blob) that holds
+    the interintra blend masks from word mask_base on."""
     dev = pf.device
     n3 = 3 * psz
     C = 2 * CH
@@ -199,6 +198,17 @@ def class_step(pf, resid, rows, coords, CW, CH, bpc, ss_hor, ss_ver, aw,
         for code in cfl:
             dc = CFL_DC_FNS[code](edge, C, CW, CH, w, h, bpc)[:, 0, 0]
             out = put(out, code, D.cfl_pred_dyn(dc, ac, d["cfla"], bpc))
+
+    if flags & F_II:
+        # interintra: blend the intra prediction over the block's inter
+        # pixels by its mask, stored at the class width's stride
+        own = pf[idx.clamp(0, n3 - 1).long()]
+        moff = d["iioff"]
+        dyl = torch.arange(CH, dtype=I32, device=dev)[None, :, None]
+        midx = mask_base + moff[:, None, None] + dyl * CW + dx
+        m = maskbuf[midx.clamp(0, maskbuf.shape[0] - 1).long()]
+        blended = (own * (64 - m) + out * m + 32) >> 6
+        out = torch.where((moff >= 0)[:, None, None], blended, out)
 
     res = resid[idx.clamp(0, resid.shape[0] - 1).long()]
     out = torch.where(d["rmask"][:, None, None],

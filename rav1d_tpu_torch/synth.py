@@ -8,9 +8,12 @@ frame (temporal delimiter, sequence header, one frame OBU) with screen
 content tools (palette), filter intra, the intra edge filter, CDEF with
 eight nonzero strengths, switchable loop restoration on all three planes
 and TX_MODE_SELECT, so one frame carries every intra tool of the device
-engine's intra path. Options write the frames that lie outside it (high
-bit depth, superres, a following inter frame), for the tests that check
-the port refuses them.
+engine's intra path; its options write frames outside the port's slice
+(high bit depth, superres), for the tests that check the port refuses
+them. `inter_sequence` writes a key frame and two inter frames that
+reach every inter tool of 4:2:0 (compound modes, OBMC, local and global
+warp, interintra, the bilinear filter); `key_then_inter` the plain
+single-reference case.
 
 This is test input, not a decoder feature: the oracle for a decode of
 these bytes is the reference decoder's host path.
@@ -23,6 +26,8 @@ import numpy as np
 OBU_SEQ_HDR = 1
 OBU_TD = 2
 OBU_FRAME = 6
+ORDER_HINT_BITS = 7  # inter_sequence's order_hint_bits
+BILINEAR = 3  # interpolation_filter code (headers.FilterMode.BILINEAR)
 
 
 class _Bits:
@@ -34,6 +39,40 @@ class _Bits:
     def put(self, value, n):
         for i in range(n - 1, -1, -1):
             self.bits.append((value >> i) & 1)
+
+    def uniform(self, max_, v):
+        """ns(max_) (the inverse of bits.GetBits.get_uniform)."""
+        l = max_.bit_length()
+        m = (1 << l) - max_
+        if v < m:
+            self.put(v, l - 1)
+        else:
+            self.put((v + m) >> 1, l - 1)
+            self.put((v + m) & 1, 1)
+
+    def subexp(self, value, ref, n):
+        """A signed value coded relative to `ref` (the inverse of
+        bits.GetBits.get_bits_subexp)."""
+        mx = 2 << n
+        r = ref + (1 << n)
+        x = value + (1 << n)
+        assert 0 <= x <= mx, (value, ref, n)
+        if r * 2 > mx:
+            r, x = mx - r, mx - x
+        v = x if x > 2 * r else (2 * (x - r) if x >= r else 2 * (r - x) - 1)
+        base, i = 0, 0
+        while True:
+            k = 3 + i - 1 if i else 3
+            if mx < base + 3 * (1 << k):
+                self.uniform(mx - base + 1, v - base)
+                return
+            if v - base < (1 << k):
+                self.put(0, 1)
+                self.put(v - base, k)
+                return
+            self.put(1, 1)
+            base += 1 << k
+            i += 1
 
     def trailing(self):
         """trailing_bits(): a one bit, then zeros to the byte boundary."""
@@ -78,7 +117,7 @@ def _tile_log2(sz, tgt):
     return k
 
 
-def _seq_header(w, h, *, reduced, bpc, superres):
+def _seq_header(w, h, *, reduced, bpc, superres, inter_tools=False):
     b = _Bits()
     b.put(0, 3)  # seq_profile: Main (4:2:0, 8 or 10 bit)
     b.put(1 if reduced else 0, 1)  # still_picture
@@ -105,13 +144,19 @@ def _seq_header(w, h, *, reduced, bpc, superres):
     b.put(1, 1)  # enable_filter_intra
     b.put(1, 1)  # enable_intra_edge_filter
     if not reduced:
-        b.put(0, 1)  # enable_interintra_compound
-        b.put(0, 1)  # enable_masked_compound
-        b.put(0, 1)  # enable_warped_motion
-        b.put(0, 1)  # enable_dual_filter
-        b.put(0, 1)  # enable_order_hint
+        t = 1 if inter_tools else 0
+        b.put(t, 1)  # enable_interintra_compound
+        b.put(t, 1)  # enable_masked_compound
+        b.put(t, 1)  # enable_warped_motion
+        b.put(t, 1)  # enable_dual_filter
+        b.put(t, 1)  # enable_order_hint
+        if t:
+            b.put(1, 1)  # enable_jnt_comp
+            b.put(0, 1)  # enable_ref_frame_mvs
         b.put(1, 1)  # seq_choose_screen_content_tools (adaptive)
         b.put(1, 1)  # seq_choose_integer_mv (adaptive)
+        if t:
+            b.put(ORDER_HINT_BITS - 1, 3)  # order_hint_bits_minus_1
     b.put(1 if superres else 0, 1)  # enable_superres
     b.put(1, 1)  # enable_cdef
     b.put(1, 1)  # enable_restoration
@@ -126,9 +171,14 @@ def _seq_header(w, h, *, reduced, bpc, superres):
     return b.bytes()
 
 
-def _frame_tail(b, w, h, rng, *, key, q):
+def _frame_tail(b, w, h, rng, *, key, q, intrabc=False, inter=None):
     """Everything from tile_info() to film_grain_params() (obu.py
-    parse_frame_hdr from _parse_tiling on), for 64x64 superblocks."""
+    parse_frame_hdr from _parse_tiling on), for 64x64 superblocks. With
+    intrabc the in-loop filter parameters are not coded; `inter` (a dict:
+    skip_mode None or the skip_mode_present bit, warped None or the
+    allow_warped_motion bit, gmv the seven (type, params) of
+    _put_gmv) writes an inter frame's compound, warp and global motion
+    fields, reference_select on."""
     # tile_info: uniform spacing, one tile
     sbw = (w + 63) >> 6
     sbh = (h + 63) >> 6
@@ -150,24 +200,35 @@ def _frame_tail(b, w, h, rng, *, key, q):
     b.put(0, 1)  # using_qmatrix
     b.put(0, 1)  # segmentation_enabled
     b.put(0, 1)  # delta_q_present
-    # loop_filter_params: nonzero levels on every plane and direction
-    for lv in rng.integers(8, 40, size=4):
-        b.put(int(lv), 6)
-    b.put(int(rng.integers(0, 8)), 3)  # loop_filter_sharpness
-    b.put(0, 1)  # loop_filter_delta_enabled
-    # cdef_params: cdef_bits = 3, eight nonzero strength pairs
-    b.put(int(rng.integers(0, 4)), 2)  # cdef_damping_minus_3
-    b.put(3, 2)  # cdef_bits
-    for _ in range(8):
-        b.put(int(rng.integers(1, 64)), 6)  # cdef_y strength
-        b.put(int(rng.integers(1, 64)), 6)  # cdef_uv strength
-    # lr_params: switchable on all three planes
-    for _ in range(3):
-        b.put(1, 2)  # lr_type: RESTORE_SWITCHABLE
-    b.put(1, 1)  # lr_unit_shift (64 -> 128)
-    b.put(0, 1)  # lr_unit_extra_shift
-    b.put(1, 1)  # lr_uv_shift (4:2:0)
+    if not intrabc:  # intra block copy turns the in-loop filters off
+        # loop_filter_params: nonzero levels on every plane and direction
+        for lv in rng.integers(8, 40, size=4):
+            b.put(int(lv), 6)
+        b.put(int(rng.integers(0, 8)), 3)  # loop_filter_sharpness
+        b.put(0, 1)  # loop_filter_delta_enabled
+        # cdef_params: cdef_bits = 3, eight nonzero strength pairs
+        b.put(int(rng.integers(0, 4)), 2)  # cdef_damping_minus_3
+        b.put(3, 2)  # cdef_bits
+        for _ in range(8):
+            b.put(int(rng.integers(1, 64)), 6)  # cdef_y strength
+            b.put(int(rng.integers(1, 64)), 6)  # cdef_uv strength
+        # lr_params: switchable on all three planes
+        for _ in range(3):
+            b.put(1, 2)  # lr_type: RESTORE_SWITCHABLE
+        b.put(1, 1)  # lr_unit_shift (64 -> 128)
+        b.put(0, 1)  # lr_unit_extra_shift
+        b.put(1, 1)  # lr_uv_shift (4:2:0)
     b.put(1, 1)  # tx_mode_select
+    if inter is not None:
+        b.put(1, 1)  # reference_select
+        if inter["skip_mode"] is not None:
+            b.put(inter["skip_mode"], 1)  # skip_mode_present
+        if inter["warped"] is not None:
+            b.put(inter["warped"], 1)  # allow_warped_motion
+        b.put(0, 1)  # reduced_tx_set
+        for g in inter["gmv"]:
+            _put_gmv(b, *g)
+        return
     if not key:
         b.put(0, 1)  # reference_select
         # skip_mode_present is not coded without order hints
@@ -177,8 +238,33 @@ def _frame_tail(b, w, h, rng, *, key, q):
             b.put(0, 1)  # is_global: identity
 
 
+def _put_gmv(b, kind, params):
+    """One reference's global motion (obu.py _parse_gmv, no primary
+    reference frame): "identity", or "rotzoom" with (t0, t1, z, r): matrix
+    [t0 << 10, t1 << 10, 65536 + 2z, 2r, -2r, 65536 + 2z]."""
+    if kind == "identity":
+        b.put(0, 1)  # is_global
+        return
+    assert kind == "rotzoom", kind
+    t0, t1, z, r = params
+    b.put(1, 1)  # is_global
+    b.put(1, 1)  # is_rot_zoom
+    b.subexp(z, 0, 12)
+    b.subexp(r, 0, 12)
+    b.subexp(t0, 0, 12)
+    b.subexp(t1, 0, 12)
+
+
+def _skip_mode_allowed(ref_hints, cur):
+    """obu.py _parse_skip_mode's test, for order hints that do not wrap."""
+    before = [x for x in ref_hints if x < cur]
+    if before and any(x > cur for x in ref_hints):
+        return True
+    return bool(before) and any(x < max(before) for x in ref_hints)
+
+
 def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
-               refresh=0xFF):
+               refresh=0xFF, order_hint=None, intrabc=False):
     b = _Bits()
     if not reduced:
         b.put(0, 1)  # show_existing_frame
@@ -192,6 +278,8 @@ def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
         b.put(0, 1)  # force_integer_mv (seq adaptive)
     if not reduced:
         b.put(0, 1)  # frame_size_override_flag
+    if order_hint is not None:
+        b.put(order_hint, ORDER_HINT_BITS)  # order_hint
     if not key:
         b.put(refresh, 8)  # refresh_frame_flags
         for _ in range(7):
@@ -202,14 +290,14 @@ def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
     b.put(0, 1)  # render_and_frame_size_different
     if key:
         if not superres:
-            b.put(0, 1)  # allow_intrabc
+            b.put(1 if intrabc else 0, 1)  # allow_intrabc
     else:
         b.put(0, 1)  # allow_high_precision_mv
         b.put(1, 1)  # is_filter_switchable
         b.put(0, 1)  # is_motion_mode_switchable
     if not reduced:
         b.put(0, 1)  # disable_frame_end_update_cdf
-    _frame_tail(b, w, h, rng, key=key, q=q)
+    _frame_tail(b, w, h, rng, key=key, q=q, intrabc=intrabc)
     b.align()  # byte_alignment() before the tile group
     # tile_group_obu with one tile: no tile_start_and_end_present_flag;
     # the last tile's data runs to the end of the OBU
@@ -230,8 +318,9 @@ def still_picture(w, h, seed, *, bpc=8, superres=False):
 
 
 def key_then_inter(w, h, seed):
-    """Two temporal units: a key frame, then an inter frame that predicts
-    from it (the inter path is outside the intra slice)."""
+    """Two temporal units: a key frame, then an error-resilient inter
+    frame that predicts from it with one reference per block and the
+    8-tap filters (no order hints, no compound, no motion modes)."""
     rng = np.random.default_rng(seed)
     seq = _seq_header(w, h, reduced=False, bpc=8, superres=False)
     key = _frame_obu(w, h, rng, reduced=False, key=True, q=100,
@@ -240,6 +329,90 @@ def key_then_inter(w, h, seed):
                        payload_bytes=max(w * h // 2, 256), superres=False)
     return [_obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + key,
             _obu(OBU_TD, b"") + inter]
+
+
+def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
+                     refidx, slot_hints, error_resilient, filt, gmv):
+    """An inter frame of inter_sequence: no primary reference frame,
+    switchable motion modes, reference_select, `filt` the frame's
+    interpolation filter (None: switchable per block), `gmv` seven
+    _put_gmv arguments, `slot_hints` the order hints of the eight slots."""
+    b = _Bits()
+    b.put(0, 1)  # show_existing_frame
+    b.put(1, 2)  # frame_type: INTER
+    b.put(1, 1)  # show_frame
+    b.put(error_resilient, 1)  # error_resilient_mode
+    b.put(0, 1)  # disable_cdf_update
+    b.put(0, 1)  # allow_screen_content_tools
+    b.put(0, 1)  # frame_size_override_flag
+    b.put(order_hint, ORDER_HINT_BITS)  # order_hint
+    if not error_resilient:
+        b.put(7, 3)  # primary_ref_frame: none
+    b.put(refresh, 8)  # refresh_frame_flags
+    if error_resilient:
+        for hint in slot_hints:
+            b.put(hint, ORDER_HINT_BITS)  # ref_order_hint[i]
+    b.put(0, 1)  # frame_refs_short_signaling
+    for r in refidx:
+        b.put(r, 3)  # ref_frame_idx
+    b.put(0, 1)  # render_and_frame_size_different
+    b.put(1, 1)  # allow_high_precision_mv
+    if filt is None:
+        b.put(1, 1)  # is_filter_switchable
+    else:
+        b.put(0, 1)
+        b.put(filt, 2)  # interpolation_filter
+    b.put(1, 1)  # is_motion_mode_switchable
+    b.put(0, 1)  # disable_frame_end_update_cdf
+    skip = _skip_mode_allowed([slot_hints[r] for r in refidx], order_hint)
+    _frame_tail(b, w, h, rng, key=False, q=q, inter=dict(
+        skip_mode=1 if skip else None,
+        warped=None if error_resilient else 1, gmv=gmv))
+    b.align()
+    tile = rng.integers(0, 256, size=payload_bytes, dtype=np.uint8).tobytes()
+    return _obu(OBU_FRAME, b.bytes() + tile)
+
+
+def inter_sequence(w, h, seed, *, intrabc=False):
+    """Three temporal units at 8 bits 4:2:0 with every inter tool that
+    4:2:0 reaches: the sequence header turns on interintra, masked
+    compound, warped motion, dual filter and order hints with
+    distance-weighted compound. Then
+
+    - a key frame (order hint 0; with `intrabc`, intra block copy is
+      allowed, which sends it to the host path of the engine);
+    - inter frame 1 (hint 1), predicting from the key frame only:
+      switchable and dual interpolation filters, compound references,
+      switchable motion modes (OBMC, local warp), ROTZOOM global motion on
+      two references; it refreshes slots 0-3;
+    - inter frame 2 (hint 2, error resilient): the BILINEAR filter, its
+      references mixing frame 1 (slots 0-3) and the key frame (4-7), skip
+      mode present.
+
+    Tile payloads are `numpy.random.default_rng(seed)` bytes."""
+    rng = np.random.default_rng(seed)
+    payload = max(w * h // 2, 256)
+    seq = _seq_header(w, h, reduced=False, bpc=8, superres=False,
+                      inter_tools=True)
+    key = _frame_obu(w, h, rng, reduced=False, key=True,
+                     q=int(rng.integers(60, 160)), payload_bytes=payload,
+                     superres=False, order_hint=0, intrabc=intrabc)
+    ident = ("identity", ())
+    gmv1 = [("rotzoom", (-70, 45, 60, -25)), ident, ident, ident,
+            ("rotzoom", (33, -20, -40, 30)), ident, ident]
+    f1 = _inter_frame_obu(w, h, rng, q=int(rng.integers(60, 160)),
+                          payload_bytes=payload, order_hint=1, refresh=0x0F,
+                          refidx=(0, 1, 2, 3, 4, 5, 6), slot_hints=[0] * 8,
+                          error_resilient=0, filt=None, gmv=gmv1)
+    gmv2 = [ident, ("rotzoom", (50, 20, -30, -45)), ident, ident, ident,
+            ident, ident]
+    f2 = _inter_frame_obu(w, h, rng, q=int(rng.integers(60, 160)),
+                          payload_bytes=payload, order_hint=2, refresh=0x00,
+                          refidx=(0, 4, 1, 5, 2, 6, 3),
+                          slot_hints=[1, 1, 1, 1, 0, 0, 0, 0],
+                          error_resilient=1, filt=BILINEAR, gmv=gmv2)
+    return [_obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + key,
+            _obu(OBU_TD, b"") + f1, _obu(OBU_TD, b"") + f2]
 
 
 def picture_md5(pic):
@@ -294,8 +467,15 @@ def capture_frames(packets):
 def features(f, plan):
     """What a captured frame exercises: item counts per intra tool, LR
     stripe chunks per kind, chunks of the 32- and 64-point transform
-    classes, and the filled lanes of each transform class ("WxH": N)."""
-    from .engine.layout import LR0, R0, SIZES
+    classes, and the filled lanes of each transform class ("WxH": N); for
+    an inter frame also the tiles of each inter slot ("inter_tiles", every
+    slot of engine/layout.py SLOTS), the interintra wave items, and the
+    compound and OBMC lap pool rows the frame fills beside the inter
+    program's capacity, (8 * psz) // 64 rows each."""
+    from .engine.layout import (
+        B_ROW, C_R0, C_R1, D_FLAT0, INTER0, LR0, NBLEND, NCOMB, NPUT, R0,
+        SIZES, SLOTS, TB,
+    )
     from .engine.pack import pack_frame
     from .engine.plan import MODE_CFL_DC
     from .syntax.levels import FILTER_PRED, Z1_PRED, Z2_PRED, Z3_PRED
@@ -309,7 +489,35 @@ def features(f, plan):
           for ki, kind in enumerate(("wiener", "sgr5x5", "sgr3x3", "sgrmix"))}
     big = sum(int(hdr[R0 + 2 * si + 1]) for si, (w, h) in enumerate(SIZES)
               if max(w, h) >= 32)
-    return {
+    inter = {}
+    if pack.srcs is not None:
+        parts = dict(pack.blob.parts)
+
+        def rows(name, nrows):
+            """Every lane of the slot's chunks (padding lanes are zero)."""
+            n = int(hdr[INTER0 + 2 * SLOTS[name] + 1])
+            if not n:
+                return np.zeros((nrows, 0), np.int32)
+            d = parts[int(hdr[INTER0 + 2 * SLOTS[name]])]
+            return d.reshape(n, nrows, TB).transpose(1, 0, 2).reshape(nrows, -1)
+
+        used = [0]  # the combines read every prep and host tile's row
+        for name in ("avg", "segy00", "segy10", "segy11", "mask", "seguv"):
+            d = rows(name, NCOMB)
+            used += [int(d[C_R0].max(initial=-1)) + 1,
+                     int(d[C_R1].max(initial=-1)) + 1]
+        laps = [int(rows(n, NPUT)[D_FLAT0].max(initial=-64)) // 64 + 1
+                for n in ("lapY", "lapC")]
+        laps.append(int(rows("blend", NBLEND)[B_ROW].max(initial=-1)) + 1)
+        runs = pack.inter_runs
+        inter = {
+            "inter_tiles": {name: sum(r.n for r in runs.get(name, ()))
+                            for name in SLOTS},
+            "ii_items": sum(1 for it in plan.items if it.iioff >= 0),
+            "pool_rows": max(used), "lap_rows": max(laps),
+            "pool_cap": (8 * plan.ah * plan.aw) // 64,
+        }
+    return dict(inter, **{
         "items": len(plan.items), "waves": plan.n_waves,
         "palette": len(plan.pal),
         "filter": modes.get(FILTER_PRED, 0),
@@ -318,4 +526,4 @@ def features(f, plan):
         "lr_chunks": lr, "tx32_64_chunks": big,
         "tx_lanes": {"%dx%d" % SIZES[k]: n for k, n in pack.tx_valid.items()
                      if k != "wht"},
-    }
+    })

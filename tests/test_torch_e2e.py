@@ -1,12 +1,16 @@
 """Whole decodes through rav1d_tpu_torch.Decoder on the CPU.
 
-Seeded synthetic still pictures (rav1d_tpu_torch/synth.py) at small sizes
-that are not multiples of 64 decode through the port's Decoder with
-device="cpu" (every program, with the kernels' plain versions) to the same
-MD5 as the rav1d_tpu host path, with every frame on the engine and no
-fallback. Frames outside the slice (inter, 10-bit, superres) raise
-NotImplementedError. Where the dav1d test vectors exist, two conformance
-streams are held to their meson MD5s; elsewhere that test skips.
+Seeded synthetic still pictures and inter sequences
+(rav1d_tpu_torch/synth.py) at small sizes that are not multiples of 64
+decode through the port's Decoder with device="cpu" (every program, with
+the kernels' plain versions) to the same MD5 as the rav1d_tpu host path,
+with every frame on the engine and no fallback. A key frame that uses
+intra block copy goes to the host path, and the engine's inter frames then
+predict from its uploaded planes. Frames outside the slice (10-bit,
+superres) raise NotImplementedError. Where the dav1d test vectors exist,
+two conformance streams are held to their meson MD5s and the first frames
+of the bench's inter stream to the port's host path; elsewhere those tests
+skip.
 """
 
 import os
@@ -73,10 +77,53 @@ def test_synthetic_frame_exercises_the_slice(seed):
     assert small <= set(ft["tx_lanes"]), ft
 
 
-@pytest.mark.parametrize("kind", ["inter", "10bit", "superres"])
+INTER_CASES = [(200, 120, 1), (136, 96, 2), (72, 136, 3)]
+
+
+@pytest.mark.parametrize("w,h,seed", INTER_CASES)
+def test_inter_sequence_matches_host_path(w, h, seed):
+    """A key frame and two inter frames (every inter tool of 4:2:0) on the
+    engine, frame by frame equal to the host path, references from the
+    engine's own device planes only."""
+    packets = synth.inter_sequence(w, h, seed)
+    want = _host(packets)
+    assert len(want) == 3
+    before = dict(T.engine.stats)
+    run.reset_stats()
+    got = synth.decode_md5s(
+        T.Decoder(T.Settings(apply_grain=False), device="cpu"), packets)
+    assert got == want
+    assert T.engine.stats["frames"] - before["frames"] == 3
+    assert T.engine.stats["fallback"] == before["fallback"]
+    assert T.engine.stats["ref_uploads"] == before["ref_uploads"]
+    assert run.stage_ms["inter"] > 0
+
+
+def test_key_then_inter_matches_host_path():
+    packets = synth.key_then_inter(96, 64, 1)
+    got = synth.decode_md5s(
+        T.Decoder(T.Settings(apply_grain=False), device="cpu"), packets)
+    assert got == _host(packets)
+
+
+def test_host_path_frame_feeds_engine_frames():
+    """Seed 1's key frame uses intra block copy, so it decodes on the host
+    path (a counted fallback); the two inter frames run on the engine and
+    read its host planes, uploaded once each."""
+    packets = synth.inter_sequence(192, 128, 1, intrabc=True)
+    want = _host(packets)
+    before = dict(T.engine.stats)
+    got = synth.decode_md5s(
+        T.Decoder(T.Settings(apply_grain=False), device="cpu"), packets)
+    assert got == want and len(got) == 3
+    assert T.engine.stats["frames"] - before["frames"] == 3
+    assert T.engine.stats["fallback"] - before["fallback"] == 1
+    assert T.engine.stats["ref_uploads"] - before["ref_uploads"] == 3
+
+
+@pytest.mark.parametrize("kind", ["10bit", "superres"])
 def test_outside_slice_raises(kind):
     packets = {
-        "inter": lambda: synth.key_then_inter(96, 64, 1),
         "10bit": lambda: [synth.still_picture(96, 64, 1, bpc=10)],
         "superres": lambda: [synth.still_picture(96, 64, 1, superres=True)],
     }[kind]()
@@ -123,3 +170,31 @@ def test_conformance_vectors(rel, md5):
             for rows in pic.iter_plane_rows():
                 m.update(rows)
     assert m.hexdigest() == md5
+
+
+BENCH_STREAM = "8-bit/data/00000627.ivf"  # bench.py's primary stream
+BENCH_FRAMES = 8
+
+
+def test_bench_stream_first_frames():
+    """The first frames of the bench's 320x240 inter stream on the engine
+    equal the port's host path, every frame on the engine."""
+    d = _data_dir()
+    if d is None or not os.path.exists(os.path.join(d, BENCH_STREAM)):
+        pytest.skip("dav1d-test-data not present")
+    from rav1d_tpu_torch.io.ivf import IvfDemuxer
+
+    packets = [pkt.data for pkt in IvfDemuxer(os.path.join(d, BENCH_STREAM))]
+    want, packets_used = [], []
+    host = T.Decoder(T.Settings(apply_grain=False), host_path=True)
+    for data in packets:
+        if len(want) >= BENCH_FRAMES:
+            break
+        packets_used.append(data)
+        want += synth.decode_md5s(host, [data])
+    before = dict(T.engine.stats)
+    got = synth.decode_md5s(
+        T.Decoder(T.Settings(apply_grain=False), device="cpu"), packets_used)
+    assert got == want and len(got) >= BENCH_FRAMES
+    assert T.engine.stats["frames"] > before["frames"]
+    assert T.engine.stats["fallback"] == before["fallback"]

@@ -16,7 +16,8 @@ importing them. Checked here:
 (d) the port's host path (Decoder(host_path=True)) decodes to the same MD5
     as rav1d_tpu's host path, on still pictures and on an inter stream;
 (e) the 1080p digests chip_smoke.py holds the card to
-    (rav1d_tpu_torch/smoke_digests.json) are rav1d_tpu's host path's.
+    (rav1d_tpu_torch/smoke_digests.json: the still pictures and the inter
+    sequence) are rav1d_tpu's host path's.
 
 Objects never cross between the packages: the comparisons are of bytes,
 plain values and digests. Tolerance: exact.
@@ -58,7 +59,7 @@ COPIES = [
         "recon/inter.py", "recon/warp.py", "recon/lf_mask.py", "recon/lf.py",
         "recon/cdef_apply.py", "recon/lr_apply.py", "recon/superres.py",
         "recon/fg_apply.py", "recon/frame.py", "engine/plan.py",
-        "picture.py", "decoder.py",
+        "engine/inter.py", "picture.py", "decoder.py",
     )
 ] + [(f"rav1d_tpu_torch/csrc/host/{c}", f"native/{c}")
      for c in ("entropy.c", "refmvs.c", "syntax.c")]
@@ -67,11 +68,15 @@ COPIES = [
 # builds the port's own C copies into rav1d_tpu_torch/build/; the decoder
 # runs the dense pass on the torch engine with its own upload context and
 # drops the JAX engine's frame ring; pictures have nothing to fetch;
-# decode_frame_dense takes that context; the planner's inter branch raises
+# decode_frame_dense takes that context; the planner's _fb reads no
+# environment switch; engine/inter.py (collect_inter) imports no JAX and
+# leaves out IdxBlob, _slice (unused by the v3 engine) and dev_plane (the
+# port keeps reference planes on the device in engine/run.py)
 SEAMS = {
     "rav1d_tpu_torch/native/__init__.py", "rav1d_tpu_torch/native/syntax.py",
     "rav1d_tpu_torch/decoder.py", "rav1d_tpu_torch/picture.py",
     "rav1d_tpu_torch/recon/frame.py", "rav1d_tpu_torch/engine/plan.py",
+    "rav1d_tpu_torch/engine/inter.py",
 }
 
 
@@ -232,6 +237,9 @@ STREAMS = {
     "still-10bit": lambda: [synth.still_picture(96, 64, 2, bpc=10)],
     "still-superres": lambda: [synth.still_picture(96, 64, 1, superres=True)],
     "key-then-inter": lambda: synth.key_then_inter(96, 64, 1),
+    "inter-sequence": lambda: synth.inter_sequence(96, 64, 1),
+    "inter-sequence-intrabc": lambda: synth.inter_sequence(96, 64, 1,
+                                                           intrabc=True),
 }
 
 
@@ -303,7 +311,13 @@ with open(os.path.join(PORT, "smoke_digests.json")) as _fh:
     DIGESTS = json.load(_fh)
 
 
-@pytest.mark.parametrize("seed", sorted(DIGESTS["md5"]))
+@pytest.mark.parametrize("seed", sorted(DIGESTS["md5"]) + ["inter"])
 def test_smoke_digests_are_the_reference_host_paths(seed):
+    if seed == "inter":  # synth.inter_sequence: one MD5 per frame
+        inter = DIGESTS["inter"]
+        packets = synth.inter_sequence(DIGESTS["width"], DIGESTS["height"],
+                                       inter["seed"])
+        assert ref_md5s(packets) == inter["md5"]
+        return
     data = synth.still_picture(DIGESTS["width"], DIGESTS["height"], int(seed))
     assert ref_md5s([data]) == [DIGESTS["md5"][seed]]

@@ -1,7 +1,7 @@
 """The port's layout constants and numpy packers against the JAX engine's.
 
 - every constant of rav1d_tpu_torch/engine/layout.py equals its original
-  in rav1d_tpu/engine/mega.py, wave2.py and kernels.py;
+  in rav1d_tpu/engine/mega.py, tiles.py, wave2.py and kernels.py;
 - pack_frame, on a frame decoded by the port's own front end, writes a
   header and blob word-identical to run2's packers on the same bytes'
   frame decoded by rav1d_tpu's front end;
@@ -37,12 +37,26 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 NAMES = ["HDR_LEN", "SIZES", "R0", "WHT0", "CF0", "PAL0", "WAVE0", "INTER0",
          "N_SLOTS", "IH0", "DB0", "CDEF0", "SR0", "LR0", "PAL_B", "LRB",
-         "WHT_B"]
+         "WHT_B", "SLOTS", "TB", "NPUT", "NWARP", "NCOMB", "NBLEND", "HB"]
+
+# the inter tile descriptor rows, which mega.py imports from tiles.py
+ROWS = ["D_SROW", "D_SY", "D_SX", "D_MX", "D_MY", "D_F2D", "D_FLAT0", "D_TW",
+        "D_TH", "D_BW", "D_BH", "W_SROW", "W_SY", "W_SX", "W_A", "W_B", "W_C",
+        "W_D", "W_MX", "W_MY", "W_FLAT0", "W_TW", "W_TH", "C_R0", "C_R1",
+        "C_FLAT0", "C_P0", "C_P1", "C_P2", "C_TW", "C_TH", "B_ROW", "B_FLAT0",
+        "B_MOFF", "B_MRS", "B_MCS", "B_TW", "B_TH"]
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_header_layout_matches_mega(name):
     assert getattr(L, name) == getattr(JM, name)
+
+
+@pytest.mark.parametrize("name", ROWS)
+def test_tile_rows_match_tiles(name):
+    from rav1d_tpu.engine import tiles as JT
+
+    assert getattr(L, name) == getattr(JT, name) == getattr(JM, name)
 
 
 def test_wave_and_itx_constants_match():
@@ -89,8 +103,9 @@ def ref_capture(packets):
 
 
 def run2_pack(f, plan):
-    """run2.execute's packing half on a rav1d_tpu frame (intra, no
-    superres): (hdr, blob, lr_ws)."""
+    """run2.execute's packing half on a rav1d_tpu frame (8 bpc, no
+    superres): (hdr, blob, lr_ws, srcs), srcs the inter packer's
+    (srcsY, srcsC) (None on an intra frame)."""
     ah, aw = plan.ah, plan.aw
     psz = ah * aw
     store = f.coef_store
@@ -99,12 +114,16 @@ def run2_pack(f, plan):
     if store.tx_pos:
         hdr[J2.CF0] = blob.add_i16(store.cf[: store.cf_pos])
     J2._pack_residuals(blob, hdr, store, plan, psz, aw)
+    srcs = None
+    if plan.inter is not None:
+        srcs = J2._plan_inter_v3(f, plan, blob, hdr, psz, aw)
+        assert srcs is not None, "the inter pools would overflow"
     J2._pack_palette(blob, hdr, plan, psz, aw)
     J2._pack_wave(blob, hdr, plan, psz, aw)
     J2._pack_deblock(f, blob, hdr)
     J2._pack_cdef(f, blob, hdr)
     lr_ws = J2._pack_lr(f, blob, hdr)
-    return hdr, blob, lr_ws
+    return hdr, blob, lr_ws, srcs
 
 
 def run2_words(hdr, blob):
@@ -120,7 +139,7 @@ def test_pack_matches_run2(w, h, seed):
     packets = [synth.still_picture(w, h, seed)]
     (f, plan), = synth.capture_frames(packets)
     (rf, rplan), = ref_capture(packets)
-    hdr, blob, lr_ws = run2_pack(rf, rplan)
+    hdr, blob, lr_ws, _ = run2_pack(rf, rplan)
     pk = pack_frame(f, plan)
     np.testing.assert_array_equal(pk.hdr, hdr)
     assert pk.blob.pos == blob.pos
@@ -164,7 +183,8 @@ def test_port_never_imports_jax():
         "md5 = synth.decode_md5s(T.Decoder(device='cpu'),"
         " [synth.still_picture(72, 40, 3)])\n"
         "assert len(md5) == 1, md5\n"
-        "assert T.engine.stats == {'frames': 1, 'fallback': 0}\n"
+        "assert T.engine.stats == {'frames': 1, 'fallback': 0,"
+        " 'ref_uploads': 0}\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "ref = [m for m in sys.modules if m.split('.')[0] == 'rav1d_tpu']\n"
         "assert not ref, ref\n"
