@@ -1,5 +1,5 @@
-"""Drive rav1d_tpu_torch's intra and inter paths once on a CUDA card, end
-to end.
+"""Drive rav1d_tpu_torch's intra and inter paths, at every bit depth and
+chroma layout and with superres, once on a CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -14,39 +14,47 @@ Phases (any failure exits non-zero before the last line):
    itx.py itx and wht), against the plain torch versions on the card, all
    19 tx sizes and the WHT x bpc 8/10/12, N=1000 random int32 blocks
    including extreme values; bit-identical required;
+Each stream below runs through stream_on_card: the port's host path
+(Decoder(host_path=True), captured) must give the committed digests
+(rav1d_tpu_torch/smoke_digests.json) where there are some; on each
+engine frame's blob, packed from that capture, the residual program (one
+itx launch) must equal resid_plain; then one rav1d_tpu_torch.Decoder(
+device="cuda") decodes the stream frame by frame to the host path's MD5s
+with no fallback but the planner's own, no upload of a host reference
+plane (every reference is the engine's own device output), exactly one
+itx launch per engine frame and no call of the plain transforms
+(engine/kernels.py itx_any_core, wht_core), printing per-frame stage_ms.
 3. slice: seeded 1920x1080 synthetic AV1 still pictures
-   (rav1d_tpu_torch/synth.py): the port's host path (Decoder(host_path=
-   True)) must give the committed digests
-   (rav1d_tpu_torch/smoke_digests.json); on each frame's blob, packed from
-   a capture of that decode, the residual program (one itx launch) must
-   equal resid_plain; then each picture decodes through
-   rav1d_tpu_torch.Decoder(device="cuda") to the host path's MD5, every
-   frame on the engine, no fallback, exactly one itx launch per frame and
-   no call of the plain transforms (engine/kernels.py itx_any_core,
-   wht_core);
-4. timing: on the same blobs, the frame launch and resid_plain (CUDA
-   events), and torch.profiler windows over resid calls and over each
-   class of the frame launched alone, which give the kernel's device time
-   apart from its launch;
-5. inter: a seeded 1920x1080 synthetic inter sequence (synth.
+   (rav1d_tpu_torch/synth.py), after a small picture's decode;
+4. inter: a seeded 1920x1080 synthetic inter sequence (synth.
    inter_sequence: a key frame and two inter frames with every inter tool
-   of 4:2:0) must give the committed digests on the host path; on each
-   frame's blob the residual program must equal resid_plain; then it
-   decodes through one Decoder(device="cuda") to the same MD5s, frame by
-   frame, with no fallback, no upload of a host reference plane (every
-   reference is the engine's own device output), exactly one itx launch
-   per frame and no call of the plain transforms; every inter slot but
-   segy00/segy10 (4:2:2 and 4:4:4 only) must carry tiles, and interintra
-   wave items must be present;
-6. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
+   of 4:2:0); every inter slot but segy00/segy10 (4:2:2 and 4:4:4 only)
+   must carry tiles, and interintra wave items must be present; then the
+   inter program alone on each inter frame's blob (CUDA events and
+   torch.profiler);
+5. high bit depth: the committed 1080p streams of smoke_digests.json
+   "formats": a 10-bit 4:2:0 key + two inter frames and a 12-bit 4:4:4
+   picture, whose blobs hold word coefficients (the itx kernel's 10/12-bit
+   branch);
+6. formats: at 640x360, still pictures at 8, 10 and 12 bits in 4:0:0,
+   4:2:2 and 4:4:4, 10-bit inter sequences in 4:2:2 (segy10 must carry
+   tiles), 4:4:4 (segy00) and 4:0:0, and an 8-bit superres inter sequence,
+   whose fourth frame the planner sends to the host path (scaled
+   references);
+7. timing: on the blobs of phases 3 and 5, the frame launch and
+   resid_plain (CUDA events), and torch.profiler windows over resid calls
+   and over each class of the frame launched alone, which give the
+   kernel's device time apart from its launch;
+8. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
    entry point driven once at N=16384 with the launch count reset before
    and read after, then the kernel against idct8x8_batch_plain,
    bit-identical at N=256 for bpc 8/10/12 (1/8 of the blocks full-range
    int32) and at N=16384, where both are timed;
-7. vectors: where $RAV1D_TEST_DATA names a dav1d-test-data directory,
-   two conformance streams against their meson MD5s, and the first 16
-   frames of the bench's inter stream against the port's host path, with
-   no fallback.
+9. vectors: where $RAV1D_TEST_DATA names a dav1d-test-data directory,
+   two conformance streams against their meson MD5s, and the first frames
+   of the bench's inter stream (16) and of its 10-bit stream
+   318_tx_4x4.ivf (8, bench.py's frame limit) against the port's host
+   path, with no fallback.
 Then neither JAX nor any module of rav1d_tpu may have been imported.
 
 Prints the card's name and power limit, the syntax backend, per-frame
@@ -81,7 +89,10 @@ VECTORS = [
     ("8-bit/issues/324_tennis.ivf", "53a0ba36b3a3656e6a12efb358d71f9e"),
     ("8-bit/issues/320_tennis.ivf", "86e9c91b80bb738693c3781e728fd7f5"),
 ]
-BENCH_STREAM, BENCH_FRAMES = "8-bit/data/00000627.ivf", 16
+# (vector, frames) held to the port's host path: the bench's inter stream,
+# and its 1080p_10bit stream at bench.py's frame limit
+HOST_PATH_VECTORS = [("8-bit/data/00000627.ivf", 16),
+                     ("10-bit/issues/318_tx_4x4.ivf", 8)]
 # inter slots that only 4:2:2 and 4:4:4 reach
 NOT_420 = ("segy00", "segy10")
 
@@ -229,203 +240,51 @@ def kernel_phase(dev):
     return worst
 
 
-def host_decode(data):
-    import rav1d_tpu_torch as T
-    from rav1d_tpu_torch import synth
-
-    t0 = time.perf_counter()
-    md5 = synth.decode_md5s(
-        T.Decoder(T.Settings(apply_grain=False), host_path=True), [data])
-    return md5, (time.perf_counter() - t0) * 1e3
-
-
 def slice_phase(dev):
-    """The main path: synthetic 1080p pictures through the port. Returns
-    (itx launches, max |err| of ra against resid_plain, the frames' blobs
-    as (seed, dev, hdr, tx_valid, ah, aw))."""
+    """The main path: synthetic 1080p still pictures through
+    stream_on_card, held to their committed digests, after the decode of
+    a small picture (CUDA context, lazy module loads). Returns (itx
+    launches, max |err| of ra, the frames' blobs)."""
     import torch
 
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import synth
-    from rav1d_tpu_torch.engine import kernels, run
-    from rav1d_tpu_torch.engine import programs as P
-    from rav1d_tpu_torch.engine.blob import Uploader
-    from rav1d_tpu_torch.engine.pack import pack_frame
-    from rav1d_tpu_torch.ops.cuda import itx as I
 
     with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
         digests = json.load(fh)
     if (digests["width"], digests["height"]) != (W, H):
         raise AssertionError("smoke_digests.json is for another picture size")
-    streams = [synth.still_picture(W, H, s) for s in SEEDS]
-    oracle = []
-    frames = []
-    for s, data in zip(SEEDS, streams):
-        md5, ms = host_decode(data)
-        want = digests["md5"][str(s)]
-        log(f"host path seed {s} {W}x{H}: {ms:.1f} ms  md5 {md5[0]}  "
-            f"{'==' if md5 == [want] else '!='} committed digest")
-        if md5 != [want]:
-            raise AssertionError(f"host path seed {s} differs from the "
-                                 "committed digest")
-        oracle.append(md5)
-        (fp,) = synth.capture_frames([data])
-        frames.append(fp)
-        log("  features " + json.dumps(synth.features(*fp)))
-
-    # the residual program on each frame's blob against its plain version;
-    # this also brings the caching allocator to the frame's buffer sizes, so
-    # the decodes below read steady-state stage times (a process's first
-    # frame of a size otherwise pays cudaMalloc for its buffers)
-    worst = 0
-    blobs = []
-    for s, (f, plan) in zip(SEEDS, frames):
-        pk = pack_frame(f, plan)
-        ah, aw = plan.ah, plan.aw
-        d, _ = Uploader(dev).upload(pk, ah * aw, 8)
-        ra = P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
-        ref = P.resid_plain(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
-        torch.cuda.synchronize()
-        worst = max(worst, max_err(ra, ref))
-        if not torch.equal(ra, ref):
-            raise AssertionError(f"seed {s}: resid (itx kernel) != resid_plain")
-        blobs.append((s, d, pk.hdr, pk.tx_valid, ah, aw))
-    log(f"resid (one itx launch) == resid_plain on the {len(blobs)} frames' "
-        "blobs")
-
-    # warm-up (CUDA context, lazy module loads) on a small picture
     synth.decode_md5s(T.Decoder(T.Settings(apply_grain=False), device=dev),
                       [synth.still_picture(256, 128, 7)])
     torch.cuda.synchronize()
-
-    T.engine.stats.update(frames=0, fallback=0)
-    I.launches = 0
-    kernels.calls = 0
-    got = []
-    wall = []
-    stages = []
-    for data in streams:  # one frame each: stage_ms is per frame
-        run.reset_stats()
-        t0 = time.perf_counter()
-        got.append(synth.decode_md5s(
-            T.Decoder(T.Settings(apply_grain=False), device=dev), [data]))
-        wall.append((time.perf_counter() - t0) * 1e3)
-        stages.append(dict(run.stage_ms))
-    launches = I.launches
-    plain_calls = kernels.calls
-    stats = dict(T.engine.stats)
-
-    for s, st, ms, g, o in zip(SEEDS, stages, wall, got, oracle):
-        log(f"port seed {s} {W}x{H}: {ms:.1f} ms wall  md5 {g[0]}  "
-            f"{'==' if g == o else '!='} host")
-        log("  stage_ms " + json.dumps({k: round(v, 3) for k, v in st.items()}))
-    log(f"engine stats {stats}  itx launches {launches}  plain transform "
-        f"calls {plain_calls}")
-    if got != oracle:
-        raise AssertionError("port output differs from the host path")
-    if stats["frames"] != len(streams) or stats["fallback"] != 0:
-        raise AssertionError(f"engine did not decode every frame: {stats}")
-    if launches != len(streams):
-        raise AssertionError(f"{launches} itx launches for {len(streams)} "
-                             "frames: the main path must launch once a frame")
-    if plain_calls:
-        raise AssertionError(f"{plain_calls} plain transform calls on the card")
-
+    launches = worst = 0
+    blobs = []
+    for s in SEEDS:
+        n, err, _ = stream_on_card(dev, f"still seed {s} {W}x{H}",
+                                   [synth.still_picture(W, H, s)],
+                                   want=[digests["md5"][str(s)]], blobs=blobs)
+        launches += n
+        worst = max(worst, err)
     return launches, worst, blobs
 
 
 def inter_phase(dev):
-    """The inter path: synth.inter_sequence at 1080p through one Decoder on
-    the card. Returns the itx launches of its decode."""
-    import torch
-
-    import rav1d_tpu_torch as T
+    """The inter path: synth.inter_sequence at 1080p through
+    stream_on_card, held to its committed digests, with every inter slot
+    but segy00/segy10 (4:2:2 and 4:4:4 only) carrying tiles and interintra
+    wave items present; then the inter program alone on each inter frame's
+    blob (inter_timing). Returns (itx launches, max |err| of ra)."""
     from rav1d_tpu_torch import synth
-    from rav1d_tpu_torch.engine import kernels, run
-    from rav1d_tpu_torch.engine import programs as P
-    from rav1d_tpu_torch.engine.blob import Uploader
     from rav1d_tpu_torch.engine.layout import SLOTS
-    from rav1d_tpu_torch.engine.pack import pack_frame
-    from rav1d_tpu_torch.ops.cuda import itx as I
 
     with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
         want = json.load(fh)["inter"]
-    packets = synth.inter_sequence(W, H, want["seed"])
-    t0 = time.perf_counter()
-    host = synth.decode_md5s(
-        T.Decoder(T.Settings(apply_grain=False), host_path=True), packets)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    log(f"inter host path seed {want['seed']} {W}x{H}, {len(packets)} "
-        f"frames: {host_ms:.1f} ms  md5 {host}  "
-        f"{'==' if host == want['md5'] else '!='} committed digests")
-    if host != want["md5"]:
-        raise AssertionError("inter host path differs from the committed "
-                             "digests")
-    frames = synth.capture_frames(packets)
-    tiles = dict.fromkeys(SLOTS, 0)
-    ii = 0
-    for i, fp in enumerate(frames):
-        ft = synth.features(*fp)
-        line = {k: ft[k] for k in ("items", "waves")}
-        if "inter_tiles" in ft:
-            for k, v in ft["inter_tiles"].items():
-                tiles[k] += v
-            ii += ft["ii_items"]
-            line.update((k, ft[k]) for k in ("inter_tiles", "ii_items",
-                                             "pool_rows", "lap_rows",
-                                             "pool_cap"))
-        log(f"  inter frame {i} features " + json.dumps(line))
-    empty = sorted(k for k, v in tiles.items() if not v and k not in NOT_420)
-    if empty or not ii:
-        raise AssertionError(f"inter slots without tiles {empty}, "
-                             f"interintra items {ii}")
-
-    # the residual program on each frame's blob against its plain version
-    # (and the allocator brought to the frame's buffer sizes)
-    for i, (f, plan) in enumerate(frames):
-        pk = pack_frame(f, plan)
-        ah, aw = plan.ah, plan.aw
-        d, _ = Uploader(dev).upload(pk, ah * aw, 8)
-        ra = P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
-        ref = P.resid_plain(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
-        torch.cuda.synchronize()
-        if not torch.equal(ra, ref):
-            raise AssertionError(f"inter frame {i}: resid != resid_plain")
-    log(f"resid (one itx launch) == resid_plain on the {len(frames)} inter "
-        "sequence frames' blobs")
-
-    T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
-    I.launches = 0
-    kernels.calls = 0
-    dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
-    got = []
-    for i, data in enumerate(packets):  # frame by frame: stage_ms per frame
-        run.reset_stats()
-        t0 = time.perf_counter()
-        got += synth.decode_md5s(dec, [data])
-        ms = (time.perf_counter() - t0) * 1e3
-        log(f"port inter frame {i} {W}x{H}: {ms:.1f} ms wall  md5 {got[-1]}  "
-            f"{'==' if got[-1] == host[i] else '!='} host")
-        log("  stage_ms " + json.dumps({k: round(v, 3)
-                                        for k, v in run.stage_ms.items()}))
-    launches = I.launches
-    plain_calls = kernels.calls
-    stats = dict(T.engine.stats)
-    log(f"inter engine stats {stats}  itx launches {launches}  plain "
-        f"transform calls {plain_calls}")
-    if got != host:
-        raise AssertionError("port inter output differs from the host path")
-    if stats["frames"] != len(packets) or stats["fallback"]:
-        raise AssertionError(f"engine did not decode every frame: {stats}")
-    if stats["ref_uploads"]:
-        raise AssertionError("a reference plane was uploaded from the host")
-    if launches != len(packets):
-        raise AssertionError(f"{launches} itx launches for {len(packets)} "
-                             "frames: the main path must launch once a frame")
-    if plain_calls:
-        raise AssertionError(f"{plain_calls} plain transform calls on the card")
+    launches, worst, frames = stream_on_card(
+        dev, f"inter seed {want['seed']} {W}x{H}",
+        synth.inter_sequence(W, H, want["seed"]), want=want["md5"],
+        slots=[k for k in SLOTS if k not in NOT_420], interintra=True)
     inter_timing(dev, frames)
-    return launches
+    return launches, worst
 
 
 def inter_timing(dev, frames):
@@ -512,10 +371,11 @@ def profiled_kernel_ms(fn, name, reps):
 
 
 def timing_phase(blobs):
-    """On each frame's blob: the itx frame launch (CUDA events, host launch
-    included; and its device time from torch.profiler), the whole resid
-    program and resid_plain. Returns per-frame means (launch ms, device ms
-    or None, plain ms, bytes, operations)."""
+    """On each frame's blob (stream_on_card's blobs): the itx frame launch
+    (CUDA events, host launch included; and its device time from
+    torch.profiler), the whole resid program, resid_plain, and each class
+    of the frame launched alone. Returns per blob (bpc, launch ms, device
+    ms or None, plain ms, bytes, operations)."""
     import torch
 
     from rav1d_tpu_torch.engine import programs as P
@@ -523,39 +383,213 @@ def timing_phase(blobs):
     from rav1d_tpu_torch.ops.cuda import itx as I
 
     rows = []
-    for s, d, hdr, tv, ah, aw in blobs:
+    for label, bpc, d, hdr, tv, ah, aw in blobs:
         ra = torch.zeros(6 * ah * aw, dtype=torch.int32, device=d.device)
-        k_ms = cuda_ms(lambda: I.itx_frame(d, hdr, tv, ra, aw, 8), 50)
+        k_ms = cuda_ms(lambda: I.itx_frame(d, hdr, tv, ra, aw, bpc), 50)
         dev_ms = profiled_kernel_ms(
-            lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=8), "itx_frame_kernel",
-            10)
-        r_ms = cuda_ms(lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=8), 20)
-        p_ms = cuda_ms(lambda: P.resid_plain(d, hdr, tv, ah=ah, aw=aw, bpc=8), 3)
-        nbytes, ops = itx_frame_work(d.cpu().numpy(), hdr, tv, 8)
+            lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=bpc),
+            "itx_frame_kernel", 10)
+        r_ms = cuda_ms(lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=bpc), 20)
+        p_ms = cuda_ms(
+            lambda: P.resid_plain(d, hdr, tv, ah=ah, aw=aw, bpc=bpc), 3)
+        nbytes, ops = itx_frame_work(d.cpu().numpy(), hdr, tv, bpc)
         b_ms, b_by = bound(nbytes, ops)
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.5f} ms"
-        log(f"itx frame seed {s}: {sum(tv.values())} blocks in {len(tv)} "
-            f"classes; launch {k_ms:.5f} ms (CUDA events), kernel device "
-            f"time {dev_txt} (torch.profiler), resid {r_ms:.5f} ms, "
+        log(f"itx frame {label} ({bpc} bpc): {sum(tv.values())} blocks in "
+            f"{len(tv)} classes; launch {k_ms:.5f} ms (CUDA events), kernel "
+            f"device time {dev_txt} (torch.profiler), resid {r_ms:.5f} ms, "
             f"resid_plain {p_ms:.4f} ms; {nbytes} bytes, {ops} ops, bound "
             f"{b_ms:.5f} ms ({b_by})")
-        rows.append((k_ms, dev_ms, p_ms, nbytes, ops))
+        rows.append((bpc, k_ms, dev_ms, p_ms, nbytes, ops))
         # each class of the frame alone: a launch over its part of the table
         per = []
         for key in [k for k in list(range(len(SIZES))) + ["wht"] if k in tv]:
             n = tv[key]
             name = "wht" if key == "wht" else "%dx%d" % SIZES[key]
             ms = profiled_kernel_ms(
-                lambda: I.itx_frame(d, hdr, {key: n}, ra, aw, 8),
+                lambda: I.itx_frame(d, hdr, {key: n}, ra, aw, bpc),
                 "itx_frame_kernel", 5)
             per.append(f"{name} {n}: "
                        + ("not measured" if ms is None else f"{ms:.5f}"))
-        log(f"  seed {s} device ms per class alone (blocks: ms): "
+        log(f"  {label} device ms per class alone (blocks: ms): "
             + "; ".join(per))
-    mean = [sum(r[i] for r in rows) / len(rows) for i in (0, 2, 3, 4)]
-    devs = [r[1] for r in rows]
-    dev_mean = None if None in devs else sum(devs) / len(devs)
-    return mean[0], dev_mean, mean[1], mean[2], mean[3]
+    return rows
+
+
+def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
+                   slots=(), interintra=False, blobs=None):
+    """One stream through the port on the card. The host path (captured:
+    each frame's plan, and the MD5s; its time includes the capture) must
+    give the committed digests `want` where they are given, and its
+    planner must send exactly the frames `fallbacks` to the host; the
+    inter slots `slots` must carry tiles, and interintra wave items must
+    be present if `interintra`. On
+    each engine frame's blob the resid program (one itx launch) must equal
+    resid_plain (the blobs are appended to the list `blobs` if one is
+    given). Then one Decoder(device="cuda") must decode the stream frame by
+    frame to the host path's MD5s, with those fallbacks only, no upload of
+    a host reference plane, one itx launch per engine frame and no call of
+    the plain transforms. Returns (itx launches, max |err| of ra, the
+    captured [(f, plan)])."""
+    import torch
+
+    import rav1d_tpu_torch as T
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine import kernels, run
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.blob import Uploader
+    from rav1d_tpu_torch.engine.pack import pack_frame
+    from rav1d_tpu_torch.ops.cuda import itx as I
+
+    t0 = time.perf_counter()
+    host = []
+    frames = synth.capture_frames(packets, host)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    log(f"{label}: host path (with capture) {len(host)} frames "
+        f"{host_ms:.1f} ms  md5 {host}"
+        + ("" if want is None else
+           f"  {'==' if host == want else '!='} committed digests"))
+    if want is not None and host != want:
+        raise AssertionError(f"{label}: host path differs from the "
+                             "committed digests")
+    planned = tuple(i for i, (_, plan) in enumerate(frames) if plan is None)
+    if planned != tuple(fallbacks):
+        raise AssertionError(f"{label}: the planner sends frames {planned} "
+                             f"to the host path, not {tuple(fallbacks)}")
+    tiles = {}
+    ii = 0
+    for i, (f, plan) in enumerate(frames):
+        if plan is None:
+            continue
+        ft = synth.features(f, plan)
+        line = {k: ft[k] for k in ("items", "waves")}
+        if "inter_tiles" in ft:
+            for k, v in ft["inter_tiles"].items():
+                tiles[k] = tiles.get(k, 0) + v
+            ii += ft["ii_items"]
+            line.update((k, ft[k]) for k in ("inter_tiles", "ii_items",
+                                             "pool_rows", "lap_rows",
+                                             "pool_cap"))
+        log(f"  frame {i} features " + json.dumps(line))
+    empty = [k for k in slots if not tiles.get(k)]
+    if empty or (interintra and not ii):
+        raise AssertionError(f"{label}: inter slots without tiles {empty}, "
+                             f"interintra items {ii}")
+
+    # the residual program on each engine frame's blob against its plain
+    # version (and the allocator brought to the frame's buffer sizes)
+    worst = 0
+    for i, (f, plan) in enumerate(frames):
+        pk = None if plan is None else pack_frame(f, plan)
+        if pk is None:
+            continue
+        ah, aw, bpc = plan.ah, plan.aw, f.cur.bpc
+        d, _ = Uploader(dev).upload(pk, ah * aw, bpc)
+        ra = P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=bpc)[0]
+        ref = P.resid_plain(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=bpc)[0]
+        torch.cuda.synchronize()
+        worst = max(worst, max_err(ra, ref))
+        if not torch.equal(ra, ref):
+            raise AssertionError(f"{label} frame {i}: resid (itx kernel, "
+                                 f"{bpc} bpc) != resid_plain")
+        if blobs is not None:
+            blobs.append((f"{label} frame {i}", bpc, d, pk.hdr, pk.tx_valid,
+                          ah, aw))
+
+    T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
+    I.launches = 0
+    kernels.calls = 0
+    dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
+    got, fell = [], []
+    for i, data in enumerate(packets):  # frame by frame: stage_ms per frame
+        run.reset_stats()
+        fb = T.engine.stats["fallback"]
+        t0 = time.perf_counter()
+        got += synth.decode_md5s(dec, [data])
+        ms = (time.perf_counter() - t0) * 1e3
+        if T.engine.stats["fallback"] > fb:
+            fell.append(i)
+        log(f"  port frame {i}: {ms:.1f} ms wall  md5 {got[-1]}  "
+            f"{'==' if got[-1:] == host[i : i + 1] else '!='} host"
+            + ("  (host path: the planner's gate)" if i in fell else ""))
+        log("    stage_ms " + json.dumps({k: round(v, 3)
+                                          for k, v in run.stage_ms.items()}))
+    launches = I.launches
+    plain_calls = kernels.calls
+    stats = dict(T.engine.stats)
+    log(f"  {label}: engine stats {stats}  itx launches {launches}  plain "
+        f"transform calls {plain_calls}")
+    if got != host:
+        raise AssertionError(f"{label}: port output differs from the host "
+                             "path")
+    if tuple(fell) != tuple(fallbacks) or stats["frames"] != len(packets):
+        raise AssertionError(f"{label}: frames {fell} fell back, not "
+                             f"{tuple(fallbacks)}: {stats}")
+    if stats["ref_uploads"]:
+        raise AssertionError(f"{label}: a reference plane was uploaded from "
+                             "the host")
+    if launches != len(packets) - len(fallbacks):
+        raise AssertionError(f"{label}: {launches} itx launches for "
+                             f"{len(packets) - len(fallbacks)} engine frames")
+    if plain_calls:
+        raise AssertionError(f"{label}: {plain_calls} plain transform calls "
+                             "on the card")
+    return launches, worst, frames
+
+
+def high_bitdepth_phase(dev):
+    """The committed 1080p streams of smoke_digests.json "formats" (a
+    10-bit 4:2:0 key + two inter frames, the format of the bench's
+    1080p_10bit configuration, and a 12-bit 4:4:4 picture) through
+    stream_on_card. Returns (itx launches, max |err|, the frames' blobs)."""
+    from rav1d_tpu_torch import synth
+
+    with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
+        digests = json.load(fh)
+    launches = worst = 0
+    blobs = []
+    for name in sorted(digests["formats"]):
+        n, err, _ = stream_on_card(dev, f"{name} {W}x{H}",
+                                   synth.smoke_stream(digests, name),
+                                   want=digests["formats"][name]["md5"],
+                                   blobs=blobs)
+        launches += n
+        worst = max(worst, err)
+    return launches, worst, blobs
+
+
+FMT_W, FMT_H = 640, 360
+
+
+def formats_phase(dev):
+    """Every other format at 640x360 through stream_on_card: still
+    pictures at 8, 10 and 12 bits in 4:0:0, 4:2:2 and 4:4:4; 10-bit
+    inter sequences in 4:2:2 (segy10 must carry tiles), 4:4:4 (segy00)
+    and 4:0:0; and an 8-bit superres inter sequence, whose fourth frame
+    the planner sends to the host path (scaled references). Returns the
+    itx launches and the max |err| of ra."""
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.headers import PixelLayout as PL
+
+    streams = []
+    for bpc in (8, 10, 12):
+        for layout in (PL.I400, PL.I422, PL.I444):
+            streams.append((f"still {bpc}-bit {layout.name}", [
+                synth.still_picture(FMT_W, FMT_H, bpc + int(layout), bpc=bpc,
+                                    layout=layout)], (), ()))
+    for layout, slots in ((PL.I422, ("segy10",)), (PL.I444, ("segy00",)),
+                          (PL.I400, ())):
+        streams.append((f"inter 10-bit {layout.name}", synth.inter_sequence(
+            FMT_W, FMT_H, 2, bpc=10, layout=layout), (), slots))
+    streams.append(("inter 8-bit I420 superres", synth.inter_sequence(
+        FMT_W, FMT_H, 2, superres=True), (3,), ()))
+    launches = worst = 0
+    for label, packets, fallbacks, slots in streams:
+        n, err, _ = stream_on_card(dev, f"{label} {FMT_W}x{FMT_H}", packets,
+                                   fallbacks=fallbacks, slots=slots)
+        launches += n
+        worst = max(worst, err)
+    return launches, worst
 
 
 def idct8x8_phase(dev):
@@ -633,24 +667,25 @@ def vector_phase(dev):
         log(f"vector {rel}: md5 {m.hexdigest()} (meson {want}) fallback {fb}")
         if m.hexdigest() != want:
             raise AssertionError(f"{rel}: md5 mismatch")
-    bench_stream_phase(dev, d)
+    for rel, n in HOST_PATH_VECTORS:
+        first_frames_phase(dev, d, rel, n)
 
 
-def bench_stream_phase(dev, d):
-    """The first BENCH_FRAMES frames of the bench's inter stream, frame by
-    frame against the port's host path, with no fallback."""
+def first_frames_phase(dev, d, rel, n):
+    """The first n frames of a vector, frame by frame against the port's
+    host path, with no fallback."""
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import synth
     from rav1d_tpu_torch.io.ivf import IvfDemuxer
 
-    path = os.path.join(d, BENCH_STREAM)
+    path = os.path.join(d, rel)
     if not os.path.exists(path):
-        log(f"vector phase: {BENCH_STREAM} not found; skipped")
+        log(f"vector phase: {rel} not found; skipped")
         return
     host = T.Decoder(T.Settings(apply_grain=False), host_path=True)
     packets, want = [], []
     for pkt in IvfDemuxer(path):
-        if len(want) >= BENCH_FRAMES:
+        if len(want) >= n:
             break
         packets.append(pkt.data)
         want += synth.decode_md5s(host, [pkt.data])
@@ -658,12 +693,12 @@ def bench_stream_phase(dev, d):
     got = synth.decode_md5s(
         T.Decoder(T.Settings(apply_grain=False), device=dev), packets)
     fb = T.engine.stats["fallback"] - before["fallback"]
-    log(f"vector {BENCH_STREAM}: {len(got)} frames, "
+    log(f"vector {rel}: {len(got)} frames, "
         f"{sum(a == b for a, b in zip(got, want))} equal to the host path, "
         f"fallback {fb}")
     if got != want or fb:
-        raise AssertionError(f"{BENCH_STREAM}: differs from the host path "
-                             f"or fell back ({fb})")
+        raise AssertionError(f"{rel}: differs from the host path or fell "
+                             f"back ({fb})")
 
 
 def main():
@@ -700,10 +735,15 @@ def main():
             log("  " + ln.replace("ptxas info    :", "").strip())
 
     worst = kernel_phase(dev)
-    launches, worst_main, blobs = slice_phase(dev)
-    k_ms, dev_ms, p_ms, itx_bytes, itx_ops_n = timing_phase(blobs)
-    worst = max(worst, worst_main)
-    launches += inter_phase(dev)
+    launches = 0
+    blobs = []
+    for phase in (slice_phase, inter_phase, high_bitdepth_phase,
+                  formats_phase):
+        n, err, *got = phase(dev)
+        launches += n
+        worst = max(worst, err)
+        blobs += got[0] if got else []
+    rows = timing_phase(blobs)
     i8 = idct8x8_phase(dev)
     vector_phase(dev)
     if "jax" in sys.modules:
@@ -713,14 +753,23 @@ def main():
     if ref:
         raise AssertionError(f"modules of rav1d_tpu were imported: {ref}")
 
-    b_ms, b_by = bound(itx_bytes, itx_ops_n)
-    log(f"itx per frame (mean of {len(blobs)}): launch {k_ms:.5f} ms, device "
-        f"{'not measured' if dev_ms is None else f'{dev_ms:.5f} ms'}, "
-        f"bound {b_ms:.5f} ms ({b_by}), resid_plain {p_ms:.4f} ms")
+    means = {}  # bpc: per-frame means (launch, device, plain, bytes, ops)
+    for bpc in (8, 10, 12):
+        got = [r[1:] for r in rows if r[0] == bpc]
+        n = len(got)
+        devs = [r[1] for r in got]
+        means[bpc] = [sum(r[i] for r in got) / n for i in (0, 2, 3, 4)]
+        b_ms, b_by = bound(*means[bpc][2:])
+        log(f"itx per frame at {bpc} bpc (mean of {n}): launch "
+            f"{means[bpc][0]:.5f} ms, device "
+            + ("not measured" if None in devs else f"{sum(devs) / n:.5f} ms")
+            + f", bound {b_ms:.5f} ms ({b_by}), resid_plain "
+            f"{means[bpc][1]:.4f} ms")
     kernels = []
+    # the itx entry's times and bound: the 8-bit intra pictures' means
     for name, replaces, n_launch, err, ms, pms, nbytes, ops in (
         ("itx", "rav1d_tpu/ops/pallas/itx_all.py:110", launches, worst,
-         k_ms, p_ms, itx_bytes, itx_ops_n),
+         *means[8]),
         ("idct8x8", "rav1d_tpu/ops/pallas/itx8.py:97", *i8),
     ):
         b_ms, b_by = bound(nbytes, ops)
@@ -734,6 +783,7 @@ def main():
             "library_ms": None,
         })
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    log(gpu_line())  # again here, where the end of a long log keeps it
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,11 +10,10 @@ picture's host planes are complete when it is handed out.
 The dense pass runs on a torch device (`Decoder(device=...)`, default the
 first CUDA card) through the port's engine (engine/), which owns the
 upload buffer (engine/blob.py Uploader) and receives it explicitly from
-this class. Frames outside the port's slice raise NotImplementedError
-instead of decoding on the host: bit depths other than 8, layouts other
-than 4:2:0, superres. The reference engine's own host gates (intra block
-copy, scaled references, an inter pool that would overflow) still run the
-host path, counted in engine.stats["fallback"]. The engine keeps each
+this class, at every bit depth (8, 10, 12), chroma layout (4:0:0, 4:2:0,
+4:2:2, 4:4:4) and with superres. The reference engine's own host gates
+(intra block copy, scaled references, an inter pool that would overflow)
+run the host path, counted in engine.stats["fallback"]. The engine keeps each
 picture it decodes on the device for later frames to predict from
 (engine/run.py dev_plane).
 `Decoder(host_path=True)` runs every frame on the numpy host path instead
@@ -126,19 +125,6 @@ class FrameContext:
 
 def _scale_fac(ref_sz: int, this_sz: int) -> int:
     return ((ref_sz << 14) + (this_sz >> 1)) // this_sz
-
-
-def check_slice(f):
-    """Raise NotImplementedError for a frame the port's engine does not
-    decode."""
-    fh = f.frame_hdr
-    if f.cur.bpc != 8:
-        raise NotImplementedError(f"{f.cur.bpc}-bit frames are not ported yet")
-    if f.cur.layout != PixelLayout.I420:
-        raise NotImplementedError(
-            f"layout {f.cur.layout.name} is not ported yet (4:2:0 only)")
-    if fh.size.width[0] != fh.size.width[1]:
-        raise NotImplementedError("superres frames are not ported yet")
 
 
 class Decoder:
@@ -265,8 +251,6 @@ class Decoder:
             self.frame_hdr = None
             self.tiles.clear()
             self.n_tiles = 0
-            if isinstance(e, NotImplementedError):
-                raise  # a frame outside the port's slice: not a bitstream error
             self._log(f"rav1d: dropping temporal unit: {e}")
             err = e if isinstance(e, DecodeError) else DecodeError(str(e))
             raise err from e
@@ -300,8 +284,6 @@ class Decoder:
             self.frame_hdr = None
             self.tiles.clear()
             self.n_tiles = 0
-            if isinstance(e, NotImplementedError):
-                raise
             err = e if isinstance(e, DecodeError) else DecodeError(str(e))
             raise err from e
         if self._picture_ready(True):
@@ -583,6 +565,4 @@ class Decoder:
         upload context, or on the numpy host path (host_path=True)."""
         from .recon.frame import decode_frame_dense
 
-        if self.uploader is not None:
-            check_slice(f)
         decode_frame_dense(f, self.uploader)

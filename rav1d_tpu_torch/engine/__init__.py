@@ -1,7 +1,7 @@
 """The device engine on torch: packers, programs and the frame runner.
 
-Counterpart of rav1d_tpu/engine/__init__.py for the port's slice (8-bit
-4:2:0 frames, intra and inter, without superres). `stats` counts the frames
+Counterpart of rav1d_tpu/engine/__init__.py: intra and inter frames at
+every bit depth and chroma layout, with superres. `stats` counts the frames
 the engine was asked to decode, the ones it handed to the numpy host path
 (the reference's own gates: intra block copy, scaled references, an inter
 pool that would overflow), and the host reference planes it uploaded

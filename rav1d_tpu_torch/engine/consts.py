@@ -19,6 +19,7 @@ from ..tables.spec_data import (
     FILTER_INTRA_TAPS,
     MC_SUBPEL_FILTERS,
     MC_WARP_FILTER,
+    RESIZE_FILTER,
     SGR_X_BY_X,
     SM_WEIGHTS,
 )
@@ -45,6 +46,8 @@ def numpy_tables():
         "mc_subpel_filters": np.asarray(MC_SUBPEL_FILTERS, np.int32),
         "mc_warp_filter": np.asarray(MC_WARP_FILTER, np.int32),
         "filter_dir": np.asarray(FILTER_DIR, np.int32),
+        # superres: the 8-tap upscale filters of each 1/64 phase (64, 8)
+        "resize_filter": np.asarray(RESIZE_FILTER, np.int32),
     }
 
 

@@ -1,12 +1,12 @@
-"""Whole-frame post filters on torch: deblock, CDEF, loop restoration.
+"""Whole-frame post filters on torch: deblock, CDEF, superres, loop
+restoration.
 
 Port of rav1d_tpu/engine/filters.py (lf_dir_pass_raw, cdef_pass_raw,
-_gather_stripes, _lr_scatter, lr_wiener_pass_raw, lr_sgr_pass_raw), fed by
-the level/stripe descriptors of the frame blob. Gathers clamp their
-indices as JAX gathers do; scatters send out-of-range writes to the trash
-word at the end of the flat buffer, as JAX's mode="drop" discards them.
-Super-resolution (resize_plane_raw) is not here: superres frames are
-outside this port's slice.
+resize_plane_raw, _gather_stripes, _lr_scatter, lr_wiener_pass_raw,
+lr_sgr_pass_raw), fed by the level/stripe descriptors of the frame blob.
+Gathers clamp their indices as JAX gathers do; scatters send out-of-range
+writes to the trash word at the end of the flat buffer, as JAX's
+mode="drop" discards them.
 """
 
 from __future__ import annotations
@@ -176,6 +176,29 @@ def cdef_pass(planes, maps, damping, nby, nbx, bh, bw, ss_hor, ss_ver,
             out = torch.where(seluv, out.reshape(nby, nbx, ch, cw), blk)
             planes[pl][crows.long(), ccols.long()] = out
     return planes
+
+
+# --------------------------------------------------------------------------
+# super-resolution
+# --------------------------------------------------------------------------
+
+
+def resize_plane(src, h, dst_w, src_w, dx, mx0, bpc, out_w):
+    """Horizontal 8-tap upscale of src[:h, :src_w] to dst_w columns
+    (mc.rs resize_rust:1114): output column x reads source columns around
+    (mx0 + x * dx) >> 14 with the filter of its 1/64 phase, clamped to the
+    row. Returns (h, out_w) int32, zero past dst_w."""
+    d_ = src.device
+    RF = tables(d_)["resize_filter"]
+    pos = mx0 + _ar(dst_w, d_) * dx
+    src_x = -1 + (pos >> 14) - (mx0 >> 14)
+    filt = RF[((pos & 0x3FFF) >> 8).long()]
+    acc = torch.zeros((h, dst_w), dtype=I32, device=d_)
+    for k in range(8):
+        cols = (src_x + k - 3).clamp(0, src_w - 1).long()
+        acc += filt[None, :, k] * src[:h, cols]
+    out = ((-acc + 64) >> 7).clamp(0, (1 << bpc) - 1)
+    return F.pad(out, (0, out_w - dst_w))
 
 
 # --------------------------------------------------------------------------

@@ -6,9 +6,9 @@ packers (that module imports JAX at load time), changed only in their
 import lines and without run2's RAV1D_ENGINE_SKIP stage switch;
 tests/test_torch_pack.py and tests/test_torch_inter.py hold the blobs they
 write to run2's word for word. `pack_frame` is the packing half of
-run2.execute (without superres), and also returns the host-side counts the
-device programs loop and branch on, so no program reads a count back from
-the device.
+run2.execute, superres step and start included, and also returns the
+host-side counts the device programs loop and branch on, so no program
+reads a count back from the device.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ from ..syntax.levels import WHT_WHT
 from .blob import FrameBlob
 from .layout import (
     B_MRS, B_TW, C_TW, CDEF0, CF0, D_TW, DB0, FI, HB, HDR_LEN, IH0, INTER0,
-    LR0, LRB, NBLEND, NCOMB, NPUT, NWARP, PAL0, PAL_B, R0, SIZES, SLOTS, TB,
-    TXTP_FIRST, TXTP_SECOND, W_TW, WAVE0, WHT0, WHT_B, chunk_for,
+    LR0, LRB, NBLEND, NCOMB, NPUT, NWARP, PAL0, PAL_B, R0, SIZES, SLOTS, SR0,
+    TB, TXTP_FIRST, TXTP_SECOND, W_TW, WAVE0, WHT0, WHT_B, chunk_for,
 )
 from .plan import CAP, MODE_CFL_DC, MODE_IDENT, item_class
 
@@ -761,22 +761,25 @@ def _pack_lr(f, blob, hdr):
 
 
 # ---------------------------------------------------------------------------
-# the frame's packing pass (run2.execute without superres)
+# the frame's packing pass (run2.execute)
 # ---------------------------------------------------------------------------
 
 
 class FramePack:
     """A packed frame: the header words, the blob allocator holding every
     region, the static LR stripe widths, the host-side counts, and an
-    inter frame's reference sources."""
+    inter frame's reference sources, and whether the frame needs the
+    superres upscale."""
 
-    __slots__ = ("hdr", "blob", "lr_ws", "waves", "tx_valid", "srcs",
-                 "inter_runs")
+    __slots__ = ("hdr", "blob", "lr_ws", "need_sr", "waves", "tx_valid",
+                 "srcs", "inter_runs")
 
-    def __init__(self, hdr, blob, lr_ws, waves, tx_valid, srcs, inter_runs):
+    def __init__(self, hdr, blob, lr_ws, need_sr, waves, tx_valid, srcs,
+                 inter_runs):
         self.hdr = hdr
         self.blob = blob
         self.lr_ws = lr_ws
+        self.need_sr = need_sr
         # per wave: [(class rows (B, N_FIELDS) int32, n items, wflags,
         # sorted tuple of the modes present)] for the S and L classes
         self.waves = waves
@@ -936,7 +939,13 @@ def pack_frame(f, plan):
     _pack_wave(blob, hdr, plan, psz, aw)
     _pack_deblock(f, blob, hdr)
     _pack_cdef(f, blob, hdr)
+    need_sr = f.frame_hdr.size.width[0] != f.frame_hdr.size.width[1]
+    if need_sr:
+        for ci in range(2):
+            hdr[SR0 + 2 * ci] = f.resize_step[ci]
+            hdr[SR0 + 2 * ci + 1] = f.resize_start[ci]
     lr_ws = _pack_lr(f, blob, hdr)
-    return FramePack(hdr, blob, lr_ws, _wave_classes(blob, hdr, plan, psz, aw),
+    return FramePack(hdr, blob, lr_ws, need_sr,
+                     _wave_classes(blob, hdr, plan, psz, aw),
                      _tx_valid(blob, hdr, psz), srcs,
                      _inter_runs(blob, hdr) if srcs is not None else {})

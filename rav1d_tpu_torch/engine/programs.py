@@ -1,7 +1,7 @@
 """The device engine's four programs on torch.
 
 Ports of rav1d_tpu/engine/mega.py resid_prog, inter_prog, wave_prog and
-filter_prog (without superres). Every program reads the frame's
+filter_prog. Every program reads the frame's
 descriptors from the one uploaded int32 blob `dev`, at the word offsets of
 the header; the trip counts, filter cases and feature gates that JAX reads
 from the device blob come from the host header `hdr` and the packer's
@@ -17,6 +17,7 @@ out-of-range writes land there, as JAX's mode="drop" discards them.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.cuda import itx as cuda_itx
 from ..ops.ref.mc import intermediate_bits
@@ -30,8 +31,8 @@ from .layout import (
     C_P2, C_R0, C_R1, C_TH, C_TW, CDEF0, CF0, D_FLAT0, D_MX, D_MY, D_SROW,
     D_SX, D_SY, D_TH, D_TW, DB0, FI, HB, IH0, INTER0, LR0, LRB, N_FIELDS,
     NBLEND, NCOMB, NPUT, NWARP, PAL0, PAL_B, R0, SIZES, SLOTS, TB, W_A, W_B,
-    W_C, W_D, W_FLAT0, W_MX, W_MY, W_SROW, W_SX, W_SY, W_TH, W_TW, WAVE0,
-    WHT0, WHT_B, chunk_for,
+    SR0, W_C, W_D, W_FLAT0, W_MX, W_MY, W_SROW, W_SX, W_SY, W_TH, W_TW,
+    WAVE0, WHT0, WHT_B, chunk_for,
 )
 from .plan import CAP, CLS_L, CLS_S
 from .wave import build_coords, class_step, unpack
@@ -257,12 +258,12 @@ def inter(planes, ra, dev, hdr, runs, stackY, stackC, *, ah, aw, bpc, vwY,
     into the planes, OBMC laps into the lap pool, preps into the compound
     pool, the compound combines, the OBMC lap blends, then the batch
     residual add. `runs` is the packer's {slot: [InterRun]}
-    (engine/pack.py), `stackY` and `stackC` the uint8 reference planes the
-    descriptors' stack rows name. Each run is one batch: the tiles of a
-    slot write disjoint pixels, except the blends, whose top-lap run is
-    finished before the left-lap run starts. Pools are sized to the
-    packer's limit, (8 * psz) // 64 rows (the JAX program allocates 6/8
-    of it and clamps beyond)."""
+    (engine/pack.py), `stackY` and `stackC` the reference planes (uint8,
+    or int16 above 8 bits) the descriptors' stack rows name. Each run is
+    one batch: the tiles of a slot write disjoint pixels, except the
+    blends, whose top-lap run is finished before the left-lap run starts.
+    Pools are sized to the packer's limit, (8 * psz) // 64 rows (the JAX
+    program allocates 6/8 of it and clamps beyond)."""
     d_ = dev.device
     psz = ah * aw
     ib = intermediate_bits(bpc)
@@ -463,11 +464,14 @@ def wave(planes, ra, dev, hdr, waves, *, ah, aw, bpc, ss_hor, ss_ver):
 # ------------------------------- filters ---------------------------------
 
 
-def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws):
-    """Deblock -> CDEF -> loop restoration -> packed output.
+def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws, sr_geom=None):
+    """Deblock -> CDEF -> superres -> loop restoration -> packed output.
     geom = (ah, aw, ach, acw, bh, bw, cur_h); layout_i = PixelLayout int;
-    lr_ws = (Wy, Wc) LR stripe tile widths. Returns (planes, packed uint8
-    output: the whole luma plane then the (ach, acw) chroma planes)."""
+    lr_ws = (Wy, Wc) LR stripe tile widths; sr_geom = (s_ah, s_aw, sr_w,
+    sr_h, srcw_y), the upscaled planes' shape, the upscaled picture's size
+    and the coded luma width, or None without superres. Returns (planes,
+    packed output: the whole luma plane then the (ach, acw) chroma planes,
+    uint8 at 8 bits, int16 at 10 and 12)."""
     d_ = dev.device
     ah, aw, ach, acw, bh, bw, cur_h = geom
     ss_hor = 0 if layout_i == 3 else 1
@@ -516,13 +520,39 @@ def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws):
     FL.cdef_pass(planes, maps, damping, nby, nbx, bh, bw, ss_hor, ss_ver,
                  uv422, bpc)
 
+    # ---- superres: both the planes and the post-deblock snapshot ----
+    vis_h = cur_h
+    if sr_geom is not None:
+        s_ah, s_aw, sr_w, vis_h, srcw_y = sr_geom
+        outs, pres = [], []
+        for pl in range(3):
+            if pl and not has_chroma:
+                z = torch.zeros((s_ah, s_aw), dtype=I32, device=d_)
+                outs.append(z)
+                pres.append(z)
+                continue
+            sh = ss_hor if pl else 0
+            sv = ss_ver if pl else 0
+            ci = 1 if pl else 0
+            h = (cur_h + sv) >> sv
+            args = (h, (sr_w + sh) >> sh, (srcw_y + sh) >> sh,
+                    int(hdr[SR0 + 2 * ci]), int(hdr[SR0 + 2 * ci + 1]), bpc,
+                    s_aw)
+            outs.append(F.pad(FL.resize_plane(planes[pl], *args),
+                              (0, 0, 0, s_ah - h)))
+            pres.append(F.pad(FL.resize_plane(pre_cdef[pl], *args),
+                              (0, 0, 0, s_ah - h)))
+        planes = torch.stack(outs)
+        pre_cdef = torch.stack(pres)
+        aw = s_aw
+
     # ---- loop restoration: stripes of each (kind, plane) slot ----
     Wy, Wc = lr_ws
     for pl in range(3):
         if pl and not has_chroma:
             continue
         sv = ss_ver if pl else 0
-        ph = (cur_h + sv) >> sv
+        ph = (vis_h + sv) >> sv
         W = Wc if pl else Wy
         plane = planes[pl]
         cat = torch.cat([plane[:ph], pre_cdef[pl][:ph]])
@@ -547,11 +577,12 @@ def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws):
             planes[pl] = pfl[:-1].view(plane.shape)
 
     # ---- pack the output (the only device->host payload) ----
+    odt = torch.uint8 if bpc == 8 else torch.int16
     y = planes[0].reshape(-1)
     if has_chroma:
         u = planes[1][:ach, :acw].reshape(-1)
         v = planes[2][:ach, :acw].reshape(-1)
-        packed = torch.cat([y, u, v]).to(torch.uint8)
+        packed = torch.cat([y, u, v]).to(odt)
     else:
-        packed = y.to(torch.uint8)
+        packed = y.to(odt)
     return planes, packed

@@ -3,15 +3,18 @@ inter for an inter frame, wave, filter), fetch the packed output into the
 picture's host planes.
 
 Port of rav1d_tpu/engine/run2.py execute (with run2._stack and
-engine/inter.py dev_plane). Superres, the capture and trace switches, and
-the deferred batched fetch are not here: the port fetches each frame
-synchronously, so a decoded picture's planes are complete when the decoder
-hands it out.
+engine/inter.py dev_plane), for every bit depth and chroma layout, with
+superres (the filter program upscales into the geometry of f.sr_cur). The
+capture and trace switches and the deferred batched fetch are not here:
+the port fetches each frame synchronously, so a decoded picture's planes
+are complete when the decoder hands it out.
 
-Reference planes stay on the device. A picture the engine decoded keeps
-views of its packed uint8 output as its device planes; a picture the host
-path decoded (a fallback frame) has a host plane uploaded on first use and
-cached, each upload counted in engine.stats["ref_uploads"].
+Reference planes stay on the device, as uint8 at 8 bits and as int16 at
+10 and 12 bits (values up to 4095; torch.uint16 lacks indexing on some
+backends), which the host sees as its uint16 planes. A picture the engine
+decoded keeps views of its packed output as its device planes; a picture
+the host path decoded (a fallback frame) has a host plane uploaded on
+first use and cached, each upload counted in engine.stats["ref_uploads"].
 
 `stage_ms` accumulates the same stages as run2.stage_ms (pack, upload,
 programs, fetch) over the process, with "programs" also split into resid,
@@ -75,15 +78,17 @@ def dev_plane(pic, pl, device):
         cache = pic._dev_planes = {}
     if pl not in cache:
         host = np.ascontiguousarray((pic.y, pic.u, pic.v)[pl])
-        cache[pl] = torch.tensor(host, device=device)
+        if host.dtype == np.uint16:
+            host = host.view(np.int16)
+        cache[pl] = torch.from_numpy(host).to(device)
         stats["ref_uploads"] += 1
     return cache[pl]
 
 
 def stack_planes(srcs, device, shape):
     """The distinct reference planes [(picture, plane)] the packer named,
-    stacked in its order: (len(srcs), *shape) uint8 (one zero plane when
-    there are none, which no tile then reads)."""
+    stacked in its order: (len(srcs), *shape) (one zero plane when there
+    are none, which no tile then reads)."""
     rows = [dev_plane(pic, pl, device) for pic, pl in srcs]
     if not rows:
         return torch.zeros((1,) + tuple(shape), dtype=torch.uint8,
@@ -92,8 +97,8 @@ def stack_planes(srcs, device, shape):
 
 
 def execute(f, plan, up):
-    """Run the dense pass of an 8-bit 4:2:0 frame on the device of `up`
-    (an engine/blob.py Uploader) and write the result into f.sr_cur's host
+    """Run the dense pass of a frame on the device of `up` (an
+    engine/blob.py Uploader) and write the result into f.sr_cur's host
     planes. Returns False, having run nothing on the device, when the
     packer finds that an inter frame would overflow a pool (the caller
     runs the host path)."""
@@ -116,6 +121,10 @@ def execute(f, plan, up):
         ach, acw = out_pic.u.shape
     else:
         ach = acw = 0
+    s_ah, s_aw = out_pic.y.shape  # (ah, aw) without superres
+    sr_geom = None
+    if pack.need_sr:
+        sr_geom = (s_ah, s_aw, out_pic.w, out_pic.h, 4 * f.bw)
     m = _Marks(up.device)
     m.mark("start")
     dev, _cap = up.upload(pack, psz, bpc)
@@ -137,23 +146,26 @@ def execute(f, plan, up):
 
     geom = (ah, aw, ach, acw, f.bh, f.bw, f.cur.h)
     _, packed = P.filter_(planes, dev, hdr, geom=geom, bpc=bpc,
-                          layout_i=int(layout), lr_ws=pack.lr_ws)
+                          layout_i=int(layout), lr_ws=pack.lr_ws,
+                          sr_geom=sr_geom)
     m.mark("filter")
     # the output planes stay on the device as the picture's reference
     # planes: views of the packed output, the host planes' shapes
-    out_pic._dev_planes = {0: packed[:psz].view(ah, aw)}
+    spsz = s_ah * s_aw
+    csz = ach * acw
+    out_pic._dev_planes = {0: packed[:spsz].view(s_ah, s_aw)}
     if out_pic.u is not None:
-        csz = ach * acw
-        out_pic._dev_planes[1] = packed[psz : psz + csz].view(ach, acw)
-        out_pic._dev_planes[2] = packed[psz + csz :].view(ach, acw)
+        out_pic._dev_planes[1] = packed[spsz : spsz + csz].view(ach, acw)
+        out_pic._dev_planes[2] = packed[spsz + csz :].view(ach, acw)
     flat = packed.cpu().numpy()  # synchronous: the frame is complete here
     m.mark("fetch")
 
-    out_pic.y[:, :] = flat[:psz].reshape(ah, aw)
+    if bpc > 8:
+        flat = flat.view(np.uint16)
+    out_pic.y[:, :] = flat[:spsz].reshape(s_ah, s_aw)
     if out_pic.u is not None:
-        csz = ach * acw
-        out_pic.u[:, :] = flat[psz : psz + csz].reshape(ach, acw)
-        out_pic.v[:, :] = flat[psz + csz :].reshape(ach, acw)
+        out_pic.u[:, :] = flat[spsz : spsz + csz].reshape(ach, acw)
+        out_pic.v[:, :] = flat[spsz + csz :].reshape(ach, acw)
 
     sp = m.spans()
     rec = {

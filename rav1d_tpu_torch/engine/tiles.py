@@ -26,7 +26,7 @@ def _i16(a):
 
 
 def _gather(stack, srow, y0, nrow, x0, ncol, vw, vh):
-    """(N, nrow, ncol) int32 windows of the uint8 plane stack (S, H, W):
+    """(N, nrow, ncol) int32 windows of the plane stack (S, H, W):
     lane i reads plane srow[i] from (y0[i], x0[i]), rows clamped to
     [0, vh - 1] and columns to [0, vw - 1]."""
     d_ = stack.device

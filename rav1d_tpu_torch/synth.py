@@ -3,17 +3,18 @@
 An AV1 entropy decoder turns any byte string into a valid symbol sequence,
 so a frame whose uncompressed header is well formed and whose tile payload
 is random bytes is a valid picture that exercises whatever tools the header
-allows. `still_picture` writes the Section-5 OBUs of one 8-bit 4:2:0 key
-frame (temporal delimiter, sequence header, one frame OBU) with screen
-content tools (palette), filter intra, the intra edge filter, CDEF with
-eight nonzero strengths, switchable loop restoration on all three planes
-and TX_MODE_SELECT, so one frame carries every intra tool of the device
-engine's intra path; its options write frames outside the port's slice
-(high bit depth, superres), for the tests that check the port refuses
-them. `inter_sequence` writes a key frame and two inter frames that
-reach every inter tool of 4:2:0 (compound modes, OBMC, local and global
-warp, interintra, the bilinear filter); `key_then_inter` the plain
-single-reference case.
+allows. `still_picture` writes the Section-5 OBUs of one key frame
+(temporal delimiter, sequence header, one frame OBU) with screen content
+tools (palette), filter intra, the intra edge filter, CDEF with eight
+nonzero strengths, switchable loop restoration on every plane and
+TX_MODE_SELECT, so one frame carries every intra tool of the device
+engine's intra path. `inter_sequence` writes a key frame and two inter
+frames that reach every inter tool of the layout (compound modes, OBMC,
+local and global warp, interintra, the bilinear filter); `key_then_inter`
+the plain single-reference case. Both `still_picture` and
+`inter_sequence` take a bit depth (8, 10, 12), a chroma layout (4:0:0,
+4:2:0, 4:2:2, 4:4:4; the sequence header picks the profile) and
+superres; their defaults are 8-bit 4:2:0 without superres.
 
 This is test input, not a decoder feature: the oracle for a decode of
 these bytes is the reference decoder's host path.
@@ -22,6 +23,8 @@ these bytes is the reference decoder's host path.
 from __future__ import annotations
 
 import numpy as np
+
+from .headers import PixelLayout
 
 OBU_SEQ_HDR = 1
 OBU_TD = 2
@@ -117,9 +120,19 @@ def _tile_log2(sz, tgt):
     return k
 
 
-def _seq_header(w, h, *, reduced, bpc, superres, inter_tools=False):
+def _profile(bpc, layout):
+    """seq_profile for a bit depth and layout: 12 bits and 4:2:2 need
+    Professional, 4:4:4 High, the rest Main."""
+    if bpc == 12 or layout == PixelLayout.I422:
+        return 2
+    return 1 if layout == PixelLayout.I444 else 0
+
+
+def _seq_header(w, h, *, reduced, bpc, superres, layout=PixelLayout.I420,
+                inter_tools=False):
+    profile = _profile(bpc, layout)
     b = _Bits()
-    b.put(0, 3)  # seq_profile: Main (4:2:0, 8 or 10 bit)
+    b.put(profile, 3)  # seq_profile
     b.put(1 if reduced else 0, 1)  # still_picture
     b.put(1 if reduced else 0, 1)  # reduced_still_picture_header
     level = 8  # seq_level_idx 4.0: up to 2048x1152
@@ -160,21 +173,36 @@ def _seq_header(w, h, *, reduced, bpc, superres, inter_tools=False):
     b.put(1 if superres else 0, 1)  # enable_superres
     b.put(1, 1)  # enable_cdef
     b.put(1, 1)  # enable_restoration
-    b.put(1 if bpc == 10 else 0, 1)  # high_bitdepth
-    b.put(0, 1)  # mono_chrome
+    # color_config
+    b.put(1 if bpc > 8 else 0, 1)  # high_bitdepth
+    if profile == 2 and bpc > 8:
+        b.put(1 if bpc == 12 else 0, 1)  # twelve_bit
+    mono = layout == PixelLayout.I400
+    if profile != 1:
+        b.put(1 if mono else 0, 1)  # mono_chrome
     b.put(0, 1)  # color_description_present_flag
     b.put(0, 1)  # color_range
-    b.put(0, 2)  # chroma_sample_position
-    b.put(0, 1)  # separate_uv_delta_q
+    if not mono:
+        ss_x = 0 if layout == PixelLayout.I444 else 1
+        ss_y = 1 if layout == PixelLayout.I420 else 0
+        if profile == 2 and bpc == 12:
+            b.put(ss_x, 1)  # subsampling_x
+            if ss_x:
+                b.put(ss_y, 1)  # subsampling_y
+        if ss_x and ss_y:
+            b.put(0, 2)  # chroma_sample_position
+        b.put(0, 1)  # separate_uv_delta_q
     b.put(0, 1)  # film_grain_params_present
     b.trailing()
     return b.bytes()
 
 
-def _frame_tail(b, w, h, rng, *, key, q, intrabc=False, inter=None):
+def _frame_tail(b, w, h, rng, *, key, q, layout, intrabc=False, inter=None):
     """Everything from tile_info() to film_grain_params() (obu.py
-    parse_frame_hdr from _parse_tiling on), for 64x64 superblocks. With
-    intrabc the in-loop filter parameters are not coded; `inter` (a dict:
+    parse_frame_hdr from _parse_tiling on), for 64x64 superblocks. A 4:0:0
+    frame codes no chroma field (delta q, filter levels, CDEF strengths,
+    LR types). With intrabc the in-loop filter parameters are not coded;
+    `inter` (a dict:
     skip_mode None or the skip_mode_present bit, warped None or the
     allow_warped_motion bit, gmv the seven (type, params) of
     _put_gmv) writes an inter frame's compound, warp and global motion
@@ -192,17 +220,19 @@ def _frame_tail(b, w, h, rng, *, key, q, intrabc=False, inter=None):
         b.put(0, 1)  # increment_tile_cols_log2
     if max_log2_rows > 0:
         b.put(0, 1)  # increment_tile_rows_log2
+    chroma = layout != PixelLayout.I400
     # quantization_params
     b.put(q, 8)  # base_q_idx
     b.put(0, 1)  # DeltaQYDc
-    b.put(0, 1)  # DeltaQUDc
-    b.put(0, 1)  # DeltaQUAc
+    if chroma:
+        b.put(0, 1)  # DeltaQUDc
+        b.put(0, 1)  # DeltaQUAc
     b.put(0, 1)  # using_qmatrix
     b.put(0, 1)  # segmentation_enabled
     b.put(0, 1)  # delta_q_present
     if not intrabc:  # intra block copy turns the in-loop filters off
         # loop_filter_params: nonzero levels on every plane and direction
-        for lv in rng.integers(8, 40, size=4):
+        for lv in rng.integers(8, 40, size=4)[: 4 if chroma else 2]:
             b.put(int(lv), 6)
         b.put(int(rng.integers(0, 8)), 3)  # loop_filter_sharpness
         b.put(0, 1)  # loop_filter_delta_enabled
@@ -211,13 +241,16 @@ def _frame_tail(b, w, h, rng, *, key, q, intrabc=False, inter=None):
         b.put(3, 2)  # cdef_bits
         for _ in range(8):
             b.put(int(rng.integers(1, 64)), 6)  # cdef_y strength
-            b.put(int(rng.integers(1, 64)), 6)  # cdef_uv strength
-        # lr_params: switchable on all three planes
-        for _ in range(3):
+            uv = int(rng.integers(1, 64))
+            if chroma:
+                b.put(uv, 6)  # cdef_uv strength
+        # lr_params: switchable on every plane
+        for _ in range(3 if chroma else 1):
             b.put(1, 2)  # lr_type: RESTORE_SWITCHABLE
         b.put(1, 1)  # lr_unit_shift (64 -> 128)
         b.put(0, 1)  # lr_unit_extra_shift
-        b.put(1, 1)  # lr_uv_shift (4:2:0)
+        if layout == PixelLayout.I420:
+            b.put(1, 1)  # lr_uv_shift
     b.put(1, 1)  # tx_mode_select
     if inter is not None:
         b.put(1, 1)  # reference_select
@@ -264,7 +297,8 @@ def _skip_mode_allowed(ref_hints, cur):
 
 
 def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
-               refresh=0xFF, order_hint=None, intrabc=False):
+               layout=PixelLayout.I420, refresh=0xFF, order_hint=None,
+               intrabc=False):
     b = _Bits()
     if not reduced:
         b.put(0, 1)  # show_existing_frame
@@ -297,7 +331,7 @@ def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
         b.put(0, 1)  # is_motion_mode_switchable
     if not reduced:
         b.put(0, 1)  # disable_frame_end_update_cdf
-    _frame_tail(b, w, h, rng, key=key, q=q, intrabc=intrabc)
+    _frame_tail(b, w, h, rng, key=key, q=q, layout=layout, intrabc=intrabc)
     b.align()  # byte_alignment() before the tile group
     # tile_group_obu with one tile: no tile_start_and_end_present_flag;
     # the last tile's data runs to the end of the OBU
@@ -305,16 +339,25 @@ def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
     return _obu(OBU_FRAME, b.bytes() + tile)
 
 
-def still_picture(w, h, seed, *, bpc=8, superres=False):
+def still_picture(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
+                  superres=False):
     """One temporal unit: TD + sequence header + one key frame OBU whose
     tile payload is `numpy.random.default_rng(seed)` bytes, about one byte
-    per two pixels (random symbols consume more than real ones)."""
+    per two pixels (random symbols consume more than real ones). `bpc` is
+    8, 10 or 12, `layout` a headers.PixelLayout; `superres` codes the
+    frame at 8/9 of its width and upscales it."""
     rng = np.random.default_rng(seed)
     q = int(rng.integers(60, 160))
-    seq = _seq_header(w, h, reduced=True, bpc=bpc, superres=superres)
+    seq = _seq_header(w, h, reduced=True, bpc=bpc, superres=superres,
+                      layout=layout)
+    payload = max(w * h // 2, 256)
     frame = _frame_obu(w, h, rng, reduced=True, key=True, q=q,
-                       payload_bytes=max(w * h // 2, 256), superres=superres)
-    return _obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + frame
+                       payload_bytes=payload, superres=superres,
+                       layout=layout)
+    data = _obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + frame
+    if layout == PixelLayout.I422:
+        (data,) = _fit_422([data], payload, seed)
+    return data
 
 
 def key_then_inter(w, h, seed):
@@ -332,11 +375,14 @@ def key_then_inter(w, h, seed):
 
 
 def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
-                     refidx, slot_hints, error_resilient, filt, gmv):
+                     refidx, slot_hints, error_resilient, filt, gmv, layout,
+                     superres=None):
     """An inter frame of inter_sequence: no primary reference frame,
     switchable motion modes, reference_select, `filt` the frame's
     interpolation filter (None: switchable per block), `gmv` seven
-    _put_gmv arguments, `slot_hints` the order hints of the eight slots."""
+    _put_gmv arguments, `slot_hints` the order hints of the eight slots,
+    `superres` None where the sequence disables superres, else the
+    frame's use_superres."""
     b = _Bits()
     b.put(0, 1)  # show_existing_frame
     b.put(1, 2)  # frame_type: INTER
@@ -355,6 +401,10 @@ def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
     b.put(0, 1)  # frame_refs_short_signaling
     for r in refidx:
         b.put(r, 3)  # ref_frame_idx
+    if superres is not None:
+        b.put(1 if superres else 0, 1)  # use_superres
+        if superres:
+            b.put(0, 3)  # coded_denom: 9/8
     b.put(0, 1)  # render_and_frame_size_different
     b.put(1, 1)  # allow_high_precision_mv
     if filt is None:
@@ -365,7 +415,7 @@ def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
     b.put(1, 1)  # is_motion_mode_switchable
     b.put(0, 1)  # disable_frame_end_update_cdf
     skip = _skip_mode_allowed([slot_hints[r] for r in refidx], order_hint)
-    _frame_tail(b, w, h, rng, key=False, q=q, inter=dict(
+    _frame_tail(b, w, h, rng, key=False, q=q, layout=layout, inter=dict(
         skip_mode=1 if skip else None,
         warped=None if error_resilient else 1, gmv=gmv))
     b.align()
@@ -373,11 +423,11 @@ def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
     return _obu(OBU_FRAME, b.bytes() + tile)
 
 
-def inter_sequence(w, h, seed, *, intrabc=False):
-    """Three temporal units at 8 bits 4:2:0 with every inter tool that
-    4:2:0 reaches: the sequence header turns on interintra, masked
-    compound, warped motion, dual filter and order hints with
-    distance-weighted compound. Then
+def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
+                   superres=False, intrabc=False):
+    """Three temporal units with every inter tool of the layout: the
+    sequence header turns on interintra, masked compound, warped motion,
+    dual filter and order hints with distance-weighted compound. Then
 
     - a key frame (order hint 0; with `intrabc`, intra block copy is
       allowed, which sends it to the host path of the engine);
@@ -389,30 +439,122 @@ def inter_sequence(w, h, seed, *, intrabc=False):
       references mixing frame 1 (slots 0-3) and the key frame (4-7), skip
       mode present.
 
+    `bpc` is 8, 10 or 12 and `layout` a headers.PixelLayout. With
+    `superres` the key frame is coded at 8/9 of its width and upscaled,
+    frames 1 and 2 are not, and a fourth temporal unit follows: inter
+    frame 3 (hint 3), coded with superres, so that every reference it
+    reads is scaled (which sends it to the host path of the engine).
+
     Tile payloads are `numpy.random.default_rng(seed)` bytes."""
     rng = np.random.default_rng(seed)
     payload = max(w * h // 2, 256)
-    seq = _seq_header(w, h, reduced=False, bpc=8, superres=False,
-                      inter_tools=True)
+    seq = _seq_header(w, h, reduced=False, bpc=bpc, superres=superres,
+                      layout=layout, inter_tools=True)
     key = _frame_obu(w, h, rng, reduced=False, key=True,
                      q=int(rng.integers(60, 160)), payload_bytes=payload,
-                     superres=False, order_hint=0, intrabc=intrabc)
+                     superres=superres, layout=layout, order_hint=0,
+                     intrabc=intrabc)
+    sr = False if superres else None
     ident = ("identity", ())
     gmv1 = [("rotzoom", (-70, 45, 60, -25)), ident, ident, ident,
             ("rotzoom", (33, -20, -40, 30)), ident, ident]
     f1 = _inter_frame_obu(w, h, rng, q=int(rng.integers(60, 160)),
                           payload_bytes=payload, order_hint=1, refresh=0x0F,
                           refidx=(0, 1, 2, 3, 4, 5, 6), slot_hints=[0] * 8,
-                          error_resilient=0, filt=None, gmv=gmv1)
+                          error_resilient=0, filt=None, gmv=gmv1,
+                          layout=layout, superres=sr)
     gmv2 = [ident, ("rotzoom", (50, 20, -30, -45)), ident, ident, ident,
             ident, ident]
     f2 = _inter_frame_obu(w, h, rng, q=int(rng.integers(60, 160)),
                           payload_bytes=payload, order_hint=2, refresh=0x00,
                           refidx=(0, 4, 1, 5, 2, 6, 3),
                           slot_hints=[1, 1, 1, 1, 0, 0, 0, 0],
-                          error_resilient=1, filt=BILINEAR, gmv=gmv2)
-    return [_obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + key,
-            _obu(OBU_TD, b"") + f1, _obu(OBU_TD, b"") + f2]
+                          error_resilient=1, filt=BILINEAR, gmv=gmv2,
+                          layout=layout, superres=sr)
+    out = [_obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + key,
+           _obu(OBU_TD, b"") + f1, _obu(OBU_TD, b"") + f2]
+    if superres:
+        f3 = _inter_frame_obu(w, h, rng, q=int(rng.integers(60, 160)),
+                              payload_bytes=payload, order_hint=3,
+                              refresh=0x00, refidx=(0, 4, 1, 5, 2, 6, 3),
+                              slot_hints=[1, 1, 1, 1, 0, 0, 0, 0],
+                              error_resilient=1, filt=None, gmv=[ident] * 7,
+                              layout=layout, superres=True)
+        out.append(_obu(OBU_TD, b"") + f3)
+    if layout == PixelLayout.I422:
+        out = _fit_422(out, payload, seed)
+    return out
+
+
+def _fit_422(packets, payload, seed):
+    """Make random tiles valid 4:2:2: a 4:2:2 stream may not split a block
+    vertically only (PARTITION_V, V4 and the T splits with a vertical
+    cut), and random bytes decode such partitions often. Each packet
+    ends in its one tile's `payload` bytes; parse the packets in order on
+    the host path's syntax pass and, where a partition symbol is refused,
+    redraw the tile bytes that symbol's decision read (the 16 stream bits
+    below the range decoder's window after it), until the packet parses.
+    The decisions before it read earlier bits and stay as they were."""
+    from .decoder import DecodeError, Decoder, EAgain, Settings
+
+    class _Syntax(Decoder):
+        def _decode_dense(self, f):
+            pass
+
+    rng = np.random.default_rng([seed, 422])
+    dec = _Syntax(Settings(apply_grain=False, logger=lambda msg: None),
+                  host_path=True)
+    out = []
+    for data in packets:
+        data = bytearray(data)
+        base = len(data) - payload
+        for _ in range(100000):
+            try:
+                dec.send_data(bytes(data))
+                break
+            except DecodeError as e:
+                if "4:2:2" not in str(e):
+                    raise
+                pos, cnt = _msac_at(e.__cause__)
+                b = 8 * pos - cnt - 15  # stream bit at the window's top
+                lo = base + max((b - 16) // 8, 0)
+                hi = min(base + (b - 1) // 8 + 1, len(data))
+                data[lo:hi] = rng.integers(0, 256, size=hi - lo,
+                                           dtype=np.uint8).tobytes()
+        else:
+            raise RuntimeError("no valid 4:2:2 tile found")
+        try:
+            dec.get_picture()
+        except EAgain:
+            pass
+        out.append(bytes(data))
+    return out
+
+
+def _msac_at(exc):
+    """(bytes read, window count) of the range decoder of the tile whose
+    syntax pass raised `exc`: the innermost frame of its traceback with a
+    tile state `ts` (recon/frame.py decode_frame_syntax)."""
+    state = None
+    tb = exc.__traceback__
+    while tb is not None:
+        ts = tb.tb_frame.f_locals.get("ts")
+        if ts is not None and hasattr(ts, "msac"):
+            state = getattr(ts.msac, "_s", ts.msac)
+        tb = tb.tb_next
+    return int(state.pos), int(state.cnt)
+
+
+def smoke_stream(digests, name):
+    """The packets of entry `name` of smoke_digests.json's "formats": a
+    still_picture or an inter_sequence at the file's picture size, with the
+    entry's seed, bit depth and layout."""
+    e = digests["formats"][name]
+    args = (digests["width"], digests["height"], e["seed"])
+    kw = dict(bpc=e["bpc"], layout=PixelLayout[e["layout"]])
+    if e["kind"] == "inter_sequence":
+        return inter_sequence(*args, **kw)
+    return [still_picture(*args, **kw)]
 
 
 def picture_md5(pic):
@@ -443,11 +585,12 @@ def decode_md5s(dec, packets, eagain=None):
     return out
 
 
-def capture_frames(packets):
+def capture_frames(packets, md5s=None):
     """Decode on the port's host path and return each frame's context as
     its dense pass starts (syntax done, work items materialized), with the
-    planner's plan: [(f, plan)]. Each frame's dense pass then runs on the
-    host as usual."""
+    planner's plan (None where the planner sends the frame to the host):
+    [(f, plan)]. Each frame's dense pass then runs on the host as usual;
+    the pictures' MD5s are appended to the list `md5s` if one is given."""
     from .decoder import Decoder, Settings
     from .engine.plan import build_plan
     from .recon.frame import materialize_work_items
@@ -460,7 +603,10 @@ def capture_frames(packets):
             got.append((f, build_plan(f._dense_args[0], f)))
             super()._decode_dense(f)
 
-    decode_md5s(_Capture(Settings(apply_grain=False), host_path=True), packets)
+    out = decode_md5s(_Capture(Settings(apply_grain=False), host_path=True),
+                      packets)
+    if md5s is not None:
+        md5s += out
     return got
 
 

@@ -6,11 +6,11 @@ decode through the port's Decoder with device="cpu" (every program, with
 the kernels' plain versions) to the same MD5 as the rav1d_tpu host path,
 with every frame on the engine and no fallback. A key frame that uses
 intra block copy goes to the host path, and the engine's inter frames then
-predict from its uploaded planes. Frames outside the slice (10-bit,
-superres) raise NotImplementedError. Where the dav1d test vectors exist,
-two conformance streams are held to their meson MD5s and the first frames
-of the bench's inter stream to the port's host path; elsewhere those tests
-skip.
+predict from its uploaded planes. (The other bit depths, layouts and
+superres: tests/test_torch_formats.py.) Where the dav1d test vectors
+exist, two conformance streams are held to their meson MD5s and the first
+frames of the bench's inter stream and of its 10-bit stream to the port's
+host path; elsewhere those tests skip.
 """
 
 import os
@@ -121,18 +121,6 @@ def test_host_path_frame_feeds_engine_frames():
     assert T.engine.stats["ref_uploads"] - before["ref_uploads"] == 3
 
 
-@pytest.mark.parametrize("kind", ["10bit", "superres"])
-def test_outside_slice_raises(kind):
-    packets = {
-        "10bit": lambda: [synth.still_picture(96, 64, 1, bpc=10)],
-        "superres": lambda: [synth.still_picture(96, 64, 1, superres=True)],
-    }[kind]()
-    assert len(_host(packets)) == len(packets)  # valid streams
-    dec = T.Decoder(T.Settings(apply_grain=False), device="cpu")
-    with pytest.raises(NotImplementedError):
-        synth.decode_md5s(dec, packets)
-
-
 VECTORS = [
     ("8-bit/issues/324_tennis.ivf", "53a0ba36b3a3656e6a12efb358d71f9e"),
     ("8-bit/issues/320_tennis.ivf", "86e9c91b80bb738693c3781e728fd7f5"),
@@ -174,27 +162,38 @@ def test_conformance_vectors(rel, md5):
 
 BENCH_STREAM = "8-bit/data/00000627.ivf"  # bench.py's primary stream
 BENCH_FRAMES = 8
+# bench.py's 1080p_10bit stream, where the JAX engine differs from its own
+# host path on frame 1 (CONFORMANCE.md)
+TEN_BIT_STREAM = "10-bit/issues/318_tx_4x4.ivf"
 
 
-def test_bench_stream_first_frames():
-    """The first frames of the bench's 320x240 inter stream on the engine
-    equal the port's host path, every frame on the engine."""
+def _first_frames_match_host_path(rel, n):
+    """The first n pictures of a vector on the engine equal the port's
+    host path, every frame on the engine."""
     d = _data_dir()
-    if d is None or not os.path.exists(os.path.join(d, BENCH_STREAM)):
+    if d is None or not os.path.exists(os.path.join(d, rel)):
         pytest.skip("dav1d-test-data not present")
     from rav1d_tpu_torch.io.ivf import IvfDemuxer
 
-    packets = [pkt.data for pkt in IvfDemuxer(os.path.join(d, BENCH_STREAM))]
+    packets = [pkt.data for pkt in IvfDemuxer(os.path.join(d, rel))]
     want, packets_used = [], []
     host = T.Decoder(T.Settings(apply_grain=False), host_path=True)
     for data in packets:
-        if len(want) >= BENCH_FRAMES:
+        if len(want) >= n:
             break
         packets_used.append(data)
         want += synth.decode_md5s(host, [data])
     before = dict(T.engine.stats)
     got = synth.decode_md5s(
         T.Decoder(T.Settings(apply_grain=False), device="cpu"), packets_used)
-    assert got == want and len(got) >= BENCH_FRAMES
+    assert got == want and len(got) >= n
     assert T.engine.stats["frames"] > before["frames"]
     assert T.engine.stats["fallback"] == before["fallback"]
+
+
+def test_bench_stream_first_frames():
+    _first_frames_match_host_path(BENCH_STREAM, BENCH_FRAMES)
+
+
+def test_ten_bit_stream_first_frames():
+    _first_frames_match_host_path(TEN_BIT_STREAM, 2)

@@ -37,6 +37,7 @@ import pytest
 import rav1d_tpu
 import rav1d_tpu_torch as T
 from rav1d_tpu_torch import synth
+from rav1d_tpu_torch.headers import PixelLayout as PL
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "rav1d_tpu_torch")
@@ -240,6 +241,21 @@ STREAMS = {
     "inter-sequence": lambda: synth.inter_sequence(96, 64, 1),
     "inter-sequence-intrabc": lambda: synth.inter_sequence(96, 64, 1,
                                                            intrabc=True),
+    "still-8bit-444": lambda: [synth.still_picture(96, 64, 3,
+                                                   layout=PL.I444)],
+    "still-10bit-422": lambda: [synth.still_picture(96, 64, 4, bpc=10,
+                                                    layout=PL.I422)],
+    "still-12bit-400": lambda: [synth.still_picture(96, 64, 5, bpc=12,
+                                                    layout=PL.I400)],
+    "still-12bit-420": lambda: [synth.still_picture(96, 64, 6, bpc=12)],
+    "inter-sequence-10bit-422": lambda: synth.inter_sequence(
+        96, 64, 1, bpc=10, layout=PL.I422),
+    "inter-sequence-12bit-444": lambda: synth.inter_sequence(
+        96, 64, 2, bpc=12, layout=PL.I444),
+    "inter-sequence-10bit-400": lambda: synth.inter_sequence(
+        96, 64, 3, bpc=10, layout=PL.I400),
+    "inter-sequence-superres": lambda: synth.inter_sequence(
+        96, 64, 1, superres=True),
 }
 
 
@@ -311,13 +327,18 @@ with open(os.path.join(PORT, "smoke_digests.json")) as _fh:
     DIGESTS = json.load(_fh)
 
 
-@pytest.mark.parametrize("seed", sorted(DIGESTS["md5"]) + ["inter"])
+@pytest.mark.parametrize("seed", sorted(DIGESTS["md5"]) + ["inter"]
+                         + sorted(DIGESTS["formats"]))
 def test_smoke_digests_are_the_reference_host_paths(seed):
     if seed == "inter":  # synth.inter_sequence: one MD5 per frame
         inter = DIGESTS["inter"]
         packets = synth.inter_sequence(DIGESTS["width"], DIGESTS["height"],
                                        inter["seed"])
         assert ref_md5s(packets) == inter["md5"]
+        return
+    if seed in DIGESTS["formats"]:  # synth.smoke_stream's other formats
+        packets = synth.smoke_stream(DIGESTS, seed)
+        assert ref_md5s(packets) == DIGESTS["formats"][seed]["md5"]
         return
     data = synth.still_picture(DIGESTS["width"], DIGESTS["height"], int(seed))
     assert ref_md5s([data]) == [DIGESTS["md5"][seed]]

@@ -49,7 +49,7 @@ def _edges(rng, CW, CH, bpc, reps=2):
 
 
 @pytest.mark.parametrize("CW,CH", [(16, 16), (64, 64)])
-@pytest.mark.parametrize("bpc", [8, 10])
+@pytest.mark.parametrize("bpc", [8, 10, 12])
 def test_base_modes(CW, CH, bpc):
     rng = np.random.default_rng(CW + bpc)
     edge, w, h = _edges(rng, CW, CH, bpc)
@@ -73,7 +73,7 @@ def _angles(rng, n, lo, hi):
 
 
 @pytest.mark.parametrize("CW,CH", [(16, 16), (64, 64)])
-@pytest.mark.parametrize("bpc", [8, 10])
+@pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("z", ["z1", "z2", "z3"])
 def test_z_modes(CW, CH, bpc, z):
     rng = np.random.default_rng(CW * 7 + bpc + ord(z[1]))
@@ -99,15 +99,21 @@ def test_z_modes(CW, CH, bpc, z):
     _eq(got, ref)
 
 
+# (ext, bpc); the 8-bit cases keep the ids they had before 10 and 12
+EXT_BPC = [(e, b) for b in (8, 10, 12) for e in (None, 32)]
+
+
 @pytest.mark.parametrize("CW,CH", [(16, 16), (64, 64)])
-@pytest.mark.parametrize("ext", [None, 32])
-def test_filter_intra(CW, CH, ext):
-    rng = np.random.default_rng(CW)
-    bpc = 8
+@pytest.mark.parametrize(
+    "ext,bpc", EXT_BPC,
+    ids=[str(e) if b == 8 else "%s-%dbit" % (e, b) for e, b in EXT_BPC])
+def test_filter_intra(CW, CH, ext, bpc):
+    rng = np.random.default_rng(CW + bpc - 8)
     cases = [(w, h) for w in (4, 8, 16, 32) for h in (4, 8, 16, 32)
              if w <= CW and h <= CH]
     C = 2 * CH
-    edge = rng.integers(0, 256, (len(cases), 2 * CH + 1 + 2 * CW)).astype(np.int32)
+    edge = rng.integers(0, 1 << bpc, (len(cases), 2 * CH + 1 + 2 * CW)
+                        ).astype(np.int32)
     w = np.array([c[0] for c in cases], np.int32)
     h = np.array([c[1] for c in cases], np.int32)
     fi = rng.integers(0, 5, len(cases)).astype(np.int32)
@@ -174,13 +180,19 @@ def test_find_dir(bpc):
     _eq(gv, rv)
 
 
-@pytest.mark.parametrize("hw", [(8, 8), (4, 4), (8, 4)])
-def test_cdef_filter(hw):
+# (h, w, bpc); the 8-bit cases keep the ids they had before 10 and 12
+HW_BPC = [(h, w, b) for b in (8, 10, 12) for h, w in ((8, 8), (4, 4), (8, 4))]
+
+
+@pytest.mark.parametrize(
+    "hw,bpc", [((h, w), b) for h, w, b in HW_BPC],
+    ids=["hw%d" % (i % 3) if b == 8 else "%dx%d-%dbit" % (h, w, b)
+         for i, (h, w, b) in enumerate(HW_BPC)])
+def test_cdef_filter(hw, bpc):
     h, w = hw
-    rng = np.random.default_rng(h * 10 + w)
-    bpc = 8
+    rng = np.random.default_rng(h * 10 + w + bpc - 8)
     N = 96
-    tiles = rng.integers(0, 256, (N, h + 4, w + 4)).astype(np.int32)
+    tiles = rng.integers(0, 1 << bpc, (N, h + 4, w + 4)).astype(np.int32)
     for n in range(N):
         if n % 3 == 0:
             tiles[n, :2, :] = TC.MISSING
@@ -188,8 +200,9 @@ def test_cdef_filter(hw):
             tiles[n, :, :2] = TC.MISSING
         if n % 5 == 0:
             tiles[n, -2:, :] = TC.MISSING
-    pri = rng.integers(0, 16, N).astype(np.int32)
-    sec = np.asarray([0, 1, 2, 4] * (N // 4), np.int32)
+    # strengths are scaled by the bit depth (cdef_apply.rs)
+    pri = (rng.integers(0, 16, N) << (bpc - 8)).astype(np.int32)
+    sec = np.asarray([0, 1, 2, 4] * (N // 4), np.int32) << (bpc - 8)
     pri[::7] = 0
     direction = rng.integers(0, 8, N).astype(np.int32)
     damping = rng.integers(3, 7, N).astype(np.int32)

@@ -103,16 +103,18 @@ def ref_capture(packets):
 
 
 def run2_pack(f, plan):
-    """run2.execute's packing half on a rav1d_tpu frame (8 bpc, no
-    superres): (hdr, blob, lr_ws, srcs), srcs the inter packer's
-    (srcsY, srcsC) (None on an intra frame)."""
+    """run2.execute's packing half on a rav1d_tpu frame: (hdr, blob,
+    lr_ws, srcs), srcs the inter packer's (srcsY, srcsC) (None on an
+    intra frame)."""
     ah, aw = plan.ah, plan.aw
     psz = ah * aw
     store = f.coef_store
     hdr = np.zeros(J2.HDR_LEN, np.int32)
     blob = RefFrameBlob(J2.HDR_LEN)
     if store.tx_pos:
-        hdr[J2.CF0] = blob.add_i16(store.cf[: store.cf_pos])
+        cf = store.cf[: store.cf_pos]
+        hdr[J2.CF0] = (blob.add_i16(cf) if f.cur.bpc == 8
+                       else blob.add_words(cf))
     J2._pack_residuals(blob, hdr, store, plan, psz, aw)
     srcs = None
     if plan.inter is not None:
@@ -122,6 +124,10 @@ def run2_pack(f, plan):
     J2._pack_wave(blob, hdr, plan, psz, aw)
     J2._pack_deblock(f, blob, hdr)
     J2._pack_cdef(f, blob, hdr)
+    if f.frame_hdr.size.width[0] != f.frame_hdr.size.width[1]:
+        for ci in range(2):
+            hdr[J2.SR0 + 2 * ci] = f.resize_step[ci]
+            hdr[J2.SR0 + 2 * ci + 1] = f.resize_start[ci]
     lr_ws = J2._pack_lr(f, blob, hdr)
     return hdr, blob, lr_ws, srcs
 
@@ -152,7 +158,8 @@ def test_pack_matches_run2(w, h, seed):
 
     psz = plan.ah * plan.aw
     dev, cap = Uploader("cpu").upload(pk, psz, 8)
-    assert det_cap_words(psz, 8) == J2.det_cap_words(psz, 8)
+    for bpc in (8, 10, 12):  # word coefficients above 8 bits: twice the cap
+        assert det_cap_words(psz, bpc) == J2.det_cap_words(psz, bpc)
     assert cap == bucket_pow2(max(blob.pos, hdr.size, J2.det_cap_words(psz, 8)))
     got = dev.numpy()
     np.testing.assert_array_equal(got[: blob.pos], pk.words())

@@ -10,8 +10,9 @@ the column-by-column source order, the clamped coefficient reads, lanes
 past the filled count left alone and the drop rule for destinations
 outside `ra`.
 
-Blobs: seeded synthetic pictures packed by the port (8 bpc; they carry
-12-15 of the 19 sizes each), and blobs written here with every size and
+Blobs: seeded synthetic pictures packed by the port (8 bpc, and 10/12 bpc
+with word coefficients in each layout; they carry 12-15 of the 19 sizes
+each), and blobs written here with every size and
 the WHT at 8 and 10/12 bpc, several chunks per class, odd, negative and
 past-the-end coefficient offsets and destinations partly or wholly
 outside `ra`. Tolerance: exact.
@@ -28,6 +29,7 @@ from rav1d_tpu_torch.engine.layout import (
     CF0, HDR_LEN, R0, SIZES, WHT0, WHT_B, chunk_for,
 )
 from rav1d_tpu_torch.engine.pack import pack_frame
+from rav1d_tpu_torch.headers import PixelLayout as PL
 from rav1d_tpu_torch.ops.cuda import itx as cuda_itx
 from test_torch_itx import build_host_itx, run_host
 
@@ -43,14 +45,25 @@ def _kernel_ra(lib, dev, hdr, tx_valid, ah, aw, bpc):
     return ra
 
 
-@pytest.mark.parametrize("seed", [1, 3, 4, 5, 6, 7])
-def test_frame_entry_matches_resid_plain_on_packed_blobs(host_itx, seed):
-    (f, plan), = synth.capture_frames([synth.still_picture(256, 128, seed)])
+# (seed, bpc, layout); the 8-bit cases keep their ids (the seed)
+PACKED = [(s, 8, PL.I420) for s in (1, 3, 4, 5, 6, 7)] + [
+    (2, 10, PL.I420), (3, 12, PL.I444), (4, 10, PL.I422), (5, 12, PL.I400)]
+
+
+@pytest.mark.parametrize(
+    "seed,bpc,layout", PACKED,
+    ids=[str(s) if b == 8 else "%dbit-%s-%d" % (b, l.name, s)
+         for s, b, l in PACKED])
+def test_frame_entry_matches_resid_plain_on_packed_blobs(host_itx, seed, bpc,
+                                                         layout):
+    (f, plan), = synth.capture_frames([synth.still_picture(
+        256, 128, seed, bpc=bpc, layout=layout)])
     pk = pack_frame(f, plan)
-    dev, _ = Uploader("cpu").upload(pk, plan.ah * plan.aw, 8)
+    dev, _ = Uploader("cpu").upload(pk, plan.ah * plan.aw, bpc)
     ref, _ = P.resid_plain(dev, pk.hdr, pk.tx_valid, ah=plan.ah, aw=plan.aw,
-                           bpc=8)
-    got = _kernel_ra(host_itx, dev, pk.hdr, pk.tx_valid, plan.ah, plan.aw, 8)
+                           bpc=bpc)
+    got = _kernel_ra(host_itx, dev, pk.hdr, pk.tx_valid, plan.ah, plan.aw,
+                     bpc)
     assert ref.any() and len(pk.tx_valid) >= 2
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
 
