@@ -1,7 +1,7 @@
 """Drive rav1d_tpu_torch's intra and inter paths, at every bit depth and
 chroma layout and with superres, once on a CUDA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--test-data DIR]
 
 Phases (any failure exits non-zero before the last line):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
@@ -41,16 +41,32 @@ itx launch per engine frame and no call of the plain transforms
    tiles), 4:4:4 (segy00) and 4:0:0, and an 8-bit superres inter sequence,
    whose fourth frame the planner sends to the host path (scaled
    references);
-7. timing: on the blobs of phases 3 and 5, the frame launch and
+7. headers: at 640x360, an 8-bit and a 10-bit sequence with the header
+   tools of synth.Tools on (2x2 tiles, segmentation with a lossless
+   segment, so the frame blobs carry WHT blocks, delta q and delta lf,
+   loop filter deltas, TX_MODE_LARGEST with the reduced transform set;
+   128-px superblocks in the 8-bit one, 64-px LR units in the 10-bit
+   one), no frame falling back;
+8. residual: the multi-device residual (parallel/resid.py) on an NCCL
+   process group of one rank (file:// init) over the first still
+   picture's captured coefficient store: sharded_residual_plane, one itx
+   launch per non-WHT size group and no plain transform call, must equal
+   single_device_residual_plane (the plain transforms on the card); both
+   timed with CUDA events beside the frame's resid program;
+9. CLI: rav1d_tpu_torch.cli.main(["-i", <a 640x360 IVF file of an 8-bit
+   inter sequence>, "--verify", <its host-path MD5>, "--frametimes",
+   <file>]) in process must return 0, with one itx launch per frame; the
+   per-frame times are printed;
+10. timing: on the blobs of phases 3 and 5, the frame launch and
    resid_plain (CUDA events), and torch.profiler windows over resid calls
    and over each class of the frame launched alone, which give the
    kernel's device time apart from its launch;
-8. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
+11. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
    entry point driven once at N=16384 with the launch count reset before
    and read after, then the kernel against idct8x8_batch_plain,
    bit-identical at N=256 for bpc 8/10/12 (1/8 of the blocks full-range
    int32) and at N=16384, where both are timed;
-9. vectors: where $RAV1D_TEST_DATA names a dav1d-test-data directory,
+12. vectors: with `--test-data DIR` naming a dav1d-test-data directory,
    two conformance streams against their meson MD5s, and the first frames
    of the bench's inter stream (16) and of its 10-bit stream
    318_tx_4x4.ivf (8, bench.py's frame limit) against the port's host
@@ -244,7 +260,8 @@ def slice_phase(dev):
     """The main path: synthetic 1080p still pictures through
     stream_on_card, held to their committed digests, after the decode of
     a small picture (CUDA context, lazy module loads). Returns (itx
-    launches, max |err| of ra, the frames' blobs)."""
+    launches, max |err| of ra, the frames' blobs, the first picture's
+    captured [(f, plan)])."""
     import torch
 
     import rav1d_tpu_torch as T
@@ -258,14 +275,16 @@ def slice_phase(dev):
                       [synth.still_picture(256, 128, 7)])
     torch.cuda.synchronize()
     launches = worst = 0
-    blobs = []
+    blobs, captured = [], []
     for s in SEEDS:
-        n, err, _ = stream_on_card(dev, f"still seed {s} {W}x{H}",
-                                   [synth.still_picture(W, H, s)],
-                                   want=[digests["md5"][str(s)]], blobs=blobs)
+        n, err, frames = stream_on_card(dev, f"still seed {s} {W}x{H}",
+                                        [synth.still_picture(W, H, s)],
+                                        want=[digests["md5"][str(s)]],
+                                        blobs=blobs)
         launches += n
         worst = max(worst, err)
-    return launches, worst, blobs
+        captured.append(frames)
+    return launches, worst, blobs, captured[0]
 
 
 def inter_phase(dev):
@@ -592,6 +611,138 @@ def formats_phase(dev):
     return launches, worst
 
 
+def headers_phase(dev):
+    """The header tools of synth.Tools at 640x360 through stream_on_card:
+    an 8-bit sequence with 128-px superblocks and a 10-bit sequence with
+    64-px LR units, both with 2x2 tiles, segmentation (a lossless segment:
+    WHT blocks must reach the frame blobs), delta q and delta lf, loop
+    filter deltas and TX_MODE_LARGEST with the reduced transform set; no
+    frame may fall back. Returns the itx launches and the max |err| of
+    ra."""
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine.pack import pack_frame
+    from rav1d_tpu_torch.synth import Tools
+
+    common = dict(tiles=(1, 1), segmentation=True, delta_q=True,
+                  lf_deltas=True, tx_mode_largest=True)
+    streams = [
+        ("headers 8-bit sb128", synth.inter_sequence(
+            FMT_W, FMT_H, 6, tools=Tools(sb128=True, delta_lf_multi=True,
+                                         **common))),
+        ("headers 10-bit lr64", synth.inter_sequence(
+            FMT_W, FMT_H, 7, bpc=10,
+            tools=Tools(lr_unit_shift=0, **common))),
+    ]
+    launches = worst = 0
+    for label, packets in streams:
+        n, err, frames = stream_on_card(dev, f"{label} {FMT_W}x{FMT_H}",
+                                        packets)
+        launches += n
+        worst = max(worst, err)
+        wht = sum(pack_frame(f, plan).tx_valid.get("wht", 0)
+                  for f, plan in frames)
+        tiling = {(f.frame_hdr.tiling.cols, f.frame_hdr.tiling.rows)
+                  for f, _ in frames}
+        log(f"  {label}: {wht} WHT blocks, tiles {sorted(tiling)}")
+        if not wht or tiling != {(2, 2)}:
+            raise AssertionError(f"{label}: no WHT block or not 2x2 tiles")
+    return launches, worst
+
+
+def residual_phase(dev, frames, tmp):
+    """The multi-device residual on an NCCL process group of one rank
+    over the captured coefficient store of `frames` (one picture's
+    [(f, plan)]): sharded_residual_plane must make one itx launch per
+    non-WHT size group and no plain transform call, and equal
+    single_device_residual_plane (plain transforms, on the card). Times
+    (CUDA events): the sharded call, the single-device oracle, and the
+    frame's resid program on its blob (what stage_ms.resid measures).
+    Returns (itx launches, max |err|)."""
+    import torch
+    import torch.distributed as dist
+
+    from rav1d_tpu_torch.engine import kernels
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.blob import Uploader
+    from rav1d_tpu_torch.engine.pack import pack_frame
+    from rav1d_tpu_torch.ops.cuda import itx as I
+    from rav1d_tpu_torch.parallel import resid as R
+
+    (f, plan), = frames
+    store = f.coef_store
+    ah, aw = f.cur.y.shape
+    psz, bpc = ah * aw, f.cur.bpc
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "nccl_init"), world_size=1, rank=0)
+    try:
+        groups = R.group_residuals(store, psz, aw, 1)
+        cf = torch.from_numpy(store.cf[: store.cf_pos].copy()).to(dev)
+        torch.cuda.synchronize()
+        I.launches = 0
+        kernels.calls = 0
+        got = R.sharded_residual_plane(cf, groups, psz, aw, bpc)
+        torch.cuda.synchronize()
+        launches, calls = I.launches, kernels.calls
+        want = R.single_device_residual_plane(cf, groups, psz, aw, bpc)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        lanes = sum(int((g[3] < 3 * psz).sum()) for g in groups)
+        log(f"residual: NCCL world 1, {lanes} blocks in {len(groups)} size "
+            f"groups (WHT left out); itx launches {launches}, plain "
+            f"transform calls {calls}, max |err| {err}")
+        if calls or launches != len(groups) or not torch.equal(got, want):
+            raise AssertionError("sharded_residual_plane: not one launch per "
+                                 "size group, or != the single-device plane")
+        if not want.abs().sum():
+            raise AssertionError("residual: the plane is empty")
+        s_ms = cuda_ms(lambda: R.sharded_residual_plane(cf, groups, psz, aw,
+                                                        bpc), 10)
+        p_ms = cuda_ms(lambda: R.single_device_residual_plane(
+            cf, groups, psz, aw, bpc), 3)
+    finally:
+        dist.destroy_process_group()
+    pk = pack_frame(f, plan)
+    d, _ = Uploader(dev).upload(pk, psz, bpc)
+    r_ms = cuda_ms(lambda: P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw,
+                                   bpc=bpc), 20)
+    log(f"residual {f.cur.w}x{f.cur.h}: sharded_residual_plane "
+        f"{s_ms:.4f} ms per call (CUDA events: gather, {len(groups)} "
+        f"launches, scatter, "
+        f"all_reduce), single_device_residual_plane (plain) {p_ms:.4f} ms, "
+        f"the frame's resid program (one launch, WHT too) {r_ms:.4f} ms")
+    return launches, err
+
+
+def cli_phase(dev, tmp):
+    """rav1d_tpu_torch.cli.main on a 640x360 IVF file of an 8-bit inter
+    sequence, with --verify at its host-path MD5 and --frametimes: it must
+    return 0 after one itx launch per frame. Returns the itx launches."""
+    import rav1d_tpu_torch as T
+    from rav1d_tpu_torch import cli, synth
+    from rav1d_tpu_torch.ops.cuda import itx as I
+
+    packets = synth.inter_sequence(FMT_W, FMT_H, 8)
+    path = os.path.join(tmp, "cli.ivf")
+    synth.write_ivf(path, packets, FMT_W, FMT_H)
+    md5 = synth.stream_md5(packets)
+    times = os.path.join(tmp, "frametimes.txt")
+    fb = T.engine.stats["fallback"]
+    I.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", path, "--verify", md5, "--frametimes", times])
+    wall = time.perf_counter() - t0
+    launches = I.launches
+    with open(times) as fh:
+        ms = [int(v) / 1e6 for v in fh.read().split()]
+    log(f"cli {FMT_W}x{FMT_H}: --verify {md5} rc {rc}, {wall:.2f} s, "
+        f"frametimes ms {[round(v, 3) for v in ms]}, itx launches "
+        f"{launches}, fallback {T.engine.stats['fallback'] - fb}")
+    if rc != 0 or launches != len(packets) or len(ms) != len(packets):
+        raise AssertionError("cli: --verify failed, or not one itx launch "
+                             "and one frame time per frame")
+    return launches
+
+
 def idct8x8_phase(dev):
     """The 8x8 DCT_DCT batch: its entry point once at N=I8_N (launches
     counted), then kernel vs plain at N=256 x bpc 8/10/12 and at N=I8_N,
@@ -637,14 +788,13 @@ def idct8x8_phase(dev):
     return launches, worst, k_ms, p_ms, nbytes, ops
 
 
-def vector_phase(dev):
+def vector_phase(dev, d):
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch.io.ivf import IvfDemuxer
 
-    d = os.environ.get("RAV1D_TEST_DATA")
     if not d or not os.path.isdir(d):
-        log("vector phase: dav1d-test-data not found ($RAV1D_TEST_DATA "
-            "unset or not a directory); skipped")
+        log("vector phase: dav1d-test-data not found (--test-data not "
+            "given or not a directory); skipped")
         return
     for rel, want in VECTORS:
         path = os.path.join(d, rel)
@@ -702,8 +852,15 @@ def first_frames_phase(dev, d, rel, n):
 
 
 def main():
+    import argparse
+    import tempfile
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--test-data", help="a dav1d-test-data directory for "
+                    "the vector phase (skipped without it)")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -735,17 +892,21 @@ def main():
             log("  " + ln.replace("ptxas info    :", "").strip())
 
     worst = kernel_phase(dev)
-    launches = 0
-    blobs = []
-    for phase in (slice_phase, inter_phase, high_bitdepth_phase,
-                  formats_phase):
+    launches, worst_ra, blobs, still = slice_phase(dev)
+    worst = max(worst, worst_ra)
+    for phase in (inter_phase, high_bitdepth_phase, formats_phase,
+                  headers_phase):
         n, err, *got = phase(dev)
         launches += n
         worst = max(worst, err)
         blobs += got[0] if got else []
+    with tempfile.TemporaryDirectory() as tmp:
+        n, err = residual_phase(dev, still, tmp)
+        launches += n + cli_phase(dev, tmp)
+        worst = max(worst, err)
     rows = timing_phase(blobs)
     i8 = idct8x8_phase(dev)
-    vector_phase(dev)
+    vector_phase(dev, args.test_data)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     ref = sorted(m for m in sys.modules

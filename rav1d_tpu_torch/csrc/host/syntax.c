@@ -1986,7 +1986,8 @@ static void record_lf_inter(const SyFrame *f, SyTile *ts, SyTask *t,
                 cell[1] = lvls[1][ref][idx];
             }
         const TxfmInfo *td = &t_dims[max_ytx];
-        static uint8_t txa[2][2][32][32];
+        /* automatic, not static: tiles decode on parallel threads */
+        uint8_t txa[2][2][32][32];
         memset(txa, 0, sizeof(txa));
         for (int y_off = 0; y_off < (bh4 + td->h - 1) / td->h; y_off++)
             for (int x_off = 0; x_off < (bw4 + td->w - 1) / td->w; x_off++)
@@ -2499,8 +2500,9 @@ static void read_pal_indices(SyTile *ts, SyTask *t, uint8_t *pal_idx, Blk *b,
     pal_idx[0] = (uint8_t)msac_decode_uniform(s, pal_sz);
     uint16_t *color_map_cdf =
         ts->cdf.color_map + (((size_t)pli * 7 + (pal_sz - 2)) * 5) * 8;
-    static uint8_t order[64][8];
-    static uint8_t ctx[64];
+    /* automatic, not static: tiles decode on parallel threads */
+    uint8_t order[64][8];
+    uint8_t ctx[64];
     for (int i = 1; i < 4 * (w4 + h4) - 1; i++) {
         int first = imin(i, w4 * 4 - 1);
         int last = imax(i + 1 - h4 * 4, 0);

@@ -14,13 +14,21 @@ local and global warp, interintra, the bilinear filter); `key_then_inter`
 the plain single-reference case. Both `still_picture` and
 `inter_sequence` take a bit depth (8, 10, 12), a chroma layout (4:0:0,
 4:2:0, 4:2:2, 4:4:4; the sequence header picks the profile) and
-superres; their defaults are 8-bit 4:2:0 without superres.
+superres; their defaults are 8-bit 4:2:0 without superres. Both also
+take `tools=Tools(...)`, the header tools the defaults leave off (128-px
+superblocks, several tiles, segmentation with a lossless segment, delta q
+and delta lf, loop filter deltas, TX_MODE_LARGEST, the reduced transform
+set, 64-px restoration units); `Tools()` writes every stream byte for byte
+as before. `write_ivf` puts packets in an IVF file.
 
 This is test input, not a decoder feature: the oracle for a decode of
 these bytes is the reference decoder's host path.
 """
 
 from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -33,6 +41,45 @@ ORDER_HINT_BITS = 7  # inter_sequence's order_hint_bits
 BILINEAR = 3  # interpolation_filter code (headers.FilterMode.BILINEAR)
 
 
+@dataclass(frozen=True)
+class Tools:
+    """Header tools of a synthetic stream. Each default is the value the
+    writers always used, and with the defaults no extra random value is
+    drawn, so `Tools()` leaves every stream byte for byte as it was.
+
+    - sb128: use_128x128_superblock (tile info in 128-px superblocks; the
+      lr_unit_shift bit is then the only unit-size bit);
+    - tiles: (cols_log2, rows_log2), uniform spacing; each tile but the
+      last carries a 4-byte size field, each its own random payload, the
+      payload split by tile area;
+    - segmentation: segmentation_enabled, each of the 8 segments with a
+      random alt_q and alt_lf_y_v/y_h/u/v, one segment's alt_q bringing its
+      qindex to 0 (a lossless segment: 4x4 WHT blocks);
+    - delta_q: delta_q_present with a random delta_q_res, and (where the
+      frame does not allow intra block copy) delta_lf_present with a random
+      delta_lf_res and delta_lf_multi = `delta_lf_multi`;
+    - lf_deltas: loop_filter_delta_enabled and _update, random ref_deltas
+      and mode_deltas;
+    - tx_mode_largest: tx_mode_select = 0 (TX_MODE_LARGEST) and
+      reduced_tx_set = 1;
+    - lr_unit_shift: lr_unit_shift and, at 4:2:0, lr_uv_shift (1: 128-px
+      luma units, 64-px chroma units at 4:2:0; 0 with 64-px superblocks:
+      64-px units on every plane).
+    """
+
+    sb128: bool = False
+    tiles: tuple = (0, 0)
+    segmentation: bool = False
+    delta_q: bool = False
+    delta_lf_multi: bool = False
+    lf_deltas: bool = False
+    tx_mode_largest: bool = False
+    lr_unit_shift: int = 1
+
+
+DEFAULT_TOOLS = Tools()
+
+
 class _Bits:
     """MSB-first bit writer (the inverse of bits.GetBits)."""
 
@@ -42,6 +89,12 @@ class _Bits:
     def put(self, value, n):
         for i in range(n - 1, -1, -1):
             self.bits.append((value >> i) & 1)
+
+    def sbits(self, value, n):
+        """An n-bit two's-complement value (the inverse of
+        bits.GetBits.get_sbits)."""
+        assert -(1 << (n - 1)) <= value < (1 << (n - 1)), (value, n)
+        self.put(value & ((1 << n) - 1), n)
 
     def uniform(self, max_, v):
         """ns(max_) (the inverse of bits.GetBits.get_uniform)."""
@@ -129,7 +182,7 @@ def _profile(bpc, layout):
 
 
 def _seq_header(w, h, *, reduced, bpc, superres, layout=PixelLayout.I420,
-                inter_tools=False):
+                inter_tools=False, sb128=False):
     profile = _profile(bpc, layout)
     b = _Bits()
     b.put(profile, 3)  # seq_profile
@@ -153,7 +206,7 @@ def _seq_header(w, h, *, reduced, bpc, superres, layout=PixelLayout.I420,
     b.put(h - 1, hb)
     if not reduced:
         b.put(0, 1)  # frame_id_numbers_present_flag
-    b.put(0, 1)  # use_128x128_superblock
+    b.put(1 if sb128 else 0, 1)  # use_128x128_superblock
     b.put(1, 1)  # enable_filter_intra
     b.put(1, 1)  # enable_intra_edge_filter
     if not reduced:
@@ -197,29 +250,49 @@ def _seq_header(w, h, *, reduced, bpc, superres, layout=PixelLayout.I420,
     return b.bytes()
 
 
-def _frame_tail(b, w, h, rng, *, key, q, layout, intrabc=False, inter=None):
+def _tiling(w, h, tools):
+    """The tile grid of a frame under `tools` (uniform spacing, as
+    obu.py _parse_tiling computes it): ([col starts], [row starts]) in
+    pixels, each list ending at the frame's edge, and (max_log2_cols,
+    max_log2_rows)."""
+    sb = 128 if tools.sb128 else 64
+    sbw = -(-w // sb)
+    sbh = -(-h // sb)
+    lc, lr = tools.tiles
+    max_cols = _tile_log2(1, min(sbw, 64))
+    max_rows = _tile_log2(1, min(sbh, 64))
+    assert _tile_log2(4096 // sb, sbw) == 0, "more tile columns than one"
+    assert _tile_log2(4096 * 2304 // (sb * sb), sbw * sbh) == 0
+    assert lc <= max_cols and lr <= max_rows, (tools.tiles, max_cols, max_rows)
+    tw = 1 + ((sbw - 1) >> lc)
+    th = 1 + ((sbh - 1) >> lr)
+    cols = [min(x * sb, w) for x in range(0, sbw, tw)] + [w]
+    rows = [min(y * sb, h) for y in range(0, sbh, th)] + [h]
+    return cols, rows, (max_cols, max_rows)
+
+
+def _frame_tail(b, w, h, rng, *, key, q, layout, intrabc=False, inter=None,
+                tools=DEFAULT_TOOLS):
     """Everything from tile_info() to film_grain_params() (obu.py
-    parse_frame_hdr from _parse_tiling on), for 64x64 superblocks. A 4:0:0
-    frame codes no chroma field (delta q, filter levels, CDEF strengths,
-    LR types). With intrabc the in-loop filter parameters are not coded;
-    `inter` (a dict:
-    skip_mode None or the skip_mode_present bit, warped None or the
-    allow_warped_motion bit, gmv the seven (type, params) of
-    _put_gmv) writes an inter frame's compound, warp and global motion
-    fields, reference_select on."""
-    # tile_info: uniform spacing, one tile
-    sbw = (w + 63) >> 6
-    sbh = (h + 63) >> 6
+    parse_frame_hdr from _parse_tiling on). A 4:0:0 frame codes no chroma
+    field (delta q, filter levels, CDEF strengths, LR types). With intrabc
+    the in-loop filter parameters and delta lf are not coded; `inter` (a
+    dict: skip_mode None or the skip_mode_present bit, warped None or the
+    allow_warped_motion bit, gmv the seven (type, params) of _put_gmv)
+    writes an inter frame's compound, warp and global motion fields,
+    reference_select on. `tools` (Tools) adds the tiles, segmentation,
+    delta q/lf, loop filter deltas, transform mode and LR unit size."""
+    # tile_info: uniform spacing
+    cols, rows, (max_log2_cols, max_log2_rows) = _tiling(w, h, tools)
     b.put(1, 1)  # uniform_tile_spacing_flag
-    min_log2_cols = _tile_log2(64, sbw)
-    max_log2_cols = _tile_log2(1, min(sbw, 64))
-    max_log2_rows = _tile_log2(1, min(sbh, 64))
-    min_log2_tiles = max(_tile_log2(2304, sbw * sbh), min_log2_cols)
-    assert min_log2_cols == 0 and min_log2_tiles == 0, "one tile only"
-    if max_log2_cols > 0:
-        b.put(0, 1)  # increment_tile_cols_log2
-    if max_log2_rows > 0:
-        b.put(0, 1)  # increment_tile_rows_log2
+    for lg, mx in zip(tools.tiles, (max_log2_cols, max_log2_rows)):
+        b.put((1 << lg) - 1, lg)  # increment_tile_{cols,rows}_log2
+        if lg < mx:
+            b.put(0, 1)
+    if sum(tools.tiles):
+        n_tiles = (len(cols) - 1) * (len(rows) - 1)
+        b.put(int(rng.integers(0, n_tiles)), sum(tools.tiles))
+        b.put(3, 2)  # tile_size_bytes_minus_1: 4-byte tile sizes
     chroma = layout != PixelLayout.I400
     # quantization_params
     b.put(q, 8)  # base_q_idx
@@ -228,14 +301,36 @@ def _frame_tail(b, w, h, rng, *, key, q, layout, intrabc=False, inter=None):
         b.put(0, 1)  # DeltaQUDc
         b.put(0, 1)  # DeltaQUAc
     b.put(0, 1)  # using_qmatrix
-    b.put(0, 1)  # segmentation_enabled
-    b.put(0, 1)  # delta_q_present
+    b.put(1 if tools.segmentation else 0, 1)  # segmentation_enabled
+    if tools.segmentation:
+        # primary_ref_frame is none: update_map and update_data implied
+        lossless = int(rng.integers(0, 8))
+        for i in range(8):
+            dq = -q if i == lossless else int(rng.integers(-40, 41))
+            b.put(1, 1)  # feature_enabled: alt_q
+            b.sbits(dq, 9)
+            for lf in rng.integers(-63, 64, size=4):  # alt_lf_y_v .. v
+                b.put(1, 1)
+                b.sbits(int(lf), 7)
+            b.put(0, 3)  # ref_frame, skip, globalmv features off
+    b.put(1 if tools.delta_q else 0, 1)  # delta_q_present
+    if tools.delta_q:
+        b.put(int(rng.integers(0, 4)), 2)  # delta_q_res
+        if not intrabc:
+            b.put(1, 1)  # delta_lf_present
+            b.put(int(rng.integers(0, 4)), 2)  # delta_lf_res
+            b.put(1 if tools.delta_lf_multi else 0, 1)  # delta_lf_multi
     if not intrabc:  # intra block copy turns the in-loop filters off
         # loop_filter_params: nonzero levels on every plane and direction
         for lv in rng.integers(8, 40, size=4)[: 4 if chroma else 2]:
             b.put(int(lv), 6)
         b.put(int(rng.integers(0, 8)), 3)  # loop_filter_sharpness
-        b.put(0, 1)  # loop_filter_delta_enabled
+        b.put(1 if tools.lf_deltas else 0, 1)  # loop_filter_delta_enabled
+        if tools.lf_deltas:
+            b.put(1, 1)  # loop_filter_delta_update
+            for d in rng.integers(-32, 33, size=10):  # 8 ref, 2 mode deltas
+                b.put(1, 1)  # update_{ref,mode}_delta
+                b.sbits(int(d), 7)
         # cdef_params: cdef_bits = 3, eight nonzero strength pairs
         b.put(int(rng.integers(0, 4)), 2)  # cdef_damping_minus_3
         b.put(3, 2)  # cdef_bits
@@ -247,28 +342,54 @@ def _frame_tail(b, w, h, rng, *, key, q, layout, intrabc=False, inter=None):
         # lr_params: switchable on every plane
         for _ in range(3 if chroma else 1):
             b.put(1, 2)  # lr_type: RESTORE_SWITCHABLE
-        b.put(1, 1)  # lr_unit_shift (64 -> 128)
-        b.put(0, 1)  # lr_unit_extra_shift
+        b.put(tools.lr_unit_shift, 1)  # lr_unit_shift
+        if tools.lr_unit_shift and not tools.sb128:
+            b.put(0, 1)  # lr_unit_extra_shift
         if layout == PixelLayout.I420:
-            b.put(1, 1)  # lr_uv_shift
-    b.put(1, 1)  # tx_mode_select
+            b.put(tools.lr_unit_shift, 1)  # lr_uv_shift
+    b.put(0 if tools.tx_mode_largest else 1, 1)  # tx_mode_select
+    reduced_tx_set = 1 if tools.tx_mode_largest else 0
     if inter is not None:
         b.put(1, 1)  # reference_select
         if inter["skip_mode"] is not None:
             b.put(inter["skip_mode"], 1)  # skip_mode_present
         if inter["warped"] is not None:
             b.put(inter["warped"], 1)  # allow_warped_motion
-        b.put(0, 1)  # reduced_tx_set
+        b.put(reduced_tx_set, 1)  # reduced_tx_set
         for g in inter["gmv"]:
             _put_gmv(b, *g)
         return
     if not key:
         b.put(0, 1)  # reference_select
         # skip_mode_present is not coded without order hints
-    b.put(0, 1)  # reduced_tx_set
+    b.put(reduced_tx_set, 1)  # reduced_tx_set
     if not key:
         for _ in range(7):
             b.put(0, 1)  # is_global: identity
+
+
+def _tile_group(b, w, h, rng, payload_bytes, tools):
+    """The frame OBU's header bits `b` (byte-aligned after the frame
+    header), then its tile group: with one tile, `payload_bytes` random
+    bytes running to the end of the OBU; with several, the
+    tile_start_and_end_present_flag (0), then each tile's random bytes,
+    `payload_bytes` split by tile area, each but the last behind its
+    4-byte size field."""
+    cols, rows, _ = _tiling(w, h, tools)
+    if len(cols) * len(rows) == 4:  # one tile
+        tile = rng.integers(0, 256, size=payload_bytes, dtype=np.uint8)
+        return b.bytes() + tile.tobytes()
+    b.put(0, 1)  # tile_start_and_end_present_flag
+    b.align()
+    out = bytearray(b.bytes())
+    tiles = [(y1 - y0) * (x1 - x0) for y0, y1 in zip(rows, rows[1:])
+             for x0, x1 in zip(cols, cols[1:])]
+    for i, area in enumerate(tiles):
+        n = max(payload_bytes * area // (w * h), 16)
+        if i < len(tiles) - 1:
+            out += struct.pack("<I", n - 1)  # tile_size_minus_1
+        out += rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+    return bytes(out)
 
 
 def _put_gmv(b, kind, params):
@@ -298,7 +419,7 @@ def _skip_mode_allowed(ref_hints, cur):
 
 def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
                layout=PixelLayout.I420, refresh=0xFF, order_hint=None,
-               intrabc=False):
+               intrabc=False, tools=DEFAULT_TOOLS):
     b = _Bits()
     if not reduced:
         b.put(0, 1)  # show_existing_frame
@@ -331,29 +452,40 @@ def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
         b.put(0, 1)  # is_motion_mode_switchable
     if not reduced:
         b.put(0, 1)  # disable_frame_end_update_cdf
-    _frame_tail(b, w, h, rng, key=key, q=q, layout=layout, intrabc=intrabc)
+    _frame_tail(b, w, h, rng, key=key, q=q, layout=layout, intrabc=intrabc,
+                tools=tools)
     b.align()  # byte_alignment() before the tile group
-    # tile_group_obu with one tile: no tile_start_and_end_present_flag;
-    # the last tile's data runs to the end of the OBU
-    tile = rng.integers(0, 256, size=payload_bytes, dtype=np.uint8).tobytes()
-    return _obu(OBU_FRAME, b.bytes() + tile)
+    return _obu(OBU_FRAME, _tile_group(b, w, h, rng, payload_bytes, tools))
+
+
+def _check_tools(tools, layout, superres):
+    """The combinations the writers support: several tiles or 128-px
+    superblocks only without superres (tile info is written for the
+    upscaled width), and one tile in 4:2:2 (_fit_422 redraws one tile)."""
+    assert isinstance(tools, Tools), tools
+    if superres:
+        assert tools.tiles == (0, 0) and not tools.sb128, tools
+    if layout == PixelLayout.I422:
+        assert tools.tiles == (0, 0), tools
 
 
 def still_picture(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
-                  superres=False):
+                  superres=False, tools=DEFAULT_TOOLS):
     """One temporal unit: TD + sequence header + one key frame OBU whose
     tile payload is `numpy.random.default_rng(seed)` bytes, about one byte
     per two pixels (random symbols consume more than real ones). `bpc` is
     8, 10 or 12, `layout` a headers.PixelLayout; `superres` codes the
-    frame at 8/9 of its width and upscales it."""
+    frame at 8/9 of its width and upscales it; `tools` (Tools) turns on
+    header tools."""
+    _check_tools(tools, layout, superres)
     rng = np.random.default_rng(seed)
     q = int(rng.integers(60, 160))
     seq = _seq_header(w, h, reduced=True, bpc=bpc, superres=superres,
-                      layout=layout)
+                      layout=layout, sb128=tools.sb128)
     payload = max(w * h // 2, 256)
     frame = _frame_obu(w, h, rng, reduced=True, key=True, q=q,
                        payload_bytes=payload, superres=superres,
-                       layout=layout)
+                       layout=layout, tools=tools)
     data = _obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + frame
     if layout == PixelLayout.I422:
         (data,) = _fit_422([data], payload, seed)
@@ -376,13 +508,13 @@ def key_then_inter(w, h, seed):
 
 def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
                      refidx, slot_hints, error_resilient, filt, gmv, layout,
-                     superres=None):
+                     superres=None, tools=DEFAULT_TOOLS):
     """An inter frame of inter_sequence: no primary reference frame,
     switchable motion modes, reference_select, `filt` the frame's
     interpolation filter (None: switchable per block), `gmv` seven
     _put_gmv arguments, `slot_hints` the order hints of the eight slots,
     `superres` None where the sequence disables superres, else the
-    frame's use_superres."""
+    frame's use_superres; `tools` a Tools."""
     b = _Bits()
     b.put(0, 1)  # show_existing_frame
     b.put(1, 2)  # frame_type: INTER
@@ -417,14 +549,13 @@ def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
     skip = _skip_mode_allowed([slot_hints[r] for r in refidx], order_hint)
     _frame_tail(b, w, h, rng, key=False, q=q, layout=layout, inter=dict(
         skip_mode=1 if skip else None,
-        warped=None if error_resilient else 1, gmv=gmv))
+        warped=None if error_resilient else 1, gmv=gmv), tools=tools)
     b.align()
-    tile = rng.integers(0, 256, size=payload_bytes, dtype=np.uint8).tobytes()
-    return _obu(OBU_FRAME, b.bytes() + tile)
+    return _obu(OBU_FRAME, _tile_group(b, w, h, rng, payload_bytes, tools))
 
 
 def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
-                   superres=False, intrabc=False):
+                   superres=False, intrabc=False, tools=DEFAULT_TOOLS):
     """Three temporal units with every inter tool of the layout: the
     sequence header turns on interintra, masked compound, warped motion,
     dual filter and order hints with distance-weighted compound. Then
@@ -445,15 +576,17 @@ def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
     frame 3 (hint 3), coded with superres, so that every reference it
     reads is scaled (which sends it to the host path of the engine).
 
-    Tile payloads are `numpy.random.default_rng(seed)` bytes."""
+    `tools` (Tools) turns on header tools in every frame. Tile payloads
+    are `numpy.random.default_rng(seed)` bytes."""
+    _check_tools(tools, layout, superres)
     rng = np.random.default_rng(seed)
     payload = max(w * h // 2, 256)
     seq = _seq_header(w, h, reduced=False, bpc=bpc, superres=superres,
-                      layout=layout, inter_tools=True)
+                      layout=layout, inter_tools=True, sb128=tools.sb128)
     key = _frame_obu(w, h, rng, reduced=False, key=True,
                      q=int(rng.integers(60, 160)), payload_bytes=payload,
                      superres=superres, layout=layout, order_hint=0,
-                     intrabc=intrabc)
+                     intrabc=intrabc, tools=tools)
     sr = False if superres else None
     ident = ("identity", ())
     gmv1 = [("rotzoom", (-70, 45, 60, -25)), ident, ident, ident,
@@ -462,7 +595,7 @@ def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
                           payload_bytes=payload, order_hint=1, refresh=0x0F,
                           refidx=(0, 1, 2, 3, 4, 5, 6), slot_hints=[0] * 8,
                           error_resilient=0, filt=None, gmv=gmv1,
-                          layout=layout, superres=sr)
+                          layout=layout, superres=sr, tools=tools)
     gmv2 = [ident, ("rotzoom", (50, 20, -30, -45)), ident, ident, ident,
             ident, ident]
     f2 = _inter_frame_obu(w, h, rng, q=int(rng.integers(60, 160)),
@@ -470,7 +603,7 @@ def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
                           refidx=(0, 4, 1, 5, 2, 6, 3),
                           slot_hints=[1, 1, 1, 1, 0, 0, 0, 0],
                           error_resilient=1, filt=BILINEAR, gmv=gmv2,
-                          layout=layout, superres=sr)
+                          layout=layout, superres=sr, tools=tools)
     out = [_obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + key,
            _obu(OBU_TD, b"") + f1, _obu(OBU_TD, b"") + f2]
     if superres:
@@ -479,7 +612,7 @@ def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
                               refresh=0x00, refidx=(0, 4, 1, 5, 2, 6, 3),
                               slot_hints=[1, 1, 1, 1, 0, 0, 0, 0],
                               error_resilient=1, filt=None, gmv=[ident] * 7,
-                              layout=layout, superres=True)
+                              layout=layout, superres=True, tools=tools)
         out.append(_obu(OBU_TD, b"") + f3)
     if layout == PixelLayout.I422:
         out = _fit_422(out, payload, seed)
@@ -557,6 +690,19 @@ def smoke_stream(digests, name):
     return [still_picture(*args, **kw)]
 
 
+def write_ivf(path, packets, w, h):
+    """Write `packets` (one temporal unit each) to an IVF file at `path`:
+    the 32-byte DKIF header (version 0, fourcc AV01, w x h, time base
+    1/25, the frame count), then each packet behind its 12-byte frame
+    header (its size, and its index as the timestamp)."""
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<4sHH4sHHIII4x", b"DKIF", 0, 32, b"AV01", w,
+                             h, 25, 1, len(packets)))
+        for i, data in enumerate(packets):
+            fh.write(struct.pack("<IQ", len(data), i))
+            fh.write(data)
+
+
 def picture_md5(pic):
     """MD5 over the visible planes (the md5 muxer's digest)."""
     import hashlib
@@ -564,6 +710,28 @@ def picture_md5(pic):
     m = hashlib.md5()
     for rows in pic.iter_plane_rows():
         m.update(rows)
+    return m.hexdigest()
+
+
+def stream_md5(packets):
+    """The md5 muxer's digest of a stream (what `--verify` checks): MD5
+    over every picture's visible planes in output order, decoded on the
+    port's host path."""
+    import hashlib
+
+    from .decoder import Decoder, EAgain, Settings
+
+    dec = Decoder(Settings(apply_grain=False), host_path=True)
+    m = hashlib.md5()
+    for data in packets:
+        dec.send_data(data)
+        while True:
+            try:
+                pic = dec.get_picture()
+            except EAgain:
+                break
+            for rows in pic.iter_plane_rows():
+                m.update(rows)
     return m.hexdigest()
 
 

@@ -9,7 +9,15 @@ Four frames, one per combination that only these formats reach:
 - 12-bit 4:0:0 intra (synth.still_picture): no chroma planes, the 12-bit
   transform clips, the 16-bit packed output;
 - 8-bit 4:2:0 superres key frame: the upscale of the planes and of the
-  post-deblock snapshot, and LR over the upscaled rows.
+  post-deblock snapshot, and LR over the upscaled rows;
+- and, for deblock alone, a 10-bit 4:2:2 inter frame with segmentation
+  (per-segment filter levels, a lossless segment), delta lf and loop
+  filter deltas (per-reference and per-mode levels): the level maps and
+  their neighbour fallback that the deblock packer resolves, where the
+  JAX engine is known to differ from its host path on one conformance
+  vector (CONFORMANCE.md). Here it does not: filter_prog equals the
+  port's filter_, and the port equals its host path
+  (tests/test_torch_headers.py).
 
 Each package decodes the same bytes through its own front end and packs
 its own blob; the two blobs must be word-identical. Then resid, inter,
@@ -45,6 +53,9 @@ COMBOS = {
                                                      layout=PL.I400)], 0),
     "8bit-420-superres": (lambda: [synth.still_picture(136, 96, 10,
                                                        superres=True)], 0),
+    "10bit-422-lf-tools": (lambda: synth.inter_sequence(
+        W, H, 1, bpc=10, layout=PL.I422, tools=synth.Tools(
+            segmentation=True, delta_q=True, lf_deltas=True)), 1),
 }
 
 
@@ -223,3 +234,16 @@ def test_compound_mask_slots_carry_tiles():
             "inter_tiles"]
         assert tiles[slot] > 0 and tiles["seguv"] > 0, (name, tiles)
         assert tiles["segy11"] == 0, (name, tiles)
+
+
+def test_filter_on_deblock_tools_frame():
+    """The blob and filter_ of the 10-bit 4:2:2 inter frame with
+    segmentation, delta lf and loop filter deltas, on the geometry of
+    "10bit-422-inter" (the same JAX compiles)."""
+    frame = frame_of("10bit-422-lf-tools")
+    hdr = frame.f.frame_hdr
+    assert hdr.segmentation.enabled and hdr.delta.lf.present
+    assert hdr.loopfilter.mode_ref_delta_enabled
+    assert len(np.unique(frame.f.lf_level[..., 0])) > 4
+    frame.check_blob()
+    frame.check_filter()

@@ -60,7 +60,8 @@ COPIES = [
         "recon/inter.py", "recon/warp.py", "recon/lf_mask.py", "recon/lf.py",
         "recon/cdef_apply.py", "recon/lr_apply.py", "recon/superres.py",
         "recon/fg_apply.py", "recon/frame.py", "engine/plan.py",
-        "engine/inter.py", "picture.py", "decoder.py",
+        "engine/inter.py", "picture.py", "decoder.py", "cli.py",
+        "parallel/__init__.py",
     )
 ] + [(f"rav1d_tpu_torch/csrc/host/{c}", f"native/{c}")
      for c in ("entropy.c", "refmvs.c", "syntax.c")]
@@ -72,12 +73,18 @@ COPIES = [
 # decode_frame_dense takes that context; the planner's _fb reads no
 # environment switch; engine/inter.py (collect_inter) imports no JAX and
 # leaves out IdxBlob, _slice (unused by the v3 engine) and dev_plane (the
-# port keeps reference planes on the device in engine/run.py)
+# port keeps reference planes on the device in engine/run.py); cli.py has
+# a --device option for the decoder's engine and its own VERSION; the C
+# syntax pass (csrc/host/syntax.c) keeps record_lf_inter's and
+# read_pal_indices' scratch buffers on the stack, where the original's are
+# static and race when a frame's tiles decode on parallel threads
+# (tests/test_torch_headers.py)
 SEAMS = {
     "rav1d_tpu_torch/native/__init__.py", "rav1d_tpu_torch/native/syntax.py",
     "rav1d_tpu_torch/decoder.py", "rav1d_tpu_torch/picture.py",
     "rav1d_tpu_torch/recon/frame.py", "rav1d_tpu_torch/engine/plan.py",
-    "rav1d_tpu_torch/engine/inter.py",
+    "rav1d_tpu_torch/engine/inter.py", "rav1d_tpu_torch/cli.py",
+    "rav1d_tpu_torch/csrc/host/syntax.c",
 }
 
 
@@ -256,6 +263,13 @@ STREAMS = {
         96, 64, 3, bpc=10, layout=PL.I400),
     "inter-sequence-superres": lambda: synth.inter_sequence(
         96, 64, 1, superres=True),
+    "inter-sequence-header-tools": lambda: synth.inter_sequence(
+        96, 64, 1, tools=synth.Tools(
+            sb128=True, segmentation=True, delta_q=True, delta_lf_multi=True,
+            lf_deltas=True, tx_mode_largest=True)),
+    "still-tiles-lr64": lambda: [synth.still_picture(
+        320, 192, 2, tools=synth.Tools(tiles=(1, 1), lr_unit_shift=0,
+                                       segmentation=True, delta_q=True))],
 }
 
 
