@@ -5,8 +5,9 @@ chroma layout and with superres, once on a CUDA card, end to end.
 
 Phases (any failure exits non-zero before the last line):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
-   kernel and the 8x8 DCT_DCT kernel; nvcc, sm_90a) and print ptxas's
-   registers, stack frames and spills. The port's native syntax library
+   kernel and the 8x8 DCT_DCT kernel; csrc/wave.cu: the intra wavefront's
+   level kernel; nvcc, sm_90a, one process per source, both started
+   together) and print ptxas's registers, stack frames and spills. The port's native syntax library
    (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
    imported) must have loaded: a decode on the Python syntax anchor would
    change every host number;
@@ -18,12 +19,22 @@ Each stream below runs through stream_on_card: the port's host path
 (Decoder(host_path=True), captured) must give the committed digests
 (rav1d_tpu_torch/smoke_digests.json) where there are some; on each
 engine frame's blob, packed from that capture, the residual program (one
-itx launch) must equal resid_plain; then one rav1d_tpu_torch.Decoder(
+itx launch) must equal resid_plain, and the wave program (one wave kernel
+launch per level with items) must equal wave_plain on the same input
+(zero planes, or the inter program's on an inter frame; at 1080p only on
+still seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain
+wavefront takes 10-30 s each); then one rav1d_tpu_torch.Decoder(
 device="cuda") decodes the stream frame by frame to the host path's MD5s
 with no fallback but the planner's own, no upload of a host reference
 plane (every reference is the engine's own device output), exactly one
-itx launch per engine frame and no call of the plain transforms
-(engine/kernels.py itx_any_core, wht_core), printing per-frame stage_ms.
+itx launch per engine frame, one wave launch per level with items, and
+no call of the plain transforms (engine/kernels.py itx_any_core,
+wht_core) or of the plain wave step (engine/wave.py class_step),
+printing per-frame stage_ms and the wall time the stages leave (the host
+front end). At 1080p, per frame: the wave program alone
+(CUDA events), its device time and its wave kernel's (torch.profiler),
+the floor of an empty kernel launched the same way over the same levels,
+and its bound (wave_work).
 3. slice: seeded 1920x1080 synthetic AV1 still pictures
    (rav1d_tpu_torch/synth.py), after a small picture's decode;
 4. inter: a seeded 1920x1080 synthetic inter sequence (synth.
@@ -56,7 +67,8 @@ itx launch per engine frame and no call of the plain transforms
 9. CLI: rav1d_tpu_torch.cli.main(["-i", <a 640x360 IVF file of an 8-bit
    inter sequence>, "--verify", <its host-path MD5>, "--frametimes",
    <file>]) in process must return 0, with one itx launch per frame; the
-   per-frame times are printed;
+   per-frame times are printed (the decode also makes one wave launch
+   per level with items and no class_step call);
 10. timing: on the blobs of phases 3 and 5, the frame launch and
    resid_plain (CUDA events), and torch.profiler windows over resid calls
    and over each class of the frame launched alone, which give the
@@ -71,6 +83,9 @@ itx launch per engine frame and no call of the plain transforms
    of the bench's inter stream (16) and of its 10-bit stream
    318_tx_4x4.ivf (8, bench.py's frame limit) against the port's host
    path, with no fallback.
+Every decode must make no class_step call, and each, but for the whole
+conformance streams of the vector phase, one wave launch per level with
+items.
 Then neither JAX nor any module of rav1d_tpu may have been imported.
 
 Prints the card's name and power limit, the syntax backend, per-frame
@@ -111,6 +126,9 @@ HOST_PATH_VECTORS = [("8-bit/data/00000627.ivf", 16),
                      ("10-bit/issues/318_tx_4x4.ivf", 8)]
 # inter slots that only 4:2:2 and 4:4:4 reach
 NOT_420 = ("segy00", "segy10")
+# the wave kernel across the run: launches in the decodes, frames compared
+# with wave_plain and the largest difference, per-frame timings by label
+WAVE = {"launches": 0, "compared": 0, "err": 0, "rows": {}}
 
 
 def log(*a):
@@ -271,20 +289,42 @@ def slice_phase(dev):
         digests = json.load(fh)
     if (digests["width"], digests["height"]) != (W, H):
         raise AssertionError("smoke_digests.json is for another picture size")
+    from rav1d_tpu_torch.engine import wave as TW
+    from rav1d_tpu_torch.ops.cuda import wave as WK
+
+    warm = [synth.still_picture(256, 128, 7)]
+    levels = wave_levels(synth.capture_frames(warm))
+    TW.calls = WK.launches = 0
     synth.decode_md5s(T.Decoder(T.Settings(apply_grain=False), device=dev),
-                      [synth.still_picture(256, 128, 7)])
+                      warm)
     torch.cuda.synchronize()
+    if TW.calls or WK.launches != levels:
+        raise AssertionError(f"the warm-up decode: {TW.calls} class_step "
+                             f"calls, {WK.launches} wave launches for "
+                             f"{levels} levels")
     launches = worst = 0
     blobs, captured = [], []
     for s in SEEDS:
         n, err, frames = stream_on_card(dev, f"still seed {s} {W}x{H}",
                                         [synth.still_picture(W, H, s)],
                                         want=[digests["md5"][str(s)]],
-                                        blobs=blobs)
+                                        blobs=blobs,
+                                        wave_check=(0,) if s == 1 else (),
+                                        time_wave=True)
         launches += n
         worst = max(worst, err)
         captured.append(frames)
     return launches, worst, blobs, captured[0]
+
+
+def wave_levels(frames):
+    """The wave levels with items of captured [(f, plan)]'s engine
+    frames: the wave launches their decode makes."""
+    from rav1d_tpu_torch.engine.pack import pack_frame
+    from rav1d_tpu_torch.ops.cuda import wave as WK
+
+    return sum(len(WK.levels(pack_frame(f, plan).waves))
+               for f, plan in frames if plan is not None)
 
 
 def inter_phase(dev):
@@ -301,7 +341,8 @@ def inter_phase(dev):
     launches, worst, frames = stream_on_card(
         dev, f"inter seed {want['seed']} {W}x{H}",
         synth.inter_sequence(W, H, want["seed"]), want=want["md5"],
-        slots=[k for k in SLOTS if k not in NOT_420], interintra=True)
+        slots=[k for k in SLOTS if k not in NOT_420], interintra=True,
+        wave_check=(1,), time_wave=True)
     inter_timing(dev, frames)
     return launches, worst
 
@@ -335,16 +376,17 @@ def inter_timing(dev, frames):
                     vwC=(f.cur.w + 1) >> 1, vhC=(f.cur.h + 1) >> 1)
 
         ms = cuda_ms(call, 10)
-        dms = profiled_device_ms(call, 5)
+        dms = profiled_device_ms(call, 5)[0]
         log(f"inter program frame {i}: {ms:.3f} ms per call (CUDA events), "
             f"device {'not measured' if dms is None else f'{dms:.3f} ms'} "
             f"(torch.profiler, all kernels)"
             + ("" if dms is None else f", busy {100 * dms / ms:.1f}%"))
 
 
-def profiled_device_ms(fn, reps):
-    """Device time per call of every kernel fn launches, in a
-    torch.profiler window over `reps` calls; None if it shows none."""
+def profiled_device_ms(fn, reps, name=None):
+    """(device time per call of every kernel fn launches, of the kernels
+    whose name contains `name`) in a torch.profiler window over `reps`
+    calls; None for a time the profiler does not show."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -356,12 +398,16 @@ def profiled_device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us = named = 0.0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == DeviceType.CUDA:
             t = getattr(e, "device_time_total", None)
-            us += e.cuda_time_total if t is None else t
-    return us / reps / 1e3 if us else None
+            t = e.cuda_time_total if t is None else t
+            us += t
+            if name is not None and name in e.key:
+                named += t
+    return (us / reps / 1e3 if us else None,
+            named / reps / 1e3 if named else None)
 
 
 def profiled_kernel_ms(fn, name, reps):
@@ -436,7 +482,8 @@ def timing_phase(blobs):
 
 
 def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
-                   slots=(), interintra=False, blobs=None):
+                   slots=(), interintra=False, blobs=None, wave_check=None,
+                   time_wave=False):
     """One stream through the port on the card. The host path (captured:
     each frame's plan, and the MD5s; its time includes the capture) must
     give the committed digests `want` where they are given, and its
@@ -445,20 +492,25 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     be present if `interintra`. On
     each engine frame's blob the resid program (one itx launch) must equal
     resid_plain (the blobs are appended to the list `blobs` if one is
-    given). Then one Decoder(device="cuda") must decode the stream frame by
-    frame to the host path's MD5s, with those fallbacks only, no upload of
-    a host reference plane, one itx launch per engine frame and no call of
-    the plain transforms. Returns (itx launches, max |err| of ra, the
-    captured [(f, plan)])."""
+    given), and on the engine frames `wave_check` names (None: all) the
+    wave program must equal wave_plain (wave_timing times it per frame if
+    `time_wave`). Then one Decoder(device="cuda") must decode the stream
+    frame by frame to the host path's MD5s, with those fallbacks only, no
+    upload of a host reference plane, one itx launch per engine frame, one
+    wave launch per level with items, and no call of the plain transforms
+    or of class_step. Returns (itx launches, max |err| of ra, the captured
+    [(f, plan)])."""
     import torch
 
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import synth
     from rav1d_tpu_torch.engine import kernels, run
     from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine import wave as TW
     from rav1d_tpu_torch.engine.blob import Uploader
     from rav1d_tpu_torch.engine.pack import pack_frame
     from rav1d_tpu_torch.ops.cuda import itx as I
+    from rav1d_tpu_torch.ops.cuda import wave as WK
 
     t0 = time.perf_counter()
     host = []
@@ -495,9 +547,10 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         raise AssertionError(f"{label}: inter slots without tiles {empty}, "
                              f"interintra items {ii}")
 
-    # the residual program on each engine frame's blob against its plain
-    # version (and the allocator brought to the frame's buffer sizes)
-    worst = 0
+    # the residual and wave programs on each engine frame's blob against
+    # their plain versions (and the allocator brought to the frame's
+    # buffer sizes)
+    worst = levels = 0
     for i, (f, plan) in enumerate(frames):
         pk = None if plan is None else pack_frame(f, plan)
         if pk is None:
@@ -514,10 +567,36 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         if blobs is not None:
             blobs.append((f"{label} frame {i}", bpc, d, pk.hdr, pk.tx_valid,
                           ah, aw))
+        planes, kw = wave_input(f, plan, pk, d, ra)
+        levels += len(WK.levels(pk.waves))
+        p_ms = None
+        if wave_check is None or i in wave_check:
+            got = P.wave(planes, ra, d, pk.hdr, pk.waves, **kw)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            ref = P.wave_plain(planes, ra, d, pk.hdr, pk.waves, **kw)
+            b.record()
+            b.synchronize()
+            p_ms = a.elapsed_time(b)
+            err = max_err(got, ref)
+            WAVE["compared"] += 1
+            WAVE["err"] = max(WAVE["err"], err)
+            log(f"  frame {i}: wave (kernel) == wave_plain, max |err| {err}"
+                f" ({len(WK.levels(pk.waves))} levels; wave_plain "
+                f"{p_ms:.1f} ms)")
+            if err:
+                raise AssertionError(f"{label} frame {i}: wave (kernel, "
+                                     f"{bpc} bpc) != wave_plain")
+        if time_wave:
+            WAVE["rows"][f"{label} frame {i}"] = wave_timing(
+                f"{label} frame {i}", pk, d, ra, planes, kw, p_ms)
 
     T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
     I.launches = 0
     kernels.calls = 0
+    WK.launches = 0
+    TW.calls = 0
     dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
     got, fell = [], []
     for i, data in enumerate(packets):  # frame by frame: stage_ms per frame
@@ -531,13 +610,19 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         log(f"  port frame {i}: {ms:.1f} ms wall  md5 {got[-1]}  "
             f"{'==' if got[-1:] == host[i : i + 1] else '!='} host"
             + ("  (host path: the planner's gate)" if i in fell else ""))
+        rest = ms - sum(v for k, v in run.stage_ms.items() if k != "programs")
         log("    stage_ms " + json.dumps({k: round(v, 3)
-                                          for k, v in run.stage_ms.items()}))
+                                          for k, v in run.stage_ms.items()})
+            + f"  rest {rest:.1f} ms (wall minus the stages: OBU parsing, "
+            "the syntax pass, the planner, Python)")
     launches = I.launches
     plain_calls = kernels.calls
     stats = dict(T.engine.stats)
+    w_launches, w_calls = WK.launches, TW.calls
+    WAVE["launches"] += w_launches
     log(f"  {label}: engine stats {stats}  itx launches {launches}  plain "
-        f"transform calls {plain_calls}")
+        f"transform calls {plain_calls}  wave launches {w_launches} for "
+        f"{levels} levels with items  class_step calls {w_calls}")
     if got != host:
         raise AssertionError(f"{label}: port output differs from the host "
                              "path")
@@ -553,7 +638,121 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     if plain_calls:
         raise AssertionError(f"{label}: {plain_calls} plain transform calls "
                              "on the card")
+    if w_launches != levels or w_calls:
+        raise AssertionError(f"{label}: {w_launches} wave launches for "
+                             f"{levels} levels, {w_calls} class_step calls")
     return launches, worst, frames
+
+
+def wave_input(f, plan, pk, d, ra):
+    """(planes, keywords) of the wave program on a frame's blob: zero
+    planes, or on an inter frame the inter program's output."""
+    import torch
+
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.run import stack_planes
+    from rav1d_tpu_torch.headers import PixelLayout as PL
+
+    ah, aw, bpc = plan.ah, plan.aw, f.cur.bpc
+    sh = 0 if f.cur.layout == PL.I444 else 1
+    sv = 1 if f.cur.layout == PL.I420 else 0
+    planes = torch.zeros((3, ah, aw), dtype=torch.int32, device=d.device)
+    if pk.srcs is not None:
+        out = f.sr_cur
+        ach, acw = out.u.shape if out.u is not None else (0, 0)
+        planes = P.inter(planes, ra, d, pk.hdr, pk.inter_runs,
+                         stack_planes(pk.srcs[0], d.device, (ah, aw)),
+                         stack_planes(pk.srcs[1], d.device, (ach, acw)),
+                         ah=ah, aw=aw, bpc=bpc, vwY=f.cur.w, vhY=f.cur.h,
+                         vwC=(f.cur.w + sh) >> sh, vhC=(f.cur.h + sv) >> sv)
+    return planes, dict(ah=ah, aw=aw, bpc=bpc, ss_hor=sh, ss_ver=sv)
+
+
+# least 32-bit operations per predicted pixel by mode code, and per value
+# of a directional mode's edge vector (an estimate from the formulas of
+# ops/ipred_dyn.py: adds, subtracts, multiplies, shifts, compares; a clip
+# two): Paeth 10, smooth 11, smooth_v/h 6, Z1/Z3 10 (+11 per edge value),
+# Z2 14 (+11), filter intra 17, CfL 10 (+ the subsampling adds)
+_PX_OPS = {12: 10, 9: 11, 10: 6, 11: 6, 6: 10, 8: 10, 7: 14, 13: 17,
+           15: 10, 16: 10, 17: 10, 18: 10}
+
+
+def wave_work(pk, ss_hor, ss_ver):
+    """(bytes, operations) of the frame's wavefront, each input read once
+    and each output written once, at int32 words: per item its 21-word
+    descriptor, its edge pixels (phl + phbl left, pht + phtr top, the
+    corner), its residuals (rmask), its own pixels (IDENT, interintra),
+    its mask (interintra) and its CfL luma, and its pixels written; the
+    operations of _PX_OPS, the DC sums, the residual add and clip (3 per
+    pixel) and the interintra blend (6 per pixel)."""
+    import numpy as np
+
+    from rav1d_tpu_torch.engine.layout import FI, N_FIELDS
+
+    nbytes = nops = 0
+    sub = (1 + ss_hor) * (1 + ss_ver)
+    lut = np.zeros(32, np.int64)
+    lut[list(_PX_OPS)] = list(_PX_OPS.values())
+    for per in pk.waves:
+        for rows, n, _, _ in per:
+            r = rows[:n].astype(np.int64)
+            mode = r[:, FI["modes"]]
+            w, h = r[:, FI["w"]], r[:, FI["h"]]
+            px = w * h
+            hav = r[:, FI["hav"]]
+            edge = (np.where(hav & 1, r[:, FI["phl"]] + r[:, FI["phbl"]], 0)
+                    + np.where(hav & 2, r[:, FI["pht"]] + r[:, FI["phtr"]], 0)
+                    + (hav != 0))
+            ii = r[:, FI["iioff"]] >= 0
+            res = r[:, FI["rmask"]] != 0
+            cfl = mode >= 15
+            own = (mode == 14) | ii
+            words = (N_FIELDS + edge + px * (res + own + ii + cfl * sub + 1))
+            nbytes += 4 * int(words.sum())
+            per_px = np.where((mode >= 0) & (mode < 32),
+                              lut[np.clip(mode, 0, 31)], 0)
+            vec = np.where((mode == 6) | (mode == 8), 2 * (w + h),
+                           np.where(mode == 7, w + h + 1, 0))
+            dcs = np.where((mode <= 5) | (mode >= 15), w + h + 6, 0)
+            nops += int((px * (per_px + 3 * res + 6 * ii + cfl * (sub - 1))
+                         + 11 * vec + dcs).sum())
+    return nbytes, nops
+
+
+def wave_timing(label, pk, d, ra, planes, kw, plain_ms):
+    """The wave program alone on a frame's blob: CUDA events per call
+    (host loop included), the device time of all its kernels and of the
+    wave kernel's launches (torch.profiler), the floor of the empty kernel
+    launched the same way over the same levels (CUDA events), and the
+    bound. Returns (ms, device ms, kernel ms, floor ms, plain ms, bytes,
+    operations)."""
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.ops.cuda import wave as WK
+
+    def call():
+        P.wave(planes, ra, d, pk.hdr, pk.waves, **kw)
+
+    pf = P.palette_pf(planes, d, pk.hdr)
+    ms = cuda_ms(call, 3)
+    dev_ms, k_ms = profiled_device_ms(call, 1, "wave_level_kernel")
+    floor = cuda_ms(lambda: WK.empty_levels(
+        pf, ra, d, pk.hdr, pk.waves, aw=kw["aw"], psz=kw["ah"] * kw["aw"],
+        bpc=kw["bpc"], ss_hor=kw["ss_hor"], ss_ver=kw["ss_ver"]), 3)
+    nbytes, ops = wave_work(pk, kw["ss_hor"], kw["ss_ver"])
+    b_ms, b_by = bound(nbytes, ops)
+    nl = len(WK.levels(pk.waves))
+    items = sum(n for per in pk.waves for _, n, _, _ in per)
+
+    def txt(v, f="%.3f ms"):
+        return "not measured" if v is None else f % v
+
+    log(f"  wave {label}: {nl} levels, {items} items; programs.wave "
+        f"{ms:.3f} ms (CUDA events), device {txt(dev_ms)} (all kernels) "
+        f"of which wave_level_kernel {txt(k_ms)} (torch.profiler); "
+        f"empty-launch floor {floor:.3f} ms over the same levels; bound "
+        f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes, {ops} ops); wave_plain "
+        f"{txt(plain_ms, '%.1f ms')}")
+    return ms, dev_ms, k_ms, floor, plain_ms, nbytes, ops
 
 
 def high_bitdepth_phase(dev):
@@ -571,7 +770,9 @@ def high_bitdepth_phase(dev):
         n, err, _ = stream_on_card(dev, f"{name} {W}x{H}",
                                    synth.smoke_stream(digests, name),
                                    want=digests["formats"][name]["md5"],
-                                   blobs=blobs)
+                                   blobs=blobs,
+                                   wave_check=(0,) if "12bit" in name else (),
+                                   time_wave=True)
         launches += n
         worst = max(worst, err)
     return launches, worst, blobs
@@ -716,30 +917,41 @@ def residual_phase(dev, frames, tmp):
 def cli_phase(dev, tmp):
     """rav1d_tpu_torch.cli.main on a 640x360 IVF file of an 8-bit inter
     sequence, with --verify at its host-path MD5 and --frametimes: it must
-    return 0 after one itx launch per frame. Returns the itx launches."""
+    return 0 after one itx launch per frame, one wave launch per level with
+    items and no class_step call. Returns the itx launches."""
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import cli, synth
+    from rav1d_tpu_torch.engine import wave as TW
     from rav1d_tpu_torch.ops.cuda import itx as I
+    from rav1d_tpu_torch.ops.cuda import wave as WK
 
     packets = synth.inter_sequence(FMT_W, FMT_H, 8)
+    levels = wave_levels(synth.capture_frames(packets))
     path = os.path.join(tmp, "cli.ivf")
     synth.write_ivf(path, packets, FMT_W, FMT_H)
     md5 = synth.stream_md5(packets)
     times = os.path.join(tmp, "frametimes.txt")
     fb = T.engine.stats["fallback"]
-    I.launches = 0
+    I.launches = WK.launches = TW.calls = 0
     t0 = time.perf_counter()
     rc = cli.main(["-i", path, "--verify", md5, "--frametimes", times])
     wall = time.perf_counter() - t0
     launches = I.launches
+    w_launches, w_calls = WK.launches, TW.calls
+    WAVE["launches"] += w_launches
     with open(times) as fh:
         ms = [int(v) / 1e6 for v in fh.read().split()]
     log(f"cli {FMT_W}x{FMT_H}: --verify {md5} rc {rc}, {wall:.2f} s, "
         f"frametimes ms {[round(v, 3) for v in ms]}, itx launches "
-        f"{launches}, fallback {T.engine.stats['fallback'] - fb}")
+        f"{launches}, wave launches {w_launches} for {levels} levels, "
+        f"class_step calls {w_calls}, fallback "
+        f"{T.engine.stats['fallback'] - fb}")
     if rc != 0 or launches != len(packets) or len(ms) != len(packets):
         raise AssertionError("cli: --verify failed, or not one itx launch "
                              "and one frame time per frame")
+    if w_launches != levels or w_calls:
+        raise AssertionError("cli: not one wave launch per level, or a "
+                             "class_step call")
     return launches
 
 
@@ -790,6 +1002,7 @@ def idct8x8_phase(dev):
 
 def vector_phase(dev, d):
     import rav1d_tpu_torch as T
+    from rav1d_tpu_torch.engine import wave as TW
     from rav1d_tpu_torch.io.ivf import IvfDemuxer
 
     if not d or not os.path.isdir(d):
@@ -802,6 +1015,7 @@ def vector_phase(dev, d):
             log(f"vector phase: {rel} not found; skipped")
             continue
         before = dict(T.engine.stats)
+        TW.calls = 0
         dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
         m = hashlib.md5()
         for pkt in IvfDemuxer(path):
@@ -814,39 +1028,41 @@ def vector_phase(dev, d):
                 for rows in pic.iter_plane_rows():
                     m.update(rows)
         fb = T.engine.stats["fallback"] - before["fallback"]
-        log(f"vector {rel}: md5 {m.hexdigest()} (meson {want}) fallback {fb}")
-        if m.hexdigest() != want:
-            raise AssertionError(f"{rel}: md5 mismatch")
+        log(f"vector {rel}: md5 {m.hexdigest()} (meson {want}) fallback {fb}"
+            f", class_step calls {TW.calls}")
+        if m.hexdigest() != want or TW.calls:
+            raise AssertionError(f"{rel}: md5 mismatch or class_step calls")
     for rel, n in HOST_PATH_VECTORS:
         first_frames_phase(dev, d, rel, n)
 
 
 def first_frames_phase(dev, d, rel, n):
-    """The first n frames of a vector, frame by frame against the port's
-    host path, with no fallback."""
+    """The first n frames of a vector against the port's host path, with
+    no fallback, one wave launch per level with items and no class_step
+    call."""
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine import wave as TW
     from rav1d_tpu_torch.io.ivf import IvfDemuxer
+    from rav1d_tpu_torch.ops.cuda import wave as WK
 
     path = os.path.join(d, rel)
     if not os.path.exists(path):
         log(f"vector phase: {rel} not found; skipped")
         return
-    host = T.Decoder(T.Settings(apply_grain=False), host_path=True)
-    packets, want = [], []
-    for pkt in IvfDemuxer(path):
-        if len(want) >= n:
-            break
-        packets.append(pkt.data)
-        want += synth.decode_md5s(host, [pkt.data])
+    packets = [pkt.data for _, pkt in zip(range(n), IvfDemuxer(path))]
+    want = []
+    levels = wave_levels(synth.capture_frames(packets, want))
     before = dict(T.engine.stats)
+    TW.calls = WK.launches = 0
     got = synth.decode_md5s(
         T.Decoder(T.Settings(apply_grain=False), device=dev), packets)
     fb = T.engine.stats["fallback"] - before["fallback"]
     log(f"vector {rel}: {len(got)} frames, "
         f"{sum(a == b for a, b in zip(got, want))} equal to the host path, "
-        f"fallback {fb}")
-    if got != want or fb:
+        f"fallback {fb}, class_step calls {TW.calls}, wave launches "
+        f"{WK.launches} for {levels} levels")
+    if got != want or fb or TW.calls or WK.launches != levels:
         raise AssertionError(f"{rel}: differs from the host path or fell "
                              f"back ({fb})")
 
@@ -854,6 +1070,7 @@ def first_frames_phase(dev, d, rel, n):
 def main():
     import argparse
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -870,6 +1087,7 @@ def main():
     from rav1d_tpu_torch.native import syntax as native_syntax
     from rav1d_tpu_torch.ops.cuda import build
     from rav1d_tpu_torch.ops.cuda import itx as I
+    from rav1d_tpu_torch.ops.cuda import wave as WK
 
     dev = torch.device("cuda")
     log(gpu_line())
@@ -883,13 +1101,16 @@ def main():
     log(f"syntax backend: native C ({os.path.relpath(so, HERE)})")
 
     t0 = time.perf_counter()
-    I.lib()
-    log(f"set-up: itx and idct8x8 kernels built and loaded in "
+    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, together
+        for fut in [ex.submit(I.lib), ex.submit(WK.lib)]:
+            fut.result()
+    log(f"set-up: itx, idct8x8 and wave kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    for ln in build.LOGS.get("itx", "").splitlines():  # ptxas -v
-        if any(k in ln for k in ("entry function", "Function properties",
-                                 "Used", "stack frame")):
-            log("  " + ln.replace("ptxas info    :", "").strip())
+    for name in ("itx", "wave"):
+        for ln in build.LOGS.get(name, "").splitlines():  # ptxas -v
+            if any(k in ln for k in ("entry function", "Function properties",
+                                     "Used", "stack frame")):
+                log("  " + ln.replace("ptxas info    :", "").strip())
 
     worst = kernel_phase(dev)
     launches, worst_ra, blobs, still = slice_phase(dev)
@@ -926,21 +1147,36 @@ def main():
             + ("not measured" if None in devs else f"{sum(devs) / n:.5f} ms")
             + f", bound {b_ms:.5f} ms ({b_by}), resid_plain "
             f"{means[bpc][1]:.4f} ms")
+    for label, (ms, dev_ms, k_ms, floor, pms, nbytes, ops) in \
+            WAVE["rows"].items():
+        log(f"wave per frame {label}: program {ms:.3f} ms, kernel device "
+            + ("not measured" if k_ms is None else f"{k_ms:.3f} ms")
+            + f", empty-launch floor {floor:.3f} ms, bound "
+            f"{bound(nbytes, ops)[0]:.5f} ms"
+            + ("" if pms is None else f", wave_plain {pms:.1f} ms"))
+    log(f"wave kernel: {WAVE['launches']} launches in the decodes, "
+        f"{WAVE['compared']} frames equal to wave_plain, max |err| "
+        f"{WAVE['err']}")
     kernels = []
-    # the itx entry's times and bound: the 8-bit intra pictures' means
-    for name, replaces, n_launch, err, ms, pms, nbytes, ops in (
-        ("itx", "rav1d_tpu/ops/pallas/itx_all.py:110", launches, worst,
-         *means[8]),
-        ("idct8x8", "rav1d_tpu/ops/pallas/itx8.py:97", *i8),
+    # the itx entry's times and bound: the 8-bit intra pictures' means;
+    # the wave entry's: still seed 1's wave program against wave_plain
+    w_ms, _, _, _, w_pms, w_bytes, w_ops = WAVE["rows"][
+        f"still seed 1 {W}x{H} frame 0"]
+    for name, src, replaces, n_launch, err, ms, pms, nbytes, ops in (
+        ("itx", "itx.cu", "rav1d_tpu/ops/pallas/itx_all.py:110", launches,
+         worst, *means[8]),
+        ("idct8x8", "itx.cu", "rav1d_tpu/ops/pallas/itx8.py:97", *i8),
+        ("wave", "wave.cu", "rav1d_tpu/engine/wave2.py:74",
+         WAVE["launches"], WAVE["err"], w_ms, w_pms, w_bytes, w_ops),
     ):
         b_ms, b_by = bound(nbytes, ops)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "rav1d_tpu_torch/csrc/itx.cu", "replaces": replaces,
+            "source": "rav1d_tpu_torch/csrc/" + src, "replaces": replaces,
             "launches": n_launch, "max_abs_err": err, "ms": ms,
             "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes AV1's integer inverse
-            # transform bit-exactly
+            # transforms or intra prediction bit-exactly
             "library_ms": None,
         })
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

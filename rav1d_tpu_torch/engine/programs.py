@@ -1,12 +1,13 @@
 """The device engine's four programs on torch.
 
 Ports of rav1d_tpu/engine/mega.py resid_prog, inter_prog, wave_prog and
-filter_prog. Every program reads the frame's
-descriptors from the one uploaded int32 blob `dev`, at the word offsets of
-the header; the trip counts, filter cases and feature gates that JAX reads
-from the device blob come from the host header `hdr` and the packer's
-counts instead, so no count is ever read back from the device during a
-frame.
+filter_prog; resid and wave launch hand-written kernels on the card and
+run their plain versions (resid_plain, wave_plain) on the CPU. Every
+program reads the frame's descriptors from the one uploaded int32 blob
+`dev`, at the word offsets of the header; the trip counts, filter cases
+and feature gates that JAX reads from the device blob come from the host
+header `hdr` and the packer's counts instead, so no count is ever read
+back from the device during a frame.
 
 Layout conventions (as in the JAX engine): `ra` is the (6*psz,) residual
 buffer, [0, 3psz) for the wavefront's blocks; planes are (3, ah, aw)
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda import itx as cuda_itx
+from ..ops.cuda import wave as cuda_wave
 from ..ops.ref.mc import intermediate_bits
 from ..syntax.levels import FILTER_PRED
 from . import filters as FL
@@ -420,19 +422,43 @@ def inter(planes, ra, dev, hdr, runs, stackY, stackC, *, ah, aw, bpc, vwY,
 # ------------------------------ wavefront --------------------------------
 
 
-def wave(planes, ra, dev, hdr, waves, *, ah, aw, bpc, ss_hor, ss_ver):
-    """Palette scatters then the intra wavefront, wave by wave (the
-    recon_b_intra order of src/recon.rs:2402). `waves` is the packer's
-    per-wave host view (engine/pack.py FramePack.waves)."""
-    psz = ah * aw
+def palette_pf(planes, dev, hdr):
+    """The planes flat with a trash word at 3*psz, after the palette
+    scatters."""
     pf = torch.cat([planes.reshape(-1),
                     torch.zeros(1, dtype=I32, device=planes.device)])
-    resid_ = ra[: 3 * psz]
-
     pn = int(hdr[PAL0 + 1])
     if pn:
         d = _region(dev, int(hdr[PAL0]), pn * 2 * PAL_B).view(pn, 2, PAL_B)
         _scatter_drop(pf, d[:, 0].reshape(-1), d[:, 1].reshape(-1))
+    return pf
+
+
+def wave(planes, ra, dev, hdr, waves, *, ah, aw, bpc, ss_hor, ss_ver):
+    """Palette scatters then the intra wavefront, wave by wave (the
+    recon_b_intra order of src/recon.rs:2402): on the card one launch of
+    the wave kernel per level with items (ops/cuda/wave.py wave_levels),
+    the plain version `wave_plain` on the CPU. `waves` is the packer's
+    per-wave host view (engine/pack.py FramePack.waves); only its item
+    counts are read here."""
+    if planes.device.type == "cpu":
+        return wave_plain(planes, ra, dev, hdr, waves, ah=ah, aw=aw, bpc=bpc,
+                          ss_hor=ss_hor, ss_ver=ss_ver)
+    psz = ah * aw
+    pf = palette_pf(planes, dev, hdr)
+    if waves:
+        cuda_wave.wave_levels(pf, ra, dev, hdr, waves, aw=aw, psz=psz,
+                              bpc=bpc, ss_hor=ss_hor, ss_ver=ss_ver)
+    return pf[: 3 * psz].view(3, ah, aw)
+
+
+def wave_plain(planes, ra, dev, hdr, waves, *, ah, aw, bpc, ss_hor, ss_ver):
+    """The plain version of `wave` (mega.py wave_prog in torch): per wave,
+    engine/wave.py class_step on the small class's items, then on the
+    large class's."""
+    psz = ah * aw
+    pf = palette_pf(planes, dev, hdr)
+    resid_ = ra[: 3 * psz]
 
     if not waves:
         return pf[: 3 * psz].view(3, ah, aw)

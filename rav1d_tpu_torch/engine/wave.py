@@ -11,6 +11,11 @@ host says are present in this wave and class, and only over the wave's
 filled lanes; every lane still gets exactly its own mode's prediction.
 The JAX step's optimization barriers work around an XLA fusion problem
 and have no counterpart here.
+
+`class_step` is the plain version of the wave kernel (ops/cuda/wave.py,
+csrc/wave.cu), which runs every item of a level, both classes, in one
+launch on the card; `calls` counts class_step's calls, so a run can show
+that the card's wavefront made none.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from .plan import (
 )
 
 I32 = torch.int32
+calls = 0
 
 BASE_FNS = {
     DC_PRED: D.dc_dyn,
@@ -144,6 +150,8 @@ def class_step(pf, resid, rows, coords, CW, CH, bpc, ss_hor, ss_ver, aw,
     feature bits, modes present, and the largest filter-intra block (w, h)
     of these lanes; maskbuf: the word buffer (the frame blob) that holds
     the interintra blend masks from word mask_base on."""
+    global calls
+    calls += 1
     dev = pf.device
     n3 = 3 * psz
     C = 2 * CH

@@ -24,6 +24,7 @@ BUILD = os.path.join(PKG, "build")
 _LIBS = {}
 LOGS = {}  # library name -> compiler output of its build in this process
 _LOCK = threading.Lock()
+_NAME_LOCKS = {}  # one lock per library: different libraries build at once
 
 
 def _sources_hash(paths):
@@ -49,6 +50,8 @@ def build(name, main, deps=()):
     """Compile csrc/<main> (+ headers `deps`) into build/lib<name>-<hash>.so
     and return the loaded ctypes library."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         srcs = [os.path.join(CSRC, main)] + [os.path.join(CSRC, d) for d in deps]
