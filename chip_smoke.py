@@ -6,8 +6,9 @@ chroma layout and with superres, once on a CUDA card, end to end.
 Phases (any failure exits non-zero before the last line):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
    kernel and the 8x8 DCT_DCT kernel; csrc/wave.cu: the intra wavefront's
-   level kernel; nvcc, sm_90a, one process per source, both started
-   together) and print ptxas's registers, stack frames and spills. The port's native syntax library
+   frame kernel, its barrier-only twin and the level kernel; nvcc, sm_90a,
+   one process per source, both started together) and print ptxas's
+   registers, stack frames and spills. The port's native syntax library
    (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
    imported) must have loaded: a decode on the Python syntax anchor would
    change every host number;
@@ -19,22 +20,27 @@ Each stream below runs through stream_on_card: the port's host path
 (Decoder(host_path=True), captured) must give the committed digests
 (rav1d_tpu_torch/smoke_digests.json) where there are some; on each
 engine frame's blob, packed from that capture, the residual program (one
-itx launch) must equal resid_plain, and the wave program (one wave kernel
-launch per level with items) must equal wave_plain on the same input
+itx launch) must equal resid_plain, and the wave program (one launch of
+the wave frame kernel) and its per-level form (one launch of the level
+kernel per level with items) must both equal wave_plain on the same input
 (zero planes, or the inter program's on an inter frame; at 1080p only on
 still seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain
 wavefront takes 10-30 s each); then one rav1d_tpu_torch.Decoder(
 device="cuda") decodes the stream frame by frame to the host path's MD5s
 with no fallback but the planner's own, no upload of a host reference
 plane (every reference is the engine's own device output), exactly one
-itx launch per engine frame, one wave launch per level with items, and
-no call of the plain transforms (engine/kernels.py itx_any_core,
-wht_core) or of the plain wave step (engine/wave.py class_step),
-printing per-frame stage_ms and the wall time the stages leave (the host
-front end). At 1080p, per frame: the wave program alone
-(CUDA events), its device time and its wave kernel's (torch.profiler),
-the floor of an empty kernel launched the same way over the same levels,
-and its bound (wave_work).
+itx launch per engine frame, one wave frame launch per engine frame with
+wave items and no level launch, and no call of the plain transforms
+(engine/kernels.py itx_any_core, wht_core) or of the plain wave step
+(engine/wave.py class_step), printing per-frame stage_ms and the wall
+time the stages leave (the host front end). At 1080p, per frame: the
+wave program through each entry alone (CUDA events), the device time of
+all its kernels and of the frame kernel, or of the level kernel's
+launches (torch.profiler), per level, the barrier-only floor of the
+frame kernel (the same grid, level walk and barriers, no item work) and
+the floor of an empty kernel launched as the level kernel is over the
+same levels, the bound (wave_work), and the traced frame kernel's
+per-level phases in clock cycles (wave_trace).
 3. slice: seeded 1920x1080 synthetic AV1 still pictures
    (rav1d_tpu_torch/synth.py), after a small picture's decode;
 4. inter: a seeded 1920x1080 synthetic inter sequence (synth.
@@ -67,8 +73,9 @@ and its bound (wave_work).
 9. CLI: rav1d_tpu_torch.cli.main(["-i", <a 640x360 IVF file of an 8-bit
    inter sequence>, "--verify", <its host-path MD5>, "--frametimes",
    <file>]) in process must return 0, with one itx launch per frame; the
-   per-frame times are printed (the decode also makes one wave launch
-   per level with items and no class_step call);
+   per-frame times are printed (the decode also makes one wave frame
+   launch per frame with wave items, no level launch and no class_step
+   call);
 10. timing: on the blobs of phases 3 and 5, the frame launch and
    resid_plain (CUDA events), and torch.profiler windows over resid calls
    and over each class of the frame launched alone, which give the
@@ -84,8 +91,8 @@ and its bound (wave_work).
    318_tx_4x4.ivf (8, bench.py's frame limit) against the port's host
    path, with no fallback.
 Every decode must make no class_step call, and each, but for the whole
-conformance streams of the vector phase, one wave launch per level with
-items.
+conformance streams of the vector phase, one wave frame launch per frame
+with wave items and no level launch.
 Then neither JAX nor any module of rav1d_tpu may have been imported.
 
 Prints the card's name and power limit, the syntax backend, per-frame
@@ -126,9 +133,10 @@ HOST_PATH_VECTORS = [("8-bit/data/00000627.ivf", 16),
                      ("10-bit/issues/318_tx_4x4.ivf", 8)]
 # inter slots that only 4:2:2 and 4:4:4 reach
 NOT_420 = ("segy00", "segy10")
-# the wave kernel across the run: launches in the decodes, frames compared
-# with wave_plain and the largest difference, per-frame timings by label
-WAVE = {"launches": 0, "compared": 0, "err": 0, "rows": {}}
+# the wave kernels across the run: frame launches in the decodes, frames
+# compared with wave_plain and the largest difference of the frame kernel
+# and of the level kernel, per-frame timings by label
+WAVE = {"launches": 0, "compared": 0, "err": 0, "err_levels": 0, "rows": {}}
 
 
 def log(*a):
@@ -293,15 +301,16 @@ def slice_phase(dev):
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
     warm = [synth.still_picture(256, 128, 7)]
-    levels = wave_levels(synth.capture_frames(warm))
-    TW.calls = WK.launches = 0
+    nframes = wave_frames(synth.capture_frames(warm))
+    TW.calls = WK.launches = WK.level_launches = 0
     synth.decode_md5s(T.Decoder(T.Settings(apply_grain=False), device=dev),
                       warm)
     torch.cuda.synchronize()
-    if TW.calls or WK.launches != levels:
+    if TW.calls or WK.launches != nframes or WK.level_launches:
         raise AssertionError(f"the warm-up decode: {TW.calls} class_step "
-                             f"calls, {WK.launches} wave launches for "
-                             f"{levels} levels")
+                             f"calls, {WK.launches} wave frame launches for "
+                             f"{nframes} frames, {WK.level_launches} level "
+                             "launches")
     launches = worst = 0
     blobs, captured = [], []
     for s in SEEDS:
@@ -317,14 +326,32 @@ def slice_phase(dev):
     return launches, worst, blobs, captured[0]
 
 
-def wave_levels(frames):
-    """The wave levels with items of captured [(f, plan)]'s engine
-    frames: the wave launches their decode makes."""
+def wave_frames(frames):
+    """The engine frames of captured [(f, plan)] with wave items: the wave
+    frame launches their decode makes."""
     from rav1d_tpu_torch.engine.pack import pack_frame
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
-    return sum(len(WK.levels(pack_frame(f, plan).waves))
+    return sum(bool(WK.levels(pack_frame(f, plan).waves))
                for f, plan in frames if plan is not None)
+
+
+def levels_program(planes, ra, d, pk, kw):
+    """programs.wave through the level kernel: the palette scatter, then
+    ops/cuda/wave.py wave_levels (one launch per level with items)."""
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.ops.cuda import wave as WK
+
+    ah, aw = kw["ah"], kw["aw"]
+    pf = P.palette_pf(planes, d, pk.hdr)
+    WK.wave_levels(pf, ra, d, pk.hdr, pk.waves, **wave_kw(kw))
+    return pf[: 3 * ah * aw].view(3, ah, aw)
+
+
+def wave_kw(kw):
+    """The wave wrappers' keywords from wave_input's."""
+    return dict(aw=kw["aw"], psz=kw["ah"] * kw["aw"], bpc=kw["bpc"],
+                ss_hor=kw["ss_hor"], ss_ver=kw["ss_ver"])
 
 
 def inter_phase(dev):
@@ -386,26 +413,30 @@ def inter_timing(dev, frames):
 def profiled_device_ms(fn, reps, name=None):
     """(device time per call of every kernel fn launches, of the kernels
     whose name contains `name`) in a torch.profiler window over `reps`
-    calls; None for a time the profiler does not show."""
+    calls; None for a time the profiler does not show in any of five
+    windows (a window now and then records no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = named = 0.0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
-            t = getattr(e, "device_time_total", None)
-            t = e.cuda_time_total if t is None else t
-            us += t
-            if name is not None and name in e.key:
-                named += t
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = named = 0.0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                t = getattr(e, "device_time_total", None)
+                t = e.cuda_time_total if t is None else t
+                us += t
+                if name is not None and name in e.key:
+                    named += t
+        if us and (named or name is None):
+            break
     return (us / reps / 1e3 if us else None,
             named / reps / 1e3 if named else None)
 
@@ -497,9 +528,9 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     `time_wave`). Then one Decoder(device="cuda") must decode the stream
     frame by frame to the host path's MD5s, with those fallbacks only, no
     upload of a host reference plane, one itx launch per engine frame, one
-    wave launch per level with items, and no call of the plain transforms
-    or of class_step. Returns (itx launches, max |err| of ra, the captured
-    [(f, plan)])."""
+    wave frame launch per engine frame with wave items and no level
+    launch, and no call of the plain transforms or of class_step. Returns
+    (itx launches, max |err| of ra, the captured [(f, plan)])."""
     import torch
 
     import rav1d_tpu_torch as T
@@ -550,7 +581,7 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     # the residual and wave programs on each engine frame's blob against
     # their plain versions (and the allocator brought to the frame's
     # buffer sizes)
-    worst = levels = 0
+    worst = nframes = 0
     for i, (f, plan) in enumerate(frames):
         pk = None if plan is None else pack_frame(f, plan)
         if pk is None:
@@ -568,10 +599,11 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
             blobs.append((f"{label} frame {i}", bpc, d, pk.hdr, pk.tx_valid,
                           ah, aw))
         planes, kw = wave_input(f, plan, pk, d, ra)
-        levels += len(WK.levels(pk.waves))
+        nframes += bool(WK.levels(pk.waves))
         p_ms = None
         if wave_check is None or i in wave_check:
             got = P.wave(planes, ra, d, pk.hdr, pk.waves, **kw)
+            got_l = levels_program(planes, ra, d, pk, kw)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -579,23 +611,28 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
             b.record()
             b.synchronize()
             p_ms = a.elapsed_time(b)
-            err = max_err(got, ref)
+            err, err_l = max_err(got, ref), max_err(got_l, ref)
             WAVE["compared"] += 1
             WAVE["err"] = max(WAVE["err"], err)
-            log(f"  frame {i}: wave (kernel) == wave_plain, max |err| {err}"
-                f" ({len(WK.levels(pk.waves))} levels; wave_plain "
-                f"{p_ms:.1f} ms)")
-            if err:
-                raise AssertionError(f"{label} frame {i}: wave (kernel, "
-                                     f"{bpc} bpc) != wave_plain")
+            WAVE["err_levels"] = max(WAVE["err_levels"], err_l)
+            log(f"  frame {i}: wave (frame kernel) == wave_plain, max |err| "
+                f"{err}; per-level kernel max |err| {err_l} "
+                f"({len(WK.levels(pk.waves))} levels, grid "
+                f"{WK.grid(pk.waves)}; wave_plain {p_ms:.1f} ms)")
+            if err or err_l:
+                raise AssertionError(f"{label} frame {i}: wave (frame kernel "
+                                     f"or level kernel, {bpc} bpc) != "
+                                     "wave_plain")
         if time_wave:
-            WAVE["rows"][f"{label} frame {i}"] = wave_timing(
-                f"{label} frame {i}", pk, d, ra, planes, kw, p_ms)
+            key = f"{label} frame {i}"
+            WAVE["rows"][key] = wave_timing(key, pk, d, ra, planes, kw, p_ms)
+            if key == f"still seed 1 {W}x{H} frame 0":
+                WAVE["still1"] = key, (pk, d, ra, planes, kw)
 
     T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
     I.launches = 0
     kernels.calls = 0
-    WK.launches = 0
+    WK.launches = WK.level_launches = 0
     TW.calls = 0
     dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
     got, fell = [], []
@@ -618,11 +655,12 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     launches = I.launches
     plain_calls = kernels.calls
     stats = dict(T.engine.stats)
-    w_launches, w_calls = WK.launches, TW.calls
+    w_launches, w_level, w_calls = WK.launches, WK.level_launches, TW.calls
     WAVE["launches"] += w_launches
     log(f"  {label}: engine stats {stats}  itx launches {launches}  plain "
-        f"transform calls {plain_calls}  wave launches {w_launches} for "
-        f"{levels} levels with items  class_step calls {w_calls}")
+        f"transform calls {plain_calls}  wave frame launches {w_launches} "
+        f"for {nframes} frames with wave items  level launches {w_level}  "
+        f"class_step calls {w_calls}")
     if got != host:
         raise AssertionError(f"{label}: port output differs from the host "
                              "path")
@@ -638,9 +676,10 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     if plain_calls:
         raise AssertionError(f"{label}: {plain_calls} plain transform calls "
                              "on the card")
-    if w_launches != levels or w_calls:
-        raise AssertionError(f"{label}: {w_launches} wave launches for "
-                             f"{levels} levels, {w_calls} class_step calls")
+    if w_launches != nframes or w_level or w_calls:
+        raise AssertionError(f"{label}: {w_launches} wave frame launches for "
+                             f"{nframes} frames, {w_level} level launches, "
+                             f"{w_calls} class_step calls")
     return launches, worst, frames
 
 
@@ -720,39 +759,127 @@ def wave_work(pk, ss_hor, ss_ver):
 
 
 def wave_timing(label, pk, d, ra, planes, kw, plain_ms):
-    """The wave program alone on a frame's blob: CUDA events per call
-    (host loop included), the device time of all its kernels and of the
-    wave kernel's launches (torch.profiler), the floor of the empty kernel
-    launched the same way over the same levels (CUDA events), and the
-    bound. Returns (ms, device ms, kernel ms, floor ms, plain ms, bytes,
-    operations)."""
+    """The wave program alone on a frame's blob, through the frame kernel
+    (programs.wave) and through the level kernel (levels_program): CUDA
+    events per call (host calls included), the device time of all its
+    kernels and of the wave kernel's launches (torch.profiler), and per
+    level; the frame kernel's barrier-only floor (the same grid, level walk
+    and barriers, no item work; CUDA events and its device time) beside
+    the empty-launch floor of the level kernel's calls (CUDA events); and
+    the bound. Returns a dict of them."""
     from rav1d_tpu_torch.engine import programs as P
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
-    def call():
+    def frame():
         P.wave(planes, ra, d, pk.hdr, pk.waves, **kw)
 
+    def per_level():
+        levels_program(planes, ra, d, pk, kw)
+
     pf = P.palette_pf(planes, d, pk.hdr)
-    ms = cuda_ms(call, 3)
-    dev_ms, k_ms = profiled_device_ms(call, 1, "wave_level_kernel")
-    floor = cuda_ms(lambda: WK.empty_levels(
-        pf, ra, d, pk.hdr, pk.waves, aw=kw["aw"], psz=kw["ah"] * kw["aw"],
-        bpc=kw["bpc"], ss_hor=kw["ss_hor"], ss_ver=kw["ss_ver"]), 3)
+    wk = wave_kw(kw)
+
+    def barriers():
+        WK.barrier_frame(pf, ra, d, pk.hdr, pk.waves, **wk)
+
+    def empty():
+        WK.empty_levels(pf, ra, d, pk.hdr, pk.waves, **wk)
+
+    # in turns: frame, level, level, frame
+    ms = [cuda_ms(frame, 3)]
+    ms_l = [cuda_ms(per_level, 3)]
+    ms_l.append(cuda_ms(per_level, 3))
+    ms.append(cuda_ms(frame, 3))
+    dev_ms, k_ms = profiled_device_ms(frame, 1, "wave_frame_kernel")
+    dev_l, k_l = profiled_device_ms(per_level, 1, "wave_level_kernel")
+    bar_ms = cuda_ms(barriers, 3)
+    bar_dev = profiled_device_ms(barriers, 1, "wave_barrier_kernel")[1]
+    floor = cuda_ms(empty, 3)
+    trace = wave_trace(pk, WK.trace_frame(pf.clone(), ra, d, pk.hdr, pk.waves,
+                                          **wk))
     nbytes, ops = wave_work(pk, kw["ss_hor"], kw["ss_ver"])
     b_ms, b_by = bound(nbytes, ops)
     nl = len(WK.levels(pk.waves))
     items = sum(n for per in pk.waves for _, n, _, _ in per)
+    row = dict(levels=nl, items=items, grid=WK.grid(pk.waves),
+               ms=min(ms), ms_levels=min(ms_l), dev_ms=dev_ms, k_ms=k_ms,
+               dev_levels=dev_l, k_levels=k_l, barrier_ms=bar_ms,
+               barrier_dev=bar_dev, floor=floor, plain_ms=plain_ms,
+               nbytes=nbytes, ops=ops, bound=b_ms, trace=trace)
 
     def txt(v, f="%.3f ms"):
         return "not measured" if v is None else f % v
 
-    log(f"  wave {label}: {nl} levels, {items} items; programs.wave "
-        f"{ms:.3f} ms (CUDA events), device {txt(dev_ms)} (all kernels) "
-        f"of which wave_level_kernel {txt(k_ms)} (torch.profiler); "
-        f"empty-launch floor {floor:.3f} ms over the same levels; bound "
-        f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes, {ops} ops); wave_plain "
-        f"{txt(plain_ms, '%.1f ms')}")
-    return ms, dev_ms, k_ms, floor, plain_ms, nbytes, ops
+    def per(v):
+        return "not measured" if v is None else "%.3f us" % (v * 1e3 / nl)
+
+    log(f"  wave {label}: {nl} levels, {items} items, frame grid "
+        f"{row['grid']} blocks; programs.wave (frame kernel) "
+        f"{ms[0]:.3f}/{ms[1]:.3f} ms (CUDA events), device {txt(dev_ms)} "
+        f"(all kernels) of which wave_frame_kernel {txt(k_ms)} "
+        f"({per(k_ms)} per level; torch.profiler); per-level program "
+        f"{ms_l[0]:.3f}/{ms_l[1]:.3f} ms, device {txt(dev_l)} of which "
+        f"wave_level_kernel {txt(k_l)} ({per(k_l)} per level); barrier-only "
+        f"floor {bar_ms:.3f} ms (CUDA events), device {txt(bar_dev)} "
+        f"({per(bar_dev)} per level); empty-launch floor {floor:.3f} ms "
+        f"({per(floor)} per level); bound {b_ms:.5f} ms ({b_by}: {nbytes} "
+        f"bytes, {ops} ops); wave_plain {txt(plain_ms, '%.1f ms')}")
+    log(f"  wave {label} trace (clock64 cycles per level, mean over "
+        f"levels): {json.dumps(trace)}")
+    return row
+
+
+def wave_trace(pk, clk):
+    """The traced frame kernel's stamps (levels, grid, 6: start, edge
+    built, prediction done, stores done, read-ahead done, arrival made)
+    summed up: per level, the period on the slowest block's SM (its start
+    to its next start), that block's item work split into the edge step,
+    the middle and prediction steps and the store step, what follows its
+    stores (the read-ahead, the arrival's fence and add, the wait); the
+    mean work of all blocks with items; the
+    slowest block's class, and its work by mode code (the share of the
+    summed slowest-block work, the five largest)."""
+    import numpy as np
+
+    from rav1d_tpu_torch.engine.layout import FI
+    from rav1d_tpu_torch.ops.cuda import wave as WK
+
+    c = clk.cpu().numpy().astype(np.int64)
+    start, edge, pred, store, ahead, arrive = (c[..., k] for k in range(6))
+    lv = WK.levels(pk.waves)
+    nl = len(lv)
+    L = np.arange(nl)
+    work = store - start
+    has = np.arange(c.shape[1])[None, :] < np.array(
+        [ns + nl_ for _, ns, nl_ in lv])[:, None]
+    crit = np.where(has, work, -1).argmax(axis=1)
+    period = start[1:, :] - start[:-1, :]
+    after = start[1:, :] - store[:-1, :]
+    modes, large = {}, 0
+    for m, (i, ns, _) in enumerate(lv):
+        b = int(crit[m])
+        rows = pk.waves[i][0 if b < ns else 1][0]
+        mode = int(rows[b if b < ns else b - ns, FI["modes"]])
+        large += b >= ns
+        modes[mode] = modes.get(mode, 0) + int(work[m, b])
+    total = sum(modes.values()) or 1
+    top = sorted(modes.items(), key=lambda kv: -kv[1])[:5]
+
+    def mean(a):
+        return round(float(a.mean()), 1) if a.size else None
+
+    return dict(
+        period=mean(period[L[:-1], crit[:-1]]),
+        crit_work=mean(work[L, crit]),
+        crit_edge=mean((edge - start)[L, crit]),
+        crit_mid_pred=mean((pred - edge)[L, crit]),
+        crit_store=mean((store - pred)[L, crit]),
+        crit_after=mean(after[L[:-1], crit[:-1]]),
+        crit_ahead=mean((ahead - store)[L, crit]),
+        crit_arrive=mean((arrive - store)[L, crit]),
+        mean_work=mean(work[has]),
+        crit_large=round(large / max(nl, 1), 3),
+        crit_modes={str(k): round(v / total, 3) for k, v in top})
 
 
 def high_bitdepth_phase(dev):
@@ -917,8 +1044,9 @@ def residual_phase(dev, frames, tmp):
 def cli_phase(dev, tmp):
     """rav1d_tpu_torch.cli.main on a 640x360 IVF file of an 8-bit inter
     sequence, with --verify at its host-path MD5 and --frametimes: it must
-    return 0 after one itx launch per frame, one wave launch per level with
-    items and no class_step call. Returns the itx launches."""
+    return 0 after one itx launch per frame, one wave frame launch per
+    frame with wave items, no level launch and no class_step call. Returns
+    the itx launches."""
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import cli, synth
     from rav1d_tpu_torch.engine import wave as TW
@@ -926,32 +1054,33 @@ def cli_phase(dev, tmp):
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
     packets = synth.inter_sequence(FMT_W, FMT_H, 8)
-    levels = wave_levels(synth.capture_frames(packets))
+    nframes = wave_frames(synth.capture_frames(packets))
     path = os.path.join(tmp, "cli.ivf")
     synth.write_ivf(path, packets, FMT_W, FMT_H)
     md5 = synth.stream_md5(packets)
     times = os.path.join(tmp, "frametimes.txt")
     fb = T.engine.stats["fallback"]
-    I.launches = WK.launches = TW.calls = 0
+    I.launches = WK.launches = WK.level_launches = TW.calls = 0
     t0 = time.perf_counter()
     rc = cli.main(["-i", path, "--verify", md5, "--frametimes", times])
     wall = time.perf_counter() - t0
     launches = I.launches
-    w_launches, w_calls = WK.launches, TW.calls
+    w_launches, w_level, w_calls = WK.launches, WK.level_launches, TW.calls
     WAVE["launches"] += w_launches
     with open(times) as fh:
         ms = [int(v) / 1e6 for v in fh.read().split()]
     log(f"cli {FMT_W}x{FMT_H}: --verify {md5} rc {rc}, {wall:.2f} s, "
         f"frametimes ms {[round(v, 3) for v in ms]}, itx launches "
-        f"{launches}, wave launches {w_launches} for {levels} levels, "
-        f"class_step calls {w_calls}, fallback "
+        f"{launches}, wave frame launches {w_launches} for {nframes} "
+        f"frames, level launches {w_level}, class_step calls {w_calls}, "
+        f"fallback "
         f"{T.engine.stats['fallback'] - fb}")
     if rc != 0 or launches != len(packets) or len(ms) != len(packets):
         raise AssertionError("cli: --verify failed, or not one itx launch "
                              "and one frame time per frame")
-    if w_launches != levels or w_calls:
-        raise AssertionError("cli: not one wave launch per level, or a "
-                             "class_step call")
+    if w_launches != nframes or w_level or w_calls:
+        raise AssertionError("cli: not one wave frame launch per frame, or "
+                             "a level launch or a class_step call")
     return launches
 
 
@@ -1038,8 +1167,8 @@ def vector_phase(dev, d):
 
 def first_frames_phase(dev, d, rel, n):
     """The first n frames of a vector against the port's host path, with
-    no fallback, one wave launch per level with items and no class_step
-    call."""
+    no fallback, one wave frame launch per frame with wave items, no level
+    launch and no class_step call."""
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import synth
     from rav1d_tpu_torch.engine import wave as TW
@@ -1052,17 +1181,19 @@ def first_frames_phase(dev, d, rel, n):
         return
     packets = [pkt.data for _, pkt in zip(range(n), IvfDemuxer(path))]
     want = []
-    levels = wave_levels(synth.capture_frames(packets, want))
+    nframes = wave_frames(synth.capture_frames(packets, want))
     before = dict(T.engine.stats)
-    TW.calls = WK.launches = 0
+    TW.calls = WK.launches = WK.level_launches = 0
     got = synth.decode_md5s(
         T.Decoder(T.Settings(apply_grain=False), device=dev), packets)
     fb = T.engine.stats["fallback"] - before["fallback"]
     log(f"vector {rel}: {len(got)} frames, "
         f"{sum(a == b for a, b in zip(got, want))} equal to the host path, "
-        f"fallback {fb}, class_step calls {TW.calls}, wave launches "
-        f"{WK.launches} for {levels} levels")
-    if got != want or fb or TW.calls or WK.launches != levels:
+        f"fallback {fb}, class_step calls {TW.calls}, wave frame launches "
+        f"{WK.launches} for {nframes} frames, level launches "
+        f"{WK.level_launches}")
+    if (got != want or fb or TW.calls or WK.launches != nframes
+            or WK.level_launches):
         raise AssertionError(f"{rel}: differs from the host path or fell "
                              f"back ({fb})")
 
@@ -1147,27 +1278,46 @@ def main():
             + ("not measured" if None in devs else f"{sum(devs) / n:.5f} ms")
             + f", bound {b_ms:.5f} ms ({b_by}), resid_plain "
             f"{means[bpc][1]:.4f} ms")
-    for label, (ms, dev_ms, k_ms, floor, pms, nbytes, ops) in \
-            WAVE["rows"].items():
-        log(f"wave per frame {label}: program {ms:.3f} ms, kernel device "
-            + ("not measured" if k_ms is None else f"{k_ms:.3f} ms")
-            + f", empty-launch floor {floor:.3f} ms, bound "
-            f"{bound(nbytes, ops)[0]:.5f} ms"
-            + ("" if pms is None else f", wave_plain {pms:.1f} ms"))
-    log(f"wave kernel: {WAVE['launches']} launches in the decodes, "
+    def txt(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    for label, r in WAVE["rows"].items():
+        log(f"wave per frame {label} ({r['levels']} levels): frame kernel "
+            f"program {r['ms']:.3f} ms, device {txt(r['k_ms'])}; level "
+            f"kernel program {r['ms_levels']:.3f} ms, device "
+            f"{txt(r['k_levels'])}; barrier-only floor {r['barrier_ms']:.3f}"
+            f" ms (device {txt(r['barrier_dev'])}), empty-launch floor "
+            f"{r['floor']:.3f} ms; bound {r['bound']:.5f} ms"
+            + ("" if r["plain_ms"] is None
+               else f", wave_plain {r['plain_ms']:.1f} ms"))
+    log(f"wave kernels: {WAVE['launches']} frame launches in the decodes, "
         f"{WAVE['compared']} frames equal to wave_plain, max |err| "
-        f"{WAVE['err']}")
+        f"{WAVE['err']} (frame kernel), {WAVE['err_levels']} (level kernel)")
+    # the level kernel's own run: its entry over still seed 1's blob, the
+    # count reset before and read after (it is on no decoder path now)
+    lab, (pk1, d1, ra1, planes1, kw1) = WAVE["still1"]
+    WK.level_launches = 0
+    levels_program(planes1, ra1, d1, pk1, kw1)
+    torch.cuda.synchronize()
+    level_launches = WK.level_launches
+    if level_launches != WAVE["rows"][lab]["levels"]:
+        raise AssertionError("the level kernel's own run: not one launch "
+                             "per level")
     kernels = []
     # the itx entry's times and bound: the 8-bit intra pictures' means;
-    # the wave entry's: still seed 1's wave program against wave_plain
-    w_ms, _, _, _, w_pms, w_bytes, w_ops = WAVE["rows"][
-        f"still seed 1 {W}x{H} frame 0"]
+    # the wave entries': still seed 1's wave program through each kernel
+    # against wave_plain
+    w = WAVE["rows"][lab]
     for name, src, replaces, n_launch, err, ms, pms, nbytes, ops in (
         ("itx", "itx.cu", "rav1d_tpu/ops/pallas/itx_all.py:110", launches,
          worst, *means[8]),
         ("idct8x8", "itx.cu", "rav1d_tpu/ops/pallas/itx8.py:97", *i8),
-        ("wave", "wave.cu", "rav1d_tpu/engine/wave2.py:74",
-         WAVE["launches"], WAVE["err"], w_ms, w_pms, w_bytes, w_ops),
+        ("wave", "wave.cu", "rav1d_tpu/engine/wave2.py:74", level_launches,
+         WAVE["err_levels"], w["ms_levels"], w["plain_ms"], w["nbytes"],
+         w["ops"]),
+        ("rav1d_wave_frame", "wave.cu", "rav1d_tpu/engine/mega.py:213",
+         WAVE["launches"], WAVE["err"], w["ms"], w["plain_ms"], w["nbytes"],
+         w["ops"]),
     ):
         b_ms, b_by = bound(nbytes, ops)
         kernels.append({

@@ -1,6 +1,8 @@
-// One level of the intra wavefront, CUDA C++ for sm_90a: every item of the
-// level, both size classes and every prediction mode, in one launch
-// (rav1d_wave_level).
+// The intra wavefront, CUDA C++ for sm_90a: every item of every level of a
+// frame, both size classes and every prediction mode, in one persistent
+// launch with a grid-wide barrier between the levels (rav1d_wave_frame);
+// and the earlier form, one launch per level (rav1d_wave_level), which the
+// tests and chip_smoke.py hold the frame kernel to and time it against.
 //
 // Replaces the XLA device kernel the JAX engine runs once per level and
 // class: rav1d_tpu/engine/wave2.py _class_step (:74) with _build_coords
@@ -24,7 +26,7 @@
 // set and clip, and write the pixels inside (w, h) whose index lies in
 // [0, 3 * psz).
 //
-// Both classes share a launch: thread blocks [0, n_s) take the small
+// Both classes share a level: thread blocks [0, n_s) take the small
 // class's lanes (16x16, cap 64) and [n_s, n_s + n_l) the large class's
 // (64x64, cap 16). engine/plan.py _assign_waves puts every pixel an item
 // reads (edges, CfL luma, its own pixels for IDENT and interintra) in a
@@ -39,28 +41,62 @@
 // 4:2:0 frame at int32 planes (51 MB at 12-bit 4:4:4; chip_smoke.py
 // wave_work), 7-9 us at 3.35 TB/s. Operations: a few tens of int32
 // operations per pixel, below the bytes. The real floor is the dependency
-// chain: a 1080p frame has 1,600-2,500 levels, each a launch that waits
-// for the one before. On an H100 80GB HBM3 an empty kernel launched the
-// same way takes 3.9-4.8 us a level and this kernel 5.9-7.9 us of device
-// time, 10.6-15.3 ms per frame (PERF.md). What the design does: one launch
-// per level (not per level and class), all of an item's intermediates in
-// shared memory (no device buffer, no allocation), the descriptors and
-// tables read in place, and a handful of barriers per item (one per filter
-// intra anti-diagonal). A persistent kernel with a grid-wide barrier
-// between levels, or a captured graph of the launches, would take the
-// launch latency and the host's per-level call off the chain; that is
-// later work.
+// chain: a 1080p frame has 1,600-2,500 levels, each of which waits for the
+// one before. As one launch per level, on an H100 80GB HBM3, an empty
+// kernel launched the same way took 3.9-4.8 us a level and the level
+// kernel 5.9-7.9 us of device time, 10.6-15.3 ms per frame (PERF.md).
 //
-// Design: 256 threads per block for either class; the threads of a block
-// loop over the item's w x h pixels, x fastest (coalesced rows), in steps
-// separated by barriers: (0) the descriptor into shared memory; (1) the
-// edge; then by mode: the Z1/Z3 filtered or upsampled edge vector, the Z2
-// combined edge, filter intra's work buffer and one step per anti-diagonal
-// of its 4x2 sub-blocks, or CfL's subsampled luma and its sum (shared
-// atomics); (n-2) the prediction into a shared (CH, CW) tile, with the
-// interintra blend over the block's own pixels; (n-1) the residual add,
-// clip and store. Reads of the block's own pixels end at the barrier
-// before the store. Shared memory: 35.5 KB per block, static.
+// The frame kernel takes the launches off that chain. One cooperative
+// launch per frame (residency of the whole grid guaranteed, or the launch
+// is refused) of G = the largest n_s + n_l over the frame's levels blocks,
+// one block per SM; each block walks the levels 0..NW-1 that have items
+// (the counts are lane 0's wcount of each class's rows in the blob, as
+// mega.py reads them; a level with none is skipped by every block alike),
+// runs its item of each level (block b: small item b, large item b - n_s,
+// or none) and meets the others at a grid-wide barrier between the levels:
+// a counter in device memory that only rises, zeroed per frame by the
+// wrapper; a block arrives once per level (after a block barrier behind
+// its stores, a release fence at device scope and a relaxed add, as
+// CUTLASS's grid barrier arrives) and waits (an acquiring spin) until the
+// count reaches G times its levels so far. A wait that outlasts ~2^31
+// cycles traps, so a broken barrier fails the launch instead of hanging.
+// What depends on no pixel is read ahead (frame_levels): the next level's
+// number and counts, its descriptor row (loaded into a register per
+// thread during the current level, stored to shared memory after the
+// arrival) and, into registers (struct Pre), the residual and interintra
+// mask words of the block's pixels, its edge coordinates and filter
+// intra's taps; after the barrier only the edge read, the mode's steps,
+// the blend, the residual add and the store remain. Every read of a plane
+// word (the edge, IDENT's and interintra's own pixels, CfL's luma) goes
+// through ld.global.cg (WV_PX): a persistent block keeps its SM's L1
+// across levels, and a line cached there at one level may hold pixels
+// another SM writes at a later one; .cg reads L2, where those writes land.
+// A traced build (wave_trace_kernel) stamps each level's phases per block
+// (chip_smoke.py wave_trace reads them); the barrier-only build
+// (wave_barrier_kernel) walks the same levels with no item work.
+//
+// Design of the steps: 256 threads per block for either class; the
+// threads of a block loop over the item's w x h pixels, x fastest
+// (coalesced rows), in steps separated by block barriers: (0) the
+// descriptor into shared memory; (1) the edge, and from its values filter
+// intra's work buffer edge and the DC value's top and left sums (a warp
+// reduction, then a shared atomic per warp), with CfL's subsampled luma
+// and its sum, whose loads go out beside the edge's; then by mode:
+// the Z1/Z3 filtered or upsampled edge vector, the Z2 combined edge, or
+// one step per anti-diagonal of filter intra's 4x2 sub-blocks (run only
+// by the warps that hold its longest diagonal, with a named barrier among
+// them, each thread's taps and grid read once: FilterWalk); (n-2) the
+// prediction into a shared (CH, CW) tile; (n-1) the interintra blend over
+// the block's own pixels, the residual add, clip and store, each pixel by
+// the thread that predicted it (a pixel's own value is read by the thread
+// that then writes it). A thread starts all its plane loads of a step
+// before its first store (a store through a plain pointer would hold the
+// later loads back). The tables live in shared memory (once per frame in
+// the frame kernel, per launch in the level kernel). Shared memory: 38.4
+// KB per block, static. Both kernels run these same step functions
+// (item_step, item_nsteps, row_of, run_steps); the frame kernel passes its
+// read-ahead, the level kernel computes and reads the same words in the
+// steps.
 //
 // Integer semantics: every add, subtract, multiply and negate that can
 // leave int32 wraps (the frameworks' int32 arithmetic wraps; C++ signed
@@ -68,9 +104,11 @@
 // is arithmetic; sums wrap at int32, as the plain version's int32 sums do.
 //
 // The same source compiles for the host with g++ (the #else branch at the
-// end): rav1d_wave_level_host walks the same blocks with the same step
-// functions, thread by thread, each barrier a loop boundary, for the CPU
-// tests.
+// end): rav1d_wave_level_host and rav1d_wave_frame_host walk the same
+// blocks with the same step functions, thread by thread, each barrier a
+// loop boundary, for the CPU tests. The frame entry runs every block's
+// read-ahead of level i+1 before any item of level i, so a read-ahead that
+// touched a pixel would read it before level i writes it.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -84,7 +122,8 @@
 #define WV_MEM inline
 #endif
 
-// a read of the tables (read-only for the whole launch)
+// a read of the tables, the blob or the residuals (read-only for the
+// whole launch)
 WV_HD int WV_LD(const int* p) {
 #ifdef __CUDA_ARCH__
     return __ldg(p);
@@ -92,6 +131,22 @@ WV_HD int WV_LD(const int* p) {
     return *p;
 #endif
 }
+
+// a read of a plane word, which an earlier level may have written: from
+// L2, never from a line the SM's L1 kept
+WV_HD int WV_PX(const int* p) {
+#ifdef __CUDA_ARCH__
+    return __ldcg(p);
+#else
+    return *p;
+#endif
+}
+
+#ifdef __CUDACC__
+#define WV_UNROLL _Pragma("unroll")
+#else
+#define WV_UNROLL
+#endif
 
 WV_HD int wadd(int a, int b) { return (int)((uint32_t)a + (uint32_t)b); }
 WV_HD int wsub(int a, int b) { return (int)((uint32_t)a - (uint32_t)b); }
@@ -106,18 +161,36 @@ WV_HD int fdiv(int a, int b) {
     return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 WV_HD int fmodi(int a, int b) { return wsub(a, wmul(fdiv(a, b), b)); }
+// the row and column of pixel q >= 0 of a block ew > 0 wide: shifts when
+// ew is a power of two (every AV1 block), a division otherwise
+WV_HD void rowcol(int q, int ew, int& y, int& x) {
+    if ((ew & (ew - 1)) == 0) {
+#ifdef __CUDA_ARCH__
+        y = q >> (__ffs(ew) - 1);
+#else
+        y = q >> __builtin_ctz((unsigned)ew);
+#endif
+        x = q & (ew - 1);
+    } else {
+        y = q / ew;
+        x = q - y * ew;
+    }
+}
 
 #define WV_THREADS 256
 #define WV_FIELDS 21
 #define WV_CAP_S 64   // engine/plan.py CAP
 #define WV_CAP_L 16
+#define WV_PRE (64 * 64 / WV_THREADS)  // a thread's pixels in a 64x64 item
 
 // descriptor fields (engine/layout.py FIELDS)
 enum {
     F_MODES, F_ANGLES, F_FLAT0, F_RMASK, F_Z2MW, F_Z2MH, F_Z2SM, F_CFLA,
     F_CFL0, F_CFLWP, F_CFLHP, F_W, F_H, F_IIOFF, F_WFLAGS, F_WCOUNT, F_HAV,
     F_PHL, F_PHBL, F_PHT, F_PHTR,
-    F_SUM = WV_FIELDS  // the CfL ac sum, beside the fields in shared memory
+    // beside the fields in shared memory: the CfL ac sum, and the sums of
+    // the top and left edge that the DC value reads (dc_value)
+    F_SUM = WV_FIELDS, F_TSUM, F_LSUM
 };
 
 // mode codes (syntax/levels.py, engine/plan.py MODE_*)
@@ -153,6 +226,19 @@ struct WaveFrame {
     int bpc;
     int ss_hor;
     int ss_ver;
+    int nw;           // the levels (hdr[WAVE0]); the frame kernel walks them
+};
+
+// What the frame kernel reads ahead of a level for one thread: the
+// residual (0 where rmask is off or the pixel lies outside the planes) and
+// the interintra mask word of each of its pixels q = t + k * WV_THREADS,
+// the coordinates (edge_coord) of its edge positions, and filter intra's
+// taps.
+struct Pre {
+    int r[WV_PRE];
+    int m[WV_PRE];
+    int ec[2];  // the edge coordinates of positions t and t + WV_THREADS
+    int ft[7];  // filter intra's taps of output t & 7 (filter items only)
 };
 
 // shared memory words of one block, laid out for the large class
@@ -161,13 +247,20 @@ struct WaveFrame {
 #define SM_VEC (SM_EDGE + 260)        // Z1/Z3 vector (<= 256), Z2 edge
 #define SM_OUT (SM_VEC + 260)         // (CH, CW) prediction / CfL ac
 #define SM_FBUF (SM_OUT + 64 * 64)    // filter intra (CH + 1, CW + 1)
-#define SM_WORDS (SM_FBUF + 65 * 65)
+#define SM_TAB (SM_FBUF + 65 * 65)    // the tables (T_LEN)
+#define SM_WORDS (SM_TAB + T_LEN)
 
-WV_HD int ctz_t(const int* tab, int v) { return WV_LD(tab + T_CTZ + clampi(v, 0, 256)); }
-WV_HD int dr_t(const int* tab, int i) { return WV_LD(tab + T_DR + clampi(i, 0, 43)); }
-WV_HD int sm_t(const int* tab, int i) { return WV_LD(tab + T_SM + clampi(i, 0, 127)); }
+// the tables into shared memory, thread t's share (before a block barrier)
+WV_HD void tab_load(int* sm, const int* tab, int t) {
+    for (int i = t; i < T_LEN; i += WV_THREADS) sm[SM_TAB + i] = WV_LD(tab + i);
+}
+
+// reads of the tables in shared memory (tab = sm + SM_TAB)
+WV_HD int ctz_t(const int* tab, int v) { return tab[T_CTZ + clampi(v, 0, 256)]; }
+WV_HD int dr_t(const int* tab, int i) { return tab[T_DR + clampi(i, 0, 43)]; }
+WV_HD int sm_t(const int* tab, int i) { return tab[T_SM + clampi(i, 0, 127)]; }
 WV_HD int ek_t(const int* tab, int fs, int j) {
-    return WV_LD(tab + T_EK + 5 * (imax(fs, 1) - 1) + j);
+    return tab[T_EK + 5 * (imax(fs, 1) - 1) + j];
 }
 
 // _get_filter_strength and _upsample of the directional modes (per item)
@@ -208,13 +301,14 @@ struct Item {
     const WaveFrame& p;
     int* sm;
     const int* d;   // the descriptor in shared memory
+    const int* tab; // the tables in shared memory
     int* e;         // the edge
     int* vec;
     int* out;
     int* fbuf;
     int w, h, ew, eh;  // block size; the part inside the class
     WV_MEM Item(const WaveFrame& p_, int* sm_)
-        : p(p_), sm(sm_), d(sm_ + SM_DSC), e(sm_ + SM_EDGE),
+        : p(p_), sm(sm_), d(sm_ + SM_DSC), tab(sm_ + SM_TAB), e(sm_ + SM_EDGE),
           vec(sm_ + SM_VEC), out(sm_ + SM_OUT), fbuf(sm_ + SM_FBUF) {
         w = d[F_W];
         h = d[F_H];
@@ -271,18 +365,15 @@ WV_HD int edge_coord(const Item<CW, CH>& it, int q) {
 }
 
 // the DC value of dc_dyn, dc_top_dyn, dc_left_dyn, dc_128_dyn by code (the
-// CfL codes by their DC variant; any other code: DC)
+// CfL codes by their DC variant; any other code: DC), after the edge step
 template <int CW, int CH>
 WV_HD int dc_value(const Item<CW, CH>& it, int code) {
-    const int* tab = it.p.tab;
+    const int* tab = it.tab;
     const int w = it.w, h = it.h;
     if (code == M_DC_128 || code == M_CFL_128) return (1 << it.p.bpc) >> 1;
-    int tsum = 0, lsum = 0;
-    const int nt = clampi(w, 0, 2 * CW), nl = clampi(h, 0, 2 * CH);
-    if (code != M_LEFT_DC && code != M_CFL_LEFT)
-        for (int i = 0; i < nt; i++) tsum = wadd(tsum, it.top(i));
-    if (code != M_TOP_DC && code != M_CFL_TOP)
-        for (int j = 0; j < nl; j++) lsum = wadd(lsum, it.left(j));
+    // the sums of top(i), i < clamp(w, 0, 2 CW), and of left(j),
+    // j < clamp(h, 0, 2 CH), that the edge step made
+    const int tsum = it.d[F_TSUM], lsum = it.d[F_LSUM];
     if (code == M_TOP_DC || code == M_CFL_TOP)
         return wadd(tsum, w >> 1) >> ctz_t(tab, w);
     if (code == M_LEFT_DC || code == M_CFL_LEFT)
@@ -316,7 +407,7 @@ WV_HD int z1_vec(const Item<CW, CH>& it, int i) {
         for (int j = 0; j < 4; j++) s[j] = it.E(C + 1 + imin(imax(k + j - 1, -1), hi - 1));
         return (i & 1) == 0 ? s[1] : ups_odd(s[0], s[1], s[2], s[3], it.pxmax());
     }
-    if (fs > 0) return i < wh ? filt5(it.p.tab, fs, taps) : taps[2];
+    if (fs > 0) return i < wh ? filt5(it.tab, fs, taps) : taps[2];
     return taps[2];
 }
 
@@ -340,7 +431,7 @@ WV_HD int z3_vec(const Item<CW, CH>& it, int i) {
         const int kf = wh - 1 - i;
         int taps[5];
         for (int j = 0; j < 5; j++) taps[j] = it.E(C - wh + imin(imax(kf + j - 2, lo), wh));
-        return filt5(it.p.tab, fs, taps);
+        return filt5(it.tab, fs, taps);
     }
     return it.E(C - 1 - i);
 }
@@ -381,7 +472,7 @@ WV_HD int z2_vec(const Item<CW, CH>& it, int q, int tl) {
         const int fs = ief ? fs_t(wh, angle - 90, is_sm) : 0;
         const int i_a = j - 1;
         for (int m = 0; m < 5; m++) s[m] = z2_e(it, C + imin(imax(j + m - 2, 0), w), tl);
-        return (i_a >= 0 && i_a < it.d[F_Z2MW] && fs > 0) ? filt5(it.p.tab, fs, s) : s[2];
+        return (i_a >= 0 && i_a < it.d[F_Z2MW] && fs > 0) ? filt5(it.tab, fs, s) : s[2];
     }
     // below: s_b(k) = edge[C - h + clip(k, 0, h)]
     const int ul = ief ? ups_t(wh, 180 - angle, is_sm) : 0;
@@ -393,7 +484,7 @@ WV_HD int z2_vec(const Item<CW, CH>& it, int q, int tl) {
     const int fs = ief ? fs_t(wh, 180 - angle, is_sm) : 0;
     const int i_l = j + h;
     for (int m = 0; m < 5; m++) s[m] = z2_e(it, C - h + imin(imax(i_l + m - 2, 0), h), tl);
-    return (i_l >= h - it.d[F_Z2MH] && i_l < h && fs > 0) ? filt5(it.p.tab, fs, s) : s[2];
+    return (i_l >= h - it.d[F_Z2MH] && i_l < h && fs > 0) ? filt5(it.tab, fs, s) : s[2];
 }
 
 // the interpolation between two samples at 1/64 positions
@@ -405,7 +496,7 @@ WV_HD int interp(int t0, int t1, int frac) {
 template <int CW, int CH>
 WV_HD int predict(const Item<CW, CH>& it, int mode, int y, int x, int dc) {
     constexpr int C = Item<CW, CH>::C;
-    const int* tab = it.p.tab;
+    const int* tab = it.tab;
     const int w = it.w, h = it.h;
     switch (mode) {
         case M_V: return it.top(x);
@@ -481,27 +572,188 @@ WV_HD bool uses_dc(int mode) {
         || mode < 0 || mode > M_IDENT;
 }
 
+// Filter intra's anti-diagonals of 4x2 sub-blocks (steps 2 .. 2 + n - 1),
+// and the threads that compute them (8 per sub-block of the longest
+// diagonal, in whole warps); valid after step 0.
+template <int CW, int CH>
+WV_HD int filter_diags(const int* sm) {
+    const int ew = clampi(sm[SM_DSC + F_W], 0, CW);
+    const int eh = clampi(sm[SM_DSC + F_H], 0, CH);
+    return imax(((eh + 1) >> 1) + ((ew + 3) >> 2) - 1, 0);
+}
+template <int CW, int CH>
+WV_HD int filter_threads(const int* sm) {
+    const int ew = clampi(sm[SM_DSC + F_W], 0, CW);
+    const int eh = clampi(sm[SM_DSC + F_H], 0, CH);
+    const int most = imin((eh + 1) >> 1, (ew + 3) >> 2);
+    return imin((8 * most + 31) & ~31, WV_THREADS);
+}
+
 // The number of steps of the item in shared memory (valid after step 0).
 template <int CW, int CH>
 WV_HD int item_nsteps(const int* sm) {
     const int mode = sm[SM_DSC + F_MODES];
-    if (is_z(mode) || is_cfl(mode)) return 5;
-    if (mode == M_FILTER) {
-        const int ew = clampi(sm[SM_DSC + F_W], 0, CW);
-        const int eh = clampi(sm[SM_DSC + F_H], 0, CH);
-        return 5 + imax(((eh + 1) >> 1) + ((ew + 3) >> 2) - 1, 0);
-    }
+    if (is_z(mode)) return 5;
+    if (mode == M_FILTER) return 4 + filter_diags<CW, CH>(sm);
     return 4;
+}
+
+// the interintra mask word of pixel (y, x) of the item whose masks start
+// at `iioff` (stored at the class width's stride)
+template <int CW>
+WV_HD int mask_word(const WaveFrame& p, int iioff, int y, int x) {
+    const int mi = wadd(wadd(wadd(p.mask_base, iioff), wmul(y, CW)), x);
+    return WV_LD(p.blob + clampi(mi, 0, p.blob_len - 1));
+}
+
+// The read-ahead of thread t for the item whose descriptor is in shared
+// memory (after step 0): no plane word is read.
+template <int CW, int CH>
+WV_HD void item_pre(int t, const WaveFrame& p, int* sm, Pre& pre) {
+    static_assert(CW * CH / WV_THREADS <= WV_PRE, "Pre holds a 64x64 item");
+    const Item<CW, CH> it(p, sm);
+    WV_UNROLL
+    for (int k = 0; k < 2; k++)
+        if (t + k * WV_THREADS < Item<CW, CH>::EL) pre.ec[k] = edge_coord(it, t + k * WV_THREADS);
+    const int* d = sm + SM_DSC;
+    const int ew = clampi(d[F_W], 0, CW), eh = clampi(d[F_H], 0, CH);
+    const int npx = ew * eh;
+    const int flat0 = d[F_FLAT0], rmask = d[F_RMASK] != 0, iioff = d[F_IIOFF];
+    WV_UNROLL
+    for (int k = 0; k < CW * CH / WV_THREADS; k++) {
+        const int q = t + k * WV_THREADS;
+        if (q >= npx) break;
+        int y, x;
+        rowcol(q, ew, y, x);
+        const int idx = wadd(wadd(flat0, wmul(y, p.aw)), x);
+        pre.r[k] = rmask && idx >= 0 && idx < p.n3 ? WV_LD(p.ra + idx) : 0;
+        pre.m[k] = iioff >= 0 ? mask_word<CW>(p, iioff, y, x) : 0;
+    }
+    if (d[F_MODES] == M_FILTER) {
+        const int fi = clampi(d[F_ANGLES] & 511, 0, 4);
+        for (int j = 0; j < 7; j++) pre.ft[j] = sm[SM_TAB + T_FT + fi * 56 + (t & 7) * 7 + j];
+    }
+}
+
+// What filter intra's anti-diagonal steps of thread t read, once per item:
+// the sub-block grid, the output's taps, the work buffer.
+struct FilterWalk {
+    int nxg, nyg, k, pxmax;
+    int tap[7];
+    int* fbuf;
+};
+
+template <int CW, int CH>
+WV_HD FilterWalk filter_walk(const Item<CW, CH>& it, int t, const Pre* pre) {
+    FilterWalk fw;
+    fw.nxg = (it.ew + 3) >> 2;
+    fw.nyg = (it.eh + 1) >> 1;
+    fw.k = t & 7;
+    fw.pxmax = it.pxmax();
+    fw.fbuf = it.fbuf;
+    const int fi = clampi(it.d[F_ANGLES] & 511, 0, 4);
+    const int* f = it.tab + T_FT + fi * 56 + fw.k * 7;
+    for (int j = 0; j < 7; j++) fw.tap[j] = pre ? pre->ft[j] : f[j];
+    return fw;
+}
+
+// anti-diagonal `diag` of filter intra's 4x2 sub-blocks: one thread per
+// output (8 per sub-block)
+template <int CW>
+WV_HD void filter_diag(const FilterWalk& fw, int diag, int t) {
+    constexpr int FP = CW + 1;
+    const int iy = imax(0, diag - (fw.nxg - 1)) + (t >> 3), ix = diag - iy;
+    if (iy >= fw.nyg || ix < 0) return;
+    const int k = fw.k, y = 2 * iy, x = 4 * ix;
+    const int* b = fw.fbuf;
+    int acc = 0;
+    for (int j = 0; j < 5; j++) acc = wadd(acc, wmul(fw.tap[j], b[y * FP + x + j]));
+    acc = wadd(acc, wmul(fw.tap[5], b[(y + 1) * FP + x]));
+    acc = wadd(acc, wmul(fw.tap[6], b[(y + 2) * FP + x]));
+    fw.fbuf[(y + 1 + (k >> 2)) * FP + x + 1 + (k & 3)] = clampi(wadd(acc, 8) >> 4, 0, fw.pxmax);
+}
+
+// Step 0, the descriptor into shared memory, in its two halves: the word
+// thread t loads from the row at blob word `row`, and its store (with the
+// zeros of the sums beside it).
+WV_HD int desc_load(const WaveFrame& p, int row, int t) {
+    return t < WV_FIELDS ? p.blob[row + t] : 0;
+}
+WV_HD void desc_store(int* sm, int t, int w) {
+    if (t < WV_FIELDS) sm[SM_DSC + t] = w;
+    if (t >= F_SUM && t <= F_LSUM) sm[SM_DSC + t] = 0;
+}
+
+// *sum += v over the block's threads (int32, wrapping): a warp's values
+// summed by a shuffle reduction, then one shared atomic per warp
+WV_HD void block_add(int* sum, int v) {
+#ifdef __CUDA_ARCH__
+    v = __reduce_add_sync(0xffffffffu, v);
+    if ((threadIdx.x & 31) == 0) atomicAdd(sum, v);
+#else
+    *sum = wadd(*sum, v);
+#endif
+}
+
+// CfL's subsampled luma at each pixel's clamped position (cfl_ac_dyn) into
+// the (CH, CW) tile, and its sum over the block (shared atomics). Every
+// luma load of the thread is started before the first store to the tile (a
+// store through a plain pointer would hold back the loads after it).
+template <int CW, int CH>
+WV_HD void cfl_luma(const Item<CW, CH>& it, int t, int* sm) {
+    constexpr int KP = CW * CH / WV_THREADS;
+    const WaveFrame& p = it.p;
+    const int* d = it.d;
+    const int npx = it.ew * it.eh;
+    const int ssh = p.ss_hor, ssv = p.ss_ver;
+    const int sh = 1 + (ssv == 0) + (ssh == 0);
+    const int vw = it.w - 4 * d[F_CFLWP], vh = it.h - 4 * d[F_CFLHP];
+    int acc[KP];
+    WV_UNROLL
+    for (int k = 0; k < KP; k++) {
+        const int q = t + k * WV_THREADS;
+        if (q >= npx) break;
+        int y, x;
+        rowcol(q, it.ew, y, x);
+        const int pos = clampi(imin(y, vh - 1) * CW + imin(x, vw - 1), 0, CH * CW - 1);
+        const int sy = pos / CW, sx = pos - sy * CW;
+        int a = 0;
+        for (int dy = 0; dy < 2; dy++)
+            for (int dx = 0; dx < 2; dx++) {
+                if (dy > ssv || dx > ssh) continue;
+                const int li = wadd(wadd(d[F_CFL0], wmul((sy << ssv) + dy, p.aw)),
+                                    (sx << ssh) + dx);
+                a = wadd(a, WV_PX(p.pf + clampi(li, 0, p.n3 - 1)));
+            }
+        acc[k] = wmul(a, 1 << sh);
+    }
+    int sum = 0;
+    WV_UNROLL
+    for (int k = 0; k < KP; k++) {
+        const int q = t + k * WV_THREADS;
+        if (q >= npx) break;
+        int y, x;
+        rowcol(q, it.ew, y, x);
+        it.out[y * CW + x] = acc[k];
+        sum = wadd(sum, acc[k]);
+    }
+#ifdef __CUDA_ARCH__
+    atomicAdd(sm + SM_DSC + F_SUM, sum);
+#else
+    sm[SM_DSC + F_SUM] = wadd(sm[SM_DSC + F_SUM], sum);
+#endif
 }
 
 // Step s of thread t in the block of the item whose descriptor row starts
 // at blob word `row`. The steps run in order, each finished by every
-// thread before the next begins.
+// thread before the next begins. `pre` is the thread's read-ahead (the
+// frame kernel), or null: the store step then reads the residual and the
+// mask itself (the level kernel).
 template <int CW, int CH>
-WV_HD void item_step(int s, int t, const WaveFrame& p, int row, int* sm) {
+WV_HD void item_step(int s, int t, const WaveFrame& p, int row, int* sm,
+                     const Pre* pre = nullptr) {
     if (s == 0) {
-        if (t < WV_FIELDS) sm[SM_DSC + t] = p.blob[row + t];
-        if (t == F_SUM) sm[SM_DSC + F_SUM] = 0;
+        desc_store(sm, t, desc_load(p, row, t));
         return;
     }
     const Item<CW, CH> it(p, sm);
@@ -510,54 +762,115 @@ WV_HD void item_step(int s, int t, const WaveFrame& p, int row, int* sm) {
     const int mode = d[F_MODES];
     const int n = item_nsteps<CW, CH>(sm);
     const int npx = it.ew * it.eh;
-    if (s == 1) {  // the edge
-        for (int q = t; q < Item<CW, CH>::EL; q += WV_THREADS) {
-            const int c = edge_coord(it, q);
-            it.e[q] = c < 0 ? wsub(wneg(c), 1) : p.pf[clampi(c, 0, p.n3 - 1)];
+    if (s == 1) {  // the edge, and what needs it no sooner than its values
+        constexpr int EL = Item<CW, CH>::EL;
+        constexpr int FP = CW + 1;
+        static_assert(EL <= 2 * WV_THREADS, "Pre holds two edge positions");
+        const int nt = clampi(it.w, 0, 2 * CW), nl = clampi(it.h, 0, 2 * CH);
+        int tsum = 0, lsum = 0, ev[2];
+        WV_UNROLL
+        for (int k = 0; k < 2; k++) {  // the edge loads, in flight together
+            const int q = t + k * WV_THREADS;
+            if (q >= EL) break;
+            const int c = pre ? pre->ec[k] : edge_coord(it, q);
+            ev[k] = c < 0 ? wsub(wneg(c), 1) : WV_PX(p.pf + clampi(c, 0, p.n3 - 1));
+        }
+        if (is_cfl(mode)) cfl_luma(it, t, sm);  // CfL's luma: its loads join them
+        WV_UNROLL
+        for (int k = 0; k < 2; k++) {
+            const int q = t + k * WV_THREADS;
+            if (q >= EL) break;
+            const int v = ev[k];
+            it.e[q] = v;
+            if (mode == M_FILTER) {  // filter intra's work buffer: top row, left column
+                if (q >= C && q <= C + CW) it.fbuf[q - C] = v;
+                else if (q >= C - CH && q < C) it.fbuf[(C - q) * FP] = v;
+            }
+            if (q > C && q <= C + nt) tsum = wadd(tsum, v);  // top(q - C - 1)
+            if (q < C && q >= C - nl) lsum = wadd(lsum, v);  // left(C - 1 - q)
+        }
+        if (uses_dc(mode)) {  // the DC value's sums (dc_value)
+            block_add(sm + SM_DSC + F_TSUM, tsum);
+            block_add(sm + SM_DSC + F_LSUM, lsum);
         }
         return;
     }
-    if (s == n - 1) {  // residual add, clip, store
+    if (s == n - 1) {  // interintra blend, residual add, clip, store
+        constexpr int KP = CW * CH / WV_THREADS;
         const int flat0 = d[F_FLAT0], rmask = d[F_RMASK] != 0;
+        const int iioff = d[F_IIOFF];
         const int pxmax = it.pxmax();
-        for (int q = t; q < npx; q += WV_THREADS) {
-            const int y = q / it.ew, x = q - y * it.ew;
+        int own[KP];  // interintra's own pixels, all loads started before a store
+        if (iioff >= 0) {
+            WV_UNROLL
+            for (int k = 0; k < KP; k++) {
+                const int q = t + k * WV_THREADS;
+                if (q >= npx) break;
+                int y, x;
+                rowcol(q, it.ew, y, x);
+                const int idx = wadd(wadd(flat0, wmul(y, p.aw)), x);
+                own[k] = idx >= 0 && idx < p.n3 ? WV_PX(p.pf + idx) : 0;
+            }
+        }
+        WV_UNROLL
+        for (int k = 0; k < KP; k++) {
+            const int q = t + k * WV_THREADS;
+            if (q >= npx) break;
+            int y, x;
+            rowcol(q, it.ew, y, x);
             const int idx = wadd(wadd(flat0, wmul(y, p.aw)), x);
             if (idx < 0 || idx >= p.n3) continue;
             int v = it.out[y * CW + x];
-            if (rmask) v = clampi(wadd(v, p.ra[idx]), 0, pxmax);
+            if (iioff >= 0) {
+                const int m = pre ? pre->m[k] : mask_word<CW>(p, iioff, y, x);
+                v = wadd(wadd(wmul(own[k], 64 - m), wmul(v, m)), 32) >> 6;
+            }
+            if (rmask) v = clampi(wadd(v, pre ? pre->r[k] : p.ra[idx]), 0, pxmax);
             p.pf[idx] = v;
         }
         return;
     }
-    if (s == n - 2) {  // the prediction, then the interintra blend
-        const int flat0 = d[F_FLAT0], iioff = d[F_IIOFF];
+    if (s == n - 2 && mode == M_IDENT) {  // the prediction: its own pixels
+        constexpr int KP = CW * CH / WV_THREADS;
+        const int flat0 = d[F_FLAT0];
+        int own[KP];  // every load started before a store to the tile
+        WV_UNROLL
+        for (int k = 0; k < KP; k++) {
+            const int q = t + k * WV_THREADS;
+            if (q >= npx) break;
+            int y, x;
+            rowcol(q, it.ew, y, x);
+            own[k] = WV_PX(p.pf + clampi(wadd(wadd(flat0, wmul(y, p.aw)), x), 0, p.n3 - 1));
+        }
+        WV_UNROLL
+        for (int k = 0; k < KP; k++) {
+            const int q = t + k * WV_THREADS;
+            if (q >= npx) break;
+            int y, x;
+            rowcol(q, it.ew, y, x);
+            it.out[y * CW + x] = own[k];
+        }
+        return;
+    }
+    if (s == n - 2) {  // the prediction
         const int dc = uses_dc(mode) ? dc_value(it, mode) : 0;
         int avg = 0;
         if (is_cfl(mode)) {
-            const int l2 = ctz_t(p.tab, it.w) + ctz_t(p.tab, it.h);
+            const int l2 = ctz_t(it.tab, it.w) + ctz_t(it.tab, it.h);
             avg = wadd((1 << l2) >> 1, d[F_SUM]) >> l2;
         }
         for (int q = t; q < npx; q += WV_THREADS) {
-            const int y = q / it.ew, x = q - y * it.ew;
-            const int idx = wadd(wadd(flat0, wmul(y, p.aw)), x);
+            int y, x;
+            rowcol(q, it.ew, y, x);
             int v;
             if (mode == M_FILTER) {
                 v = it.fbuf[(y + 1) * (CW + 1) + x + 1];
-            } else if (mode == M_IDENT) {
-                v = p.pf[clampi(idx, 0, p.n3 - 1)];
             } else if (is_cfl(mode)) {
                 const int diff = wmul(d[F_CFLA], wsub(it.out[y * CW + x], avg));
                 const int mag = wadd(diff < 0 ? wneg(diff) : diff, 32) >> 6;
                 v = clampi(wadd(dc, diff < 0 ? wneg(mag) : mag), 0, it.pxmax());
             } else {
                 v = predict(it, mode, y, x, dc);
-            }
-            if (iioff >= 0) {
-                const int own = p.pf[clampi(idx, 0, p.n3 - 1)];
-                const int mi = wadd(wadd(wadd(p.mask_base, iioff), wmul(y, CW)), x);
-                const int m = p.blob[clampi(mi, 0, p.blob_len - 1)];
-                v = wadd(wadd(wmul(own, 64 - m), wmul(v, m)), 32) >> 6;
             }
             it.out[y * CW + x] = v;
         }
@@ -570,83 +883,100 @@ WV_HD void item_step(int s, int t, const WaveFrame& p, int row, int* sm) {
     } else if (mode == M_Z2) {
         const int tl = z2_tl(it);
         for (int q = t; q < Item<CW, CH>::EL; q += WV_THREADS) it.vec[q] = z2_vec(it, q, tl);
-    } else if (is_cfl(mode)) {
-        // the subsampled luma at each pixel's clamped position
-        // (cfl_ac_dyn), and its sum over the block
-        const int ssh = p.ss_hor, ssv = p.ss_ver;
-        const int sh = 1 + (ssv == 0) + (ssh == 0);
-        const int vw = it.w - 4 * d[F_CFLWP], vh = it.h - 4 * d[F_CFLHP];
-        int sum = 0;
-        for (int q = t; q < npx; q += WV_THREADS) {
-            const int y = q / it.ew, x = q - y * it.ew;
-            const int pos = clampi(imin(y, vh - 1) * CW + imin(x, vw - 1), 0, CH * CW - 1);
-            const int sy = pos / CW, sx = pos - sy * CW;
-            int acc = 0;
-            for (int dy = 0; dy <= ssv; dy++)
-                for (int dx = 0; dx <= ssh; dx++) {
-                    const int li = wadd(wadd(d[F_CFL0], wmul((sy << ssv) + dy, p.aw)),
-                                        (sx << ssh) + dx);
-                    acc = wadd(acc, p.pf[clampi(li, 0, p.n3 - 1)]);
-                }
-            acc = wmul(acc, 1 << sh);
-            it.out[y * CW + x] = acc;
-            sum = wadd(sum, acc);
-        }
-#ifdef __CUDA_ARCH__
-        atomicAdd(sm + SM_DSC + F_SUM, sum);
-#else
-        sm[SM_DSC + F_SUM] = wadd(sm[SM_DSC + F_SUM], sum);
-#endif
     } else if (mode == M_FILTER) {
-        constexpr int FP = CW + 1;
-        if (s == 2) {  // the work buffer's top row and left column
-            for (int q = t; q < FP + CH; q += WV_THREADS) {
-                if (q < FP) it.fbuf[q] = it.e[C + q];
-                else it.fbuf[(q - CW) * FP] = it.e[C - (q - CW)];
-            }
-            return;
-        }
-        // anti-diagonal s - 3 of the 4x2 sub-blocks: one thread per output
-        const int diag = s - 3;
-        const int nxg = (it.ew + 3) >> 2, nyg = (it.eh + 1) >> 1;
-        const int iy = imax(0, diag - (nxg - 1)) + (t >> 3), ix = diag - iy;
-        if (iy >= nyg || ix < 0) return;
-        const int k = t & 7;
-        const int y = 2 * iy, x = 4 * ix;
-        const int fi = clampi(d[F_ANGLES] & 511, 0, 4);
-        const int* f = p.tab + T_FT + fi * 56 + k * 7;
-        const int* b = it.fbuf;
-        int acc = 0;
-        for (int j = 0; j < 5; j++) acc = wadd(acc, wmul(WV_LD(f + j), b[y * FP + x + j]));
-        acc = wadd(acc, wmul(WV_LD(f + 5), b[(y + 1) * FP + x]));
-        acc = wadd(acc, wmul(WV_LD(f + 6), b[(y + 2) * FP + x]));
-        it.fbuf[(y + 1 + (k >> 2)) * FP + x + 1 + (k & 3)] =
-            clampi(wadd(acc, 8) >> 4, 0, it.pxmax());
+        filter_diag<CW>(filter_walk(it, t, pre), s - 2, t);
     }
 }
 
-// thread block b of a launch: the small class's lanes, then the large's
+// thread block b of a level: the small class's lanes, then the large's
 WV_HD int row_of(const WaveFrame& p, int wave, int n_s, int b) {
     return b < n_s ? p.base_s + (wave * WV_CAP_S + b) * WV_FIELDS
                    : p.base_l + (wave * WV_CAP_L + b - n_s) * WV_FIELDS;
+}
+
+// the blob word of level j's class-`cls` item count (lane 0's wcount)
+WV_HD const int* count_at(const WaveFrame& p, int j, int cls) {
+    return p.blob + (cls ? p.base_l + j * WV_CAP_L * WV_FIELDS
+                         : p.base_s + j * WV_CAP_S * WV_FIELDS) + F_WCOUNT;
+}
+
+// The first level after `lvl` with items, and its counts (clamped to each
+// class's cap); p.nw if none is left.
+WV_HD int next_level(const WaveFrame& p, int lvl, int* n_s, int* n_l) {
+    for (int j = lvl + 1; j < p.nw; j++) {
+        *n_s = clampi(WV_LD(count_at(p, j, 0)), 0, WV_CAP_S);
+        *n_l = clampi(WV_LD(count_at(p, j, 1)), 0, WV_CAP_L);
+        if (*n_s + *n_l) return j;
+    }
+    *n_s = *n_l = 0;
+    return p.nw;
 }
 
 extern "C" int rav1d_wave_table_len(void) { return T_LEN; }
 
 #ifdef __CUDACC__
 
+// The traced frame kernel's clock stamps (clock64 of thread 0, after a
+// block barrier), per level with items and block: the level's start (its
+// wait returned), the edge built (step 1), the prediction done (before
+// the store step), the stores done, the read-ahead of the next level done
+// (before the wait for it), and (by the arriving thread) the arrival.
+enum { ST_START, ST_EDGE, ST_PRED, ST_STORE, ST_AHEAD, ST_ARRIVED, WV_STAMPS };
+
+__device__ __forceinline__ void stamp(long long* st, int k, int by = 0) {
+    if (st && threadIdx.x == by) st[k] = clock64();
+}
+
+__device__ __forceinline__ int next_desc(const WaveFrame& p, const int* ctl, int b, int t);
+
+// Steps 1.. of the item whose descriptor is in shared memory, each
+// followed by a block barrier, but for filter intra's anti-diagonals:
+// only the threads that compute them run them, with a named barrier
+// (id 1) among themselves, and one block barrier after the last. `pre`:
+// the frame kernel's read-ahead, or null (the level kernel). With `ctl`,
+// each thread loads its word of the next level's descriptor into `*dw`
+// after the edge step.
 template <int CW, int CH>
-__device__ __forceinline__ void run_item(const WaveFrame& p, int row, int* sm) {
-    item_step<CW, CH>(0, threadIdx.x, p, row, sm);
-    __syncthreads();
+__device__ __forceinline__ void run_steps(const WaveFrame& p, int row, int* sm,
+                                          const Pre* pre, const int* ctl, int b,
+                                          int* dw, long long* st) {
+    const int t = threadIdx.x;
     const int n = item_nsteps<CW, CH>(sm);
     for (int s = 1; s < n; s++) {
-        item_step<CW, CH>(s, threadIdx.x, p, row, sm);
+        if (s == 2 && n > 4 && sm[SM_DSC + F_MODES] == M_FILTER) {
+            const int nd = n - 4, nt = filter_threads<CW, CH>(sm);
+            if (t < nt) {  // item_step's diagonal steps, their walk made once
+                const FilterWalk fw = filter_walk(Item<CW, CH>(p, sm), t, pre);
+                for (int k = 0; k < nd; k++) {
+                    filter_diag<CW>(fw, k, t);
+                    asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
+                }
+            }
+            __syncthreads();
+            s += nd - 1;  // on to step n - 2
+            continue;
+        }
+        item_step<CW, CH>(s, t, p, row, sm, pre);
         if (s + 1 < n) __syncthreads();
+        if (s == 1) {
+            stamp(st, ST_EDGE);
+            if (ctl) *dw = next_desc(p, ctl, b, t);
+        }
+        if (s == n - 2) stamp(st, ST_PRED);
     }
 }
 
-__global__ void __launch_bounds__(WV_THREADS)
+template <int CW, int CH>
+__device__ __forceinline__ void run_item(const WaveFrame& p, int row, int* sm) {
+    tab_load(sm, p.tab, threadIdx.x);
+    item_step<CW, CH>(0, threadIdx.x, p, row, sm);
+    __syncthreads();
+    run_steps<CW, CH>(p, row, sm, nullptr, nullptr, 0, nullptr, nullptr);
+}
+
+// one block per SM is all a level (at most 80 blocks) or a frame needs:
+// the bound lets ptxas give each thread the registers of its read-ahead
+__global__ void __launch_bounds__(WV_THREADS, 1)
 wave_level_kernel(const __grid_constant__ WaveFrame p, int wave, int n_s) {
     __shared__ int sm[SM_WORDS];
     const int b = blockIdx.x;
@@ -659,9 +989,142 @@ wave_level_kernel(const __grid_constant__ WaveFrame p, int wave, int n_s) {
 __global__ void wave_empty_kernel(const __grid_constant__ WaveFrame p, int wave,
                                   int n_s) {}
 
-// Plain C entries (bound with ctypes): one launch over level `wave`'s n_s
-// small-class and n_l large-class items on `stream`. Return the launch's
-// cudaGetLastError().
+// ---- the frame kernel ----
+
+#define WV_SPIN_CYCLES (1ll << 31)  // ~1 s at 1.98 GHz: far above any level
+
+// Arrive at the grid barrier, after a block barrier that follows every
+// store of the level: a release fence at device scope, then the count's
+// add (CUTLASS's grid barrier arrives so), by a thread of warp 1, so that
+// warp 0's read-ahead does not wait for it.
+#define WV_ARRIVER 32
+__device__ __forceinline__ void grid_arrive(int* bar, long long* st) {
+    if (threadIdx.x == WV_ARRIVER) {
+        asm volatile("fence.acq_rel.gpu;\n\tred.relaxed.gpu.global.add.s32 [%0], %1;"
+                     ::"l"(bar), "r"(1) : "memory");
+        stamp(st, ST_ARRIVED, WV_ARRIVER);
+    }
+}
+
+// Wait until `target` arrivals: one thread spins on an acquiring load,
+// then the block barrier hands the order on to every thread.
+__device__ __forceinline__ void grid_wait(const int* bar, int target) {
+    if (threadIdx.x == 0) {
+        const long long t0 = clock64();
+        for (;;) {
+            int v;
+            asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(bar) : "memory");
+            if (v >= target) break;
+            if (clock64() - t0 > WV_SPIN_CYCLES) __trap();
+        }
+    }
+    __syncthreads();
+}
+
+// thread t's descriptor word of block b's item in the level whose number
+// and counts are in `ctl` (0 if the block has none there)
+__device__ __forceinline__ int next_desc(const WaveFrame& p, const int* ctl, int b, int t) {
+    return ctl[0] < p.nw && b < ctl[1] + ctl[2] ? desc_load(p, row_of(p, ctl[0], ctl[1], b), t)
+                                                 : 0;
+}
+
+// Every level of the frame; without WORK only the level walk and the
+// barriers (the dependency floor). With `clk`, the stamps of item level m
+// and block b at clk[(m * gridDim.x + b) * WV_STAMPS].
+//
+// The read-ahead is spread so that what follows a block's arrival is short
+// (the last block to arrive starts the next level only when it is done):
+// thread 0 learns the next level's number and counts (next_level) while
+// the block waits at the barrier before the current level, and publishes
+// them in `ctl` at the level's start; after the edge step each thread
+// loads its word of the next level's descriptor into a register (dw);
+// after the arrival the block stores it, thread 0 looks up the level
+// after, and each thread starts its Pre loads, then the block waits.
+template <bool WORK>
+__device__ __forceinline__ void frame_levels(const WaveFrame& p, int* bar, int* sm,
+                                             int* ctl, long long* clk) {
+    const int b = blockIdx.x, t = threadIdx.x, G = gridDim.x;
+    Pre pre;
+    int nx = 0, nx_s = 0, nx_l = 0;  // thread 0: the item level after `lvl`
+    if (WORK) tab_load(sm, p.tab, t);  // once per frame
+    if (t == 0) {
+        ctl[0] = next_level(p, -1, &ctl[1], &ctl[2]);
+        if (ctl[1] + ctl[2] > G) __trap();  // a grid smaller than a level
+    }
+    __syncthreads();
+    int lvl = ctl[0], n_s = ctl[1], n_l = ctl[2], arrived = 0;
+    int dw = WORK ? next_desc(p, ctl, b, t) : 0;
+    long long* prev = nullptr;
+    while (lvl < p.nw) {
+        const bool item = WORK && b < n_s + n_l;
+        long long* st = clk ? clk + ((long long)arrived * G + b) * WV_STAMPS : nullptr;
+        // the read-ahead of level lvl
+        if (item) desc_store(sm, t, dw);
+        if (t == 0) {
+            nx = next_level(p, lvl, &nx_s, &nx_l);
+            if (nx_s + nx_l > G) __trap();
+        }
+        __syncthreads();
+        if (item) {
+            if (b < n_s) item_pre<16, 16>(t, p, sm, pre);
+            else item_pre<64, 64>(t, p, sm, pre);
+        }
+        stamp(prev, ST_AHEAD);
+        if (arrived) grid_wait(bar, arrived * G);
+        // level lvl
+        stamp(st, ST_START);
+        if (t == 0) {
+            ctl[0] = nx;
+            ctl[1] = nx_s;
+            ctl[2] = nx_l;
+        }
+        if (item) {
+            const int row = row_of(p, lvl, n_s, b);
+            if (b < n_s) run_steps<16, 16>(p, row, sm, &pre, ctl, b, &dw, st);
+            else run_steps<64, 64>(p, row, sm, &pre, ctl, b, &dw, st);
+        } else {
+            __syncthreads();
+            if (WORK) dw = next_desc(p, ctl, b, t);
+            stamp(st, ST_EDGE);
+            stamp(st, ST_PRED);
+        }
+        __syncthreads();
+        stamp(st, ST_STORE);
+        grid_arrive(bar, st);
+        arrived++;
+        lvl = ctl[0];
+        n_s = ctl[1];
+        n_l = ctl[2];
+        prev = st;
+    }
+    stamp(prev, ST_AHEAD);
+}
+
+__global__ void __launch_bounds__(WV_THREADS, 1)
+wave_frame_kernel(const __grid_constant__ WaveFrame p, int* bar) {
+    __shared__ int sm[SM_WORDS];
+    __shared__ int ctl[3];
+    frame_levels<true>(p, bar, sm, ctl, nullptr);
+}
+
+// the frame kernel with its clock stamps, for measurement
+__global__ void __launch_bounds__(WV_THREADS, 1)
+wave_trace_kernel(const __grid_constant__ WaveFrame p, int* bar, long long* clk) {
+    __shared__ int sm[SM_WORDS];
+    __shared__ int ctl[3];
+    frame_levels<true>(p, bar, sm, ctl, clk);
+}
+
+__global__ void __launch_bounds__(WV_THREADS)
+wave_barrier_kernel(const __grid_constant__ WaveFrame p, int* bar) {
+    __shared__ int ctl[3];
+    frame_levels<false>(p, bar, nullptr, ctl, nullptr);
+}
+
+// Plain C entries (bound with ctypes). Return the launch's error code.
+
+// One launch over level `wave`'s n_s small-class and n_l large-class items
+// on `stream`.
 extern "C" int rav1d_wave_level(const WaveFrame* f, int wave, int n_s, int n_l,
                                 void* stream) {
     if (n_s < 0 || n_l < 0 || n_s > WV_CAP_S || n_l > WV_CAP_L) return -1;
@@ -677,7 +1140,39 @@ extern "C" int rav1d_wave_empty(const WaveFrame* f, int wave, int n_s, int n_l,
     return (int)cudaGetLastError();
 }
 
+static int launch_frame(const void* kernel, const WaveFrame* f, int grid, int* bar,
+                        long long* clk, void* stream) {
+    if (grid < 1 || grid > WV_CAP_S + WV_CAP_L) return -1;
+    void* args[] = {(void*)f, (void*)&bar, (void*)&clk};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        kernel, dim3(grid), dim3(WV_THREADS), args, 0, (cudaStream_t)stream);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// One cooperative launch of `grid` blocks over every level of the frame;
+// `bar` is one int32 in device memory, 0 at the launch.
+extern "C" int rav1d_wave_frame(const WaveFrame* f, int grid, int* bar, void* stream) {
+    return launch_frame((const void*)wave_frame_kernel, f, grid, bar, nullptr, stream);
+}
+
+// the same grid, levels and barriers with no item work
+extern "C" int rav1d_wave_barriers(const WaveFrame* f, int grid, int* bar, void* stream) {
+    return launch_frame((const void*)wave_barrier_kernel, f, grid, bar, nullptr, stream);
+}
+
+// rav1d_wave_frame with the clock stamps of every item level and block in
+// `clk` (levels x grid x WV_STAMPS int64)
+extern "C" int rav1d_wave_trace(const WaveFrame* f, int grid, int* bar, long long* clk,
+                                void* stream) {
+    return launch_frame((const void*)wave_trace_kernel, f, grid, bar, clk, stream);
+}
+
+extern "C" int rav1d_wave_stamps(void) { return WV_STAMPS; }
+
 #else  // a host build of the same functions, for the CPU tests
+
+#include <utility>
+#include <vector>
 
 // One thread block on the host: each step for every thread in turn. The
 // shared words start as a pattern, so a read of a word no step wrote shows.
@@ -685,7 +1180,10 @@ template <int CW, int CH>
 static void host_item(const WaveFrame& p, int row) {
     static int sm[SM_WORDS];
     for (int i = 0; i < SM_WORDS; i++) sm[i] = 0x5a5a5a5a;
-    for (int t = 0; t < WV_THREADS; t++) item_step<CW, CH>(0, t, p, row, sm);
+    for (int t = 0; t < WV_THREADS; t++) {
+        tab_load(sm, p.tab, t);
+        item_step<CW, CH>(0, t, p, row, sm);
+    }
     const int n = item_nsteps<CW, CH>(sm);
     for (int s = 1; s < n; s++)
         for (int t = 0; t < WV_THREADS; t++) item_step<CW, CH>(s, t, p, row, sm);
@@ -705,6 +1203,96 @@ extern "C" int rav1d_wave_level_host(const WaveFrame* f, int wave, int n_s,
         else host_item<64, 64>(*f, row);
     }
     return 0;
+}
+
+// A frame-kernel block's state between its read-ahead and its item: the
+// descriptor words of its shared memory and each thread's Pre.
+struct HostBlock {
+    int dsc[SM_EDGE];
+    Pre pre[WV_THREADS];
+};
+
+// The frame kernel's read-ahead on the host, for every block (in the
+// order `reverse` gives): the next level after `lvl` and, for each block
+// with an item in it, step 0 and item_pre into its HostBlock. Returns the
+// level; -1 for a level with more items than blocks.
+static int host_read_ahead(const WaveFrame& p, int lvl, int grid, int reverse,
+                           std::vector<HostBlock>& blk, int* n_s, int* n_l) {
+    static int sm[SM_WORDS];
+    const int next = next_level(p, lvl, n_s, n_l);
+    if (*n_s + *n_l > grid) return -1;
+    for (int i = 0; i < grid; i++) {
+        const int b = reverse ? grid - 1 - i : i;
+        HostBlock& hb = blk[b];
+        for (int w = 0; w < SM_WORDS; w++) sm[w] = 0x5a5a5a5a;
+        for (int t = 0; t < WV_THREADS; t++) tab_load(sm, p.tab, t);
+        if (next < p.nw && b < *n_s + *n_l) {
+            const int row = row_of(p, next, *n_s, b);
+            for (int t = 0; t < WV_THREADS; t++) desc_store(sm, t, desc_load(p, row, t));
+            for (int t = 0; t < WV_THREADS; t++) {
+                if (b < *n_s) item_pre<16, 16>(t, p, sm, hb.pre[t]);
+                else item_pre<64, 64>(t, p, sm, hb.pre[t]);
+            }
+        }
+        for (int w = 0; w < SM_EDGE; w++) hb.dsc[w] = sm[SM_DSC + w];
+    }
+    return next;
+}
+
+template <int CW, int CH>
+static void host_steps(const WaveFrame& p, int row, const HostBlock& hb) {
+    static int sm[SM_WORDS];
+    for (int i = 0; i < SM_WORDS; i++) sm[i] = 0x5a5a5a5a;
+    for (int t = 0; t < WV_THREADS; t++) tab_load(sm, p.tab, t);
+    for (int w = 0; w < SM_EDGE; w++) sm[SM_DSC + w] = hb.dsc[w];
+    const int n = item_nsteps<CW, CH>(sm);
+    for (int s = 1; s < n; s++)
+        for (int t = 0; t < WV_THREADS; t++)
+            item_step<CW, CH>(s, t, p, row, sm, &hb.pre[t]);
+}
+
+// rav1d_wave_frame's arguments without the barrier word and the stream:
+// walks the levels as the frame kernel does, and runs every block's
+// read-ahead of the next level before any item of the current one; the
+// blocks of a level in order, or from the last one back if `reverse`.
+// Returns 0, or -1 for a grid the kernel does not take.
+extern "C" int rav1d_wave_frame_host(const WaveFrame* f, int grid, int reverse) {
+    if (grid < 1 || grid > WV_CAP_S + WV_CAP_L) return -1;
+    const WaveFrame& p = *f;
+    std::vector<HostBlock> cur(grid), nxt(grid);
+    int n_s, n_l, m_s, m_l;
+    int lvl = host_read_ahead(p, -1, grid, reverse, cur, &n_s, &n_l);
+    while (lvl >= 0 && lvl < p.nw) {
+        const int next = host_read_ahead(p, lvl, grid, reverse, nxt, &m_s, &m_l);
+        if (next < 0) return -1;
+        for (int i = 0; i < grid; i++) {
+            const int b = reverse ? grid - 1 - i : i;
+            if (b >= n_s + n_l) continue;
+            const int row = row_of(p, lvl, n_s, b);
+            if (b < n_s) host_steps<16, 16>(p, row, cur[b]);
+            else host_steps<64, 64>(p, row, cur[b]);
+        }
+        std::swap(cur, nxt);
+        lvl = next;
+        n_s = m_s;
+        n_l = m_l;
+    }
+    return lvl < 0 ? -1 : 0;
+}
+
+// The levels the frame kernel walks: (level, n_s, n_l) triples into `out`
+// (room for `cap`); returns how many there are.
+extern "C" int rav1d_wave_frame_levels_host(const WaveFrame* f, int* out, int cap) {
+    int n = 0, n_s, n_l;
+    for (int lvl = next_level(*f, -1, &n_s, &n_l); lvl < f->nw;
+         lvl = next_level(*f, lvl, &n_s, &n_l), n++) {
+        if (n < cap) {
+            out[3 * n] = lvl;
+            out[3 * n + 1] = n_s;
+            out[3 * n + 2] = n_l;
+        }
+    }
+    return n;
 }
 
 #endif  // __CUDACC__

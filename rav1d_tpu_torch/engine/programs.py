@@ -436,19 +436,19 @@ def palette_pf(planes, dev, hdr):
 
 def wave(planes, ra, dev, hdr, waves, *, ah, aw, bpc, ss_hor, ss_ver):
     """Palette scatters then the intra wavefront, wave by wave (the
-    recon_b_intra order of src/recon.rs:2402): on the card one launch of
-    the wave kernel per level with items (ops/cuda/wave.py wave_levels),
-    the plain version `wave_plain` on the CPU. `waves` is the packer's
-    per-wave host view (engine/pack.py FramePack.waves); only its item
-    counts are read here."""
+    recon_b_intra order of src/recon.rs:2402): on the card one persistent
+    launch of the wave kernel per frame, a grid-wide barrier between its
+    levels (ops/cuda/wave.py wave_frame), the plain version `wave_plain` on
+    the CPU. `waves` is the packer's per-wave host view (engine/pack.py
+    FramePack.waves); only its item counts are read here."""
     if planes.device.type == "cpu":
         return wave_plain(planes, ra, dev, hdr, waves, ah=ah, aw=aw, bpc=bpc,
                           ss_hor=ss_hor, ss_ver=ss_ver)
     psz = ah * aw
     pf = palette_pf(planes, dev, hdr)
     if waves:
-        cuda_wave.wave_levels(pf, ra, dev, hdr, waves, aw=aw, psz=psz,
-                              bpc=bpc, ss_hor=ss_hor, ss_ver=ss_ver)
+        cuda_wave.wave_frame(pf, ra, dev, hdr, waves, aw=aw, psz=psz,
+                             bpc=bpc, ss_hor=ss_hor, ss_ver=ss_ver)
     return pf[: 3 * psz].view(3, ah, aw)
 
 

@@ -1,19 +1,29 @@
-"""The wave kernel's wrapper: one launch per level of the intra wavefront.
+"""The wave kernel's wrappers: the intra wavefront of a frame on the card.
 
-`wave_levels(pf, ra, dev, hdr, waves, ...)` runs the frame's intra
-wavefront on the card: for each level with items, one launch of the
-hand-written kernel csrc/wave.cu rav1d_wave_level (built at first use),
-which predicts, blends, adds the residual and writes back every item of
-the level, both size classes and every mode, reading the descriptors and
-the interintra masks from the frame blob. Its plain version is
-engine/wave.py class_step, small class then large class per level
+`wave_frame(pf, ra, dev, hdr, waves, ...)` runs the frame's intra
+wavefront as one cooperative launch of the hand-written kernel csrc/wave.cu
+rav1d_wave_frame (built at first use): a persistent grid of `grid(waves)`
+blocks walks every level with items, with a grid-wide barrier between the
+levels, and predicts, blends, adds the residual and writes back every item
+of each level, both size classes and every mode, reading the descriptors,
+the level counts and the interintra masks from the frame blob.
+`wave_levels` is the earlier form of the same work, one launch of
+rav1d_wave_level per level with items, kept as what the frame kernel is
+held to and timed against. Their plain version is engine/wave.py
+class_step, small class then large class per level
 (engine/programs.wave_plain).
 
-The wrapper takes CUDA tensors only and raises on anything else or on a
-failed launch; engine/programs.wave runs the plain version on the CPU.
-`launches` counts the kernel launches. `empty_levels` launches an empty
-kernel over the same grids through the same call path (the launch path's
-own cost, for measurement).
+The wrappers take CUDA tensors only and raise on anything else, on a
+failed or refused launch (a grid the card cannot keep resident is
+refused), and never fall back; engine/programs.wave runs the plain
+version on the CPU. A barrier wait that outlasts about a second traps in
+the kernel, and the next synchronising call raises. `launches` counts the
+frame launches and `level_launches` the per-level ones. `empty_levels`
+launches an empty kernel over the grids of wave_levels through the same
+calls (the launch path's own cost), `barrier_frame` the frame kernel's
+level walk and barriers with no item work (its dependency floor) and
+`trace_frame` the frame kernel with clock stamps per level and block;
+none of them is counted.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from ...engine.plan import CAP
 from . import build
 
 launches = 0
+level_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,7 +56,7 @@ class WaveFrame(ctypes.Structure):
     _fields_ = [("pf", _P), ("ra", _P), ("blob", _P), ("tab", _P),
                 ("n3", _I), ("blob_len", _I), ("base_s", _I),
                 ("base_l", _I), ("mask_base", _I), ("aw", _I), ("psz", _I),
-                ("bpc", _I), ("ss_hor", _I), ("ss_ver", _I)]
+                ("bpc", _I), ("ss_hor", _I), ("ss_ver", _I), ("nw", _I)]
 
 
 def lib():
@@ -57,6 +68,12 @@ def lib():
         for fn in (so.rav1d_wave_level, so.rav1d_wave_empty):
             fn.argtypes = [_P, _I, _I, _I, _P]
             fn.restype = _I
+        for fn in (so.rav1d_wave_frame, so.rav1d_wave_barriers):
+            fn.argtypes = [_P, _I, _P, _P]
+            fn.restype = _I
+        so.rav1d_wave_trace.argtypes = [_P, _I, _P, _P, _P]
+        so.rav1d_wave_trace.restype = _I
+        so.rav1d_wave_stamps.restype = _I
         so.rav1d_wave_table_len.restype = _I
         if so.rav1d_wave_table_len() != table_numpy().size:
             raise RuntimeError("csrc/wave.cu's table layout differs from "
@@ -107,10 +124,14 @@ def frame_args(pf, ra, dev, hdr, waves, *, aw, psz, bpc, ss_hor, ss_ver):
                 <= dev.numel()):
             raise ValueError(f"wave kernel: descriptor region at {base} "
                              f"does not fit a blob of {dev.numel()} words")
+    nw = int(hdr[WAVE0]) if waves else 0
+    if nw != len(waves):
+        raise ValueError(f"wave kernel: hdr[WAVE0] = {nw} levels, the "
+                         f"packer's view has {len(waves)}")
     return WaveFrame(pf.data_ptr(), ra.data_ptr(), dev.data_ptr(),
                      tab.data_ptr(), n3, dev.numel(), int(hdr[WAVE0 + 1]),
                      int(hdr[WAVE0 + 2]), int(hdr[WAVE0 + 3]), aw, psz, bpc,
-                     ss_hor, ss_ver)
+                     ss_hor, ss_ver, nw)
 
 
 def levels(waves):
@@ -120,25 +141,86 @@ def levels(waves):
             if s[1] or l[1]]
 
 
-def _run(entry, counted, pf, ra, dev, hdr, waves, kw):
-    global launches
+def grid(waves):
+    """The frame kernel's blocks: the most items of any level (0 if none)."""
+    return max((ns + nl for _, ns, nl in levels(waves)), default=0)
+
+
+def _args(pf, ra, dev, hdr, waves, kw):
     if pf.device.type != "cuda":
         raise ValueError(f"wave kernel: CUDA tensors only, got {pf.device}")
     f = frame_args(pf, ra, dev, hdr, waves, **kw)
+    return f, torch.cuda.current_stream(pf.device).cuda_stream
+
+
+def _run(entry, counted, pf, ra, dev, hdr, waves, kw):
+    global level_launches
+    f, stream = _args(pf, ra, dev, hdr, waves, kw)
     fn = getattr(lib(), entry)
     ref = ctypes.byref(f)
-    stream = torch.cuda.current_stream(pf.device).cuda_stream
     for i, ns, nl in levels(waves):
         rc = fn(ref, i, ns, nl, stream)
         if rc != 0:
             raise RuntimeError(f"wave kernel launch failed at level {i}: "
                                f"error {rc}")
-        launches += counted
+        level_launches += counted
+
+
+def _frame(entry, pf, ra, dev, hdr, waves, kw, *extra):
+    """One cooperative launch of `entry` over the frame (`extra` pointers
+    after the barrier word); False if no level has items (nothing is
+    launched)."""
+    f, stream = _args(pf, ra, dev, hdr, waves, kw)
+    for i, ns, nl in levels(waves):
+        if ns > CAP[0] or nl > CAP[1]:
+            raise ValueError(f"wave kernel: level {i} has {ns} + {nl} "
+                             f"items, over the caps {CAP}")
+    g = grid(waves)
+    if not g:
+        return False
+    bar = torch.zeros(1, dtype=I32, device=pf.device)  # the barrier count
+    rc = getattr(lib(), entry)(ctypes.byref(f), g, bar.data_ptr(), *extra,
+                               stream)
+    if rc != 0:
+        raise RuntimeError(f"wave kernel: the cooperative launch of {g} "
+                           f"blocks failed (cudaError {rc})")
+    return True
+
+
+def wave_frame(pf, ra, dev, hdr, waves, *, aw, psz, bpc, ss_hor, ss_ver):
+    """The frame's intra wavefront in place on pf (int32, on the card): one
+    cooperative launch of the frame kernel if any level has items, on the
+    current stream."""
+    global launches
+    kw = dict(aw=aw, psz=psz, bpc=bpc, ss_hor=ss_hor, ss_ver=ss_ver)
+    launches += _frame("rav1d_wave_frame", pf, ra, dev, hdr, waves, kw)
+
+
+def barrier_frame(pf, ra, dev, hdr, waves, *, aw, psz, bpc, ss_hor, ss_ver):
+    """The frame kernel's grid, level walk and barriers with no item work:
+    the floor that the chain of levels alone sets. Not counted."""
+    kw = dict(aw=aw, psz=psz, bpc=bpc, ss_hor=ss_hor, ss_ver=ss_ver)
+    _frame("rav1d_wave_barriers", pf, ra, dev, hdr, waves, kw)
+
+
+def trace_frame(pf, ra, dev, hdr, waves, *, aw, psz, bpc, ss_hor, ss_ver):
+    """wave_frame through the frame kernel's traced build, which also
+    writes the SM's clock64 at each stamp of csrc/wave.cu (ST_START ..
+    ST_ARRIVED) for every level with items and block: returns them as an
+    int64 tensor (levels, grid, stamps) on the card. For measurement; not
+    counted."""
+    kw = dict(aw=aw, psz=psz, bpc=bpc, ss_hor=ss_hor, ss_ver=ss_ver)
+    clk = torch.zeros((len(levels(waves)), grid(waves),
+                       lib().rav1d_wave_stamps()), dtype=torch.int64,
+                      device=pf.device)
+    _frame("rav1d_wave_trace", pf, ra, dev, hdr, waves, kw, clk.data_ptr())
+    return clk
 
 
 def wave_levels(pf, ra, dev, hdr, waves, *, aw, psz, bpc, ss_hor, ss_ver):
     """The frame's intra wavefront in place on pf (int32, on the card), one
-    launch per level with items, on the current stream."""
+    launch of the level kernel per level with items, on the current
+    stream."""
     kw = dict(aw=aw, psz=psz, bpc=bpc, ss_hor=ss_hor, ss_ver=ss_ver)
     _run("rav1d_wave_level", 1, pf, ra, dev, hdr, waves, kw)
 
