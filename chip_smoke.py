@@ -16,31 +16,31 @@ Phases (any failure exits non-zero before the last line):
    itx.py itx and wht), against the plain torch versions on the card, all
    19 tx sizes and the WHT x bpc 8/10/12, N=1000 random int32 blocks
    including extreme values; bit-identical required;
-Each stream below runs through stream_on_card: the port's host path
-(Decoder(host_path=True), captured) must give the committed digests
-(rav1d_tpu_torch/smoke_digests.json) where there are some; on each
-engine frame's blob, packed from that capture, the residual program (one
-itx launch) must equal resid_plain, and the wave program (one launch of
-the wave frame kernel) and its per-level form (one launch of the level
-kernel per level with items) must both equal wave_plain on the same input
-(zero planes, or the inter program's on an inter frame; at 1080p only on
-still seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain
-wavefront takes 10-30 s each); then one rav1d_tpu_torch.Decoder(
-device="cuda") decodes the stream frame by frame to the host path's MD5s
+Each stream of phases 3-7 runs through stream_on_card: the port's host
+path (Decoder(host_path=True), captured) must give the committed digests
+(rav1d_tpu_torch/smoke_digests.json) where there are some; on each engine
+frame's blob, packed from that capture, the residual program (one itx
+launch) must equal resid_plain, and the wave program (one launch of the
+wave frame kernel) and its per-level form (one launch of the level kernel
+per level with items) must both equal wave_plain on the same input (zero
+planes, or the inter program's on an inter frame; at 1080p only on still
+seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain wavefront
+takes 10-30 s each); then one rav1d_tpu_torch.Decoder(device="cuda") at
+frame delay 1 decodes the stream frame by frame to the host path's MD5s
 with no fallback but the planner's own, no upload of a host reference
-plane (every reference is the engine's own device output), exactly one
-itx launch per engine frame, one wave frame launch per engine frame with
-wave items and no level launch, and no call of the plain transforms
+plane (every reference is the engine's own device output), exactly one itx
+launch per engine frame, one wave frame launch per engine frame with wave
+items and no level launch, and no call of the plain transforms
 (engine/kernels.py itx_any_core, wht_core) or of the plain wave step
-(engine/wave.py class_step), printing per-frame stage_ms and the wall
-time the stages leave (the host front end). At 1080p, per frame: the
-wave program through each entry alone (CUDA events), the device time of
-all its kernels and of the frame kernel, or of the level kernel's
-launches (torch.profiler), per level, the barrier-only floor of the
-frame kernel (the same grid, level walk and barriers, no item work) and
-the floor of an empty kernel launched as the level kernel is over the
-same levels, the bound (wave_work), and the traced frame kernel's
-per-level phases in clock cycles (wave_trace).
+(engine/wave.py class_step), printing per-frame stage_ms and the wall time
+the stages leave (the host front end and the planner). At 1080p, per
+frame: the wave program through each entry alone (CUDA events), the device
+time of all its kernels and of the frame kernel, or of the level kernel's
+launches (torch.profiler), per level, the barrier-only floor of the frame
+kernel (the same grid, level walk and barriers, no item work) and the
+floor of an empty kernel launched as the level kernel is over the same
+levels, the bound (wave_work), and the traced frame kernel's per-level
+phases in clock cycles (wave_trace).
 3. slice: seeded 1920x1080 synthetic AV1 still pictures
    (rav1d_tpu_torch/synth.py), after a small picture's decode;
 4. inter: a seeded 1920x1080 synthetic inter sequence (synth.
@@ -76,16 +76,29 @@ per-level phases in clock cycles (wave_trace).
    per-frame times are printed (the decode also makes one wave frame
    launch per frame with wave items, no level launch and no class_step
    call);
-10. timing: on the blobs of phases 3 and 5, the frame launch and
+10. pipeline: the frame ring (pipeline_phase): the 1080p 8-bit and 10-bit
+   inter sequences, the 8-bit 640x360 header-tools sequence (2x2 tiles),
+   the 640x360 superres sequence (its fourth frame falls back to the host
+   path and reads engine-decoded references on the ring's worker) and a
+   640x360 intrabc sequence, each at delays 2 and 3 under
+   torch.cuda.set_sync_debug_mode("error"), must equal delay 1: MD5s,
+   fallback frames, engine stats and launch counts. Then the 1080p inter
+   sequence's packets three times over (9 units) at delays 1, 2, 3 and 1,
+   and at delay 2 with the interpreter's switch interval at 0.5 ms: per
+   run the stream's wall and mean per frame, the caller's thread's time
+   in send_data, the syntax pass and get_picture, the dense passes' time
+   (the worker's busy time) with the planner's and pack's shares, and the
+   CUDA-event stages;
+11. timing: on the blobs of phases 3 and 5, the frame launch and
    resid_plain (CUDA events), and torch.profiler windows over resid calls
    and over each class of the frame launched alone, which give the
    kernel's device time apart from its launch;
-11. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
+12. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
    entry point driven once at N=16384 with the launch count reset before
    and read after, then the kernel against idct8x8_batch_plain,
    bit-identical at N=256 for bpc 8/10/12 (1/8 of the blocks full-range
    int32) and at N=16384, where both are timed;
-12. vectors: with `--test-data DIR` naming a dav1d-test-data directory,
+13. vectors: with `--test-data DIR` naming a dav1d-test-data directory,
    two conformance streams against their meson MD5s, and the first frames
    of the bench's inter stream (16) and of its 10-bit stream
    318_tx_4x4.ivf (8, bench.py's frame limit) against the port's host
@@ -634,7 +647,9 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     kernels.calls = 0
     WK.launches = WK.level_launches = 0
     TW.calls = 0
-    dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
+    # delay 1: the frame ring off, so that stage_ms stays per frame
+    dec = T.Decoder(T.Settings(apply_grain=False, max_frame_delay=1),
+                    device=dev)
     got, fell = [], []
     for i, data in enumerate(packets):  # frame by frame: stage_ms per frame
         run.reset_stats()
@@ -1084,6 +1099,231 @@ def cli_phase(dev, tmp):
     return launches
 
 
+PIPE = {}  # the pipeline phase's counts, for the kernels line
+
+
+def ring_decode(dev, packets, d, times=None):
+    """One Decoder(max_frame_delay=d) decode of `packets` on the card, as
+    dav1d's CLI calls it (one get_picture per send_data, then the drain
+    handshake). Returns (the MD5s in output order, the decode order's
+    fallback frames, what it added to the counters). With `times`, a dict,
+    it also puts there, in ms, the stream's wall; on the caller's thread
+    the time in send_data, in get_picture (waiting for the ring and the
+    fetch) and, inside send_data, in recon/frame.py decode_frame_syntax;
+    the dense passes' time (the ring's worker's busy time when d > 1) and,
+    inside it, recon/frame.py materialize_work_items and engine/plan.py
+    build_plan (the planner); each timed by wrappers installed here, not
+    by the package."""
+    import rav1d_tpu_torch as T
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine import kernels
+    from rav1d_tpu_torch.engine import plan as PL
+    from rav1d_tpu_torch.engine import wave as TW
+    from rav1d_tpu_torch.ops.cuda import itx as I
+    from rav1d_tpu_torch.ops.cuda import wave as WK
+    from rav1d_tpu_torch.recon import frame as RF
+
+    t = dict.fromkeys(("wall", "send", "get", "syntax", "dense",
+                       "work_items", "plan"), 0.0)
+    results = []
+    real = (T.engine.run_dense, RF.decode_frame_syntax,
+            RF.materialize_work_items, PL.build_plan)
+
+    def run_dense(tc, f, up):  # decode order: the ring is FIFO
+        ok = real[0](tc, f, up)
+        results.append(ok)
+        return ok
+
+    def timed(key, fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                t[key] += time.perf_counter() - t0
+        return call
+
+    class Timed(T.Decoder):
+        def _decode_dense(self, f):
+            t0 = time.perf_counter()
+            super()._decode_dense(f)
+            t["dense"] += time.perf_counter() - t0
+
+    def counts():
+        return dict(T.engine.stats, itx=I.launches, wave=WK.launches,
+                    level=WK.level_launches, class_step=TW.calls,
+                    plain=kernels.calls)
+
+    before = counts()
+    (T.engine.run_dense, RF.decode_frame_syntax, RF.materialize_work_items,
+     PL.build_plan) = (run_dense, timed("syntax", real[1]),
+                       timed("work_items", real[2]), timed("plan", real[3]))
+    out = []
+    try:
+        dec = Timed(T.Settings(apply_grain=False, max_frame_delay=d),
+                    device=dev)
+        send = timed("send", dec.send_data)
+        get_picture = timed("get", dec.get_picture)
+
+        def get():
+            try:
+                out.append(synth.picture_md5(get_picture()))
+                return True
+            except T.EAgain:
+                return False
+
+        t0 = time.perf_counter()
+        for data in packets:
+            send(data)
+            get()
+        misses = 0
+        while misses < 2:
+            misses = 0 if get() else misses + 1
+        t["wall"] = time.perf_counter() - t0
+        dec.close()
+    finally:
+        (T.engine.run_dense, RF.decode_frame_syntax,
+         RF.materialize_work_items, PL.build_plan) = real
+    after = counts()
+    if times is not None:
+        times.update({k: v * 1e3 for k, v in t.items()})
+    return (out, [i for i, ok in enumerate(results) if not ok],
+            {k: after[k] - before[k] for k in after})
+
+
+def pipeline_phase(dev):
+    """The frame ring (decoder.py: the dense pass on a FIFO worker, the
+    async pinned fetch, the delayed-output ring). Correctness: the 8-bit
+    and 10-bit 1080p inter sequences, the 640x360 2x2-tile header-tools
+    sequence, the 640x360 superres sequence (its fourth frame falls back
+    to the host path and reads engine-decoded references on the worker)
+    and a 640x360 intrabc sequence (its key frame falls back), each at
+    delays 2 and 3 under torch.cuda.set_sync_debug_mode("error") (any
+    host synchronisation on the worker's path fails its dense pass, which
+    the decoder raises), must equal delay 1: MD5s, fallback frames, engine
+    stats, itx and wave frame launches, no level launch, no class_step or
+    plain transform call. Timing: the 1080p 8-bit sequence's packets three
+    times over (9 units, every third a key frame, held to the committed
+    digests) at delays 1, 2, 3, then 1 again, and at delay 2 with a 0.5 ms
+    switch interval: the stream's wall, its mean per frame, the caller's
+    thread's times (send_data, the syntax pass, get_picture), the dense
+    passes' time (the worker's busy time at d > 1) with the planner's and
+    pack's shares, and the frame stages' CUDA-event sum. Returns the itx
+    launches of its decodes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine import run
+    from rav1d_tpu_torch.synth import Tools
+
+    with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
+        digests = json.load(fh)
+    inter = synth.inter_sequence(W, H, digests["inter"]["seed"])
+    ten = next(n for n in sorted(digests["formats"]) if "10bit" in n)
+    streams = [
+        (f"inter 8-bit {W}x{H}", inter),
+        (f"{ten} {W}x{H}", synth.smoke_stream(digests, ten)),
+        (f"headers 8-bit sb128 {FMT_W}x{FMT_H}", synth.inter_sequence(
+            FMT_W, FMT_H, 6, tools=Tools(
+                sb128=True, delta_lf_multi=True, tiles=(1, 1),
+                segmentation=True, delta_q=True, lf_deltas=True,
+                tx_mode_largest=True))),
+        (f"superres {FMT_W}x{FMT_H}", synth.inter_sequence(
+            FMT_W, FMT_H, 2, superres=True)),
+        (f"intrabc {FMT_W}x{FMT_H}", synth.inter_sequence(
+            FMT_W, FMT_H, 1, intrabc=True)),
+    ]
+    # the debug mode must reach the ring's worker thread: a sync there fails
+    x = torch.ones(1, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with ThreadPoolExecutor(1) as ex:
+            ex.submit(x.item).result()
+        raise AssertionError("set_sync_debug_mode('error') let a worker "
+                             "thread's .item() through")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = 0
+    for label, packets in streams:
+        want, fell, c1 = ring_decode(dev, packets, 1)
+        log(f"pipeline {label}: delay 1 fallback frames {fell}, counts "
+            + json.dumps(c1))
+        for d in (2, 3):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, fell_d, c = ring_decode(dev, packets, d)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            same = got == want and fell_d == fell and c == c1
+            log(f"pipeline {label}: delay {d} {'==' if same else '!='} "
+                f"delay 1 (MD5s, fallback frames {fell_d}, counts "
+                f"{json.dumps(c)}); no host synchronisation on its path")
+            if not same:
+                raise AssertionError(f"pipeline {label}: delay {d} differs "
+                                     "from delay 1")
+            launches += c["itx"]
+            PIPE["wave"] = PIPE.get("wave", 0) + c["wave"]
+        if (c1["level"] or c1["class_step"] or c1["plain"]
+                or c1["itx"] != len(packets) - len(fell)):
+            raise AssertionError(f"pipeline {label}: not one itx launch per "
+                                 "engine frame, or a level launch or a "
+                                 "plain call")
+
+    packets = inter * 3
+    want = digests["inter"]["md5"] * 3
+    walls = {}
+    # the last run: delay 2 with the interpreter's switch interval at 0.5
+    # ms instead of 5, set here for that run only (how much of the ring's
+    # cost is threads waiting for the GIL)
+    for d, switch in ((1, None), (2, None), (3, None), (1, None), (2, 5e-4)):
+        t = {}
+        run.reset_stats()
+        old = sys.getswitchinterval()
+        if switch:
+            sys.setswitchinterval(switch)
+        try:
+            got, fell, c = ring_decode(dev, packets, d, t)
+        finally:
+            sys.setswitchinterval(old)
+        st = run.stage_ms
+        dev_ms = sum(st[k] for k in ("upload", "resid", "inter", "wave",
+                                      "filter", "fetch"))
+        log(f"pipeline timing delay {d}"
+            + (f", switch interval {switch * 1e3} ms" if switch else "")
+            + f": {len(got)} frames, wall "
+            f"{t['wall']:.1f} ms, {t['wall'] / len(packets):.1f} ms per "
+            f"frame; caller's thread: send_data {t['send']:.1f} ms, of it "
+            f"the syntax pass {t['syntax']:.1f} ms, get_picture "
+            f"{t['get']:.1f} ms; dense passes "
+            f"({'the worker busy' if d > 1 else 'inline'}) {t['dense']:.1f} "
+            f"ms, of them materialize_work_items {t['work_items']:.1f} ms, "
+            f"build_plan {t['plan']:.1f} ms, pack {st['pack']:.1f} ms; "
+            f"CUDA-event stages {dev_ms:.3f} ms; stage_ms "
+            + json.dumps({k: round(v, 3) for k, v in st.items()}))
+        if got != want or fell:
+            raise AssertionError(f"pipeline timing delay {d}: MD5s differ "
+                                 "from the committed digests or a frame "
+                                 "fell back")
+        walls.setdefault((d, switch), []).append(t["wall"])
+        if d == 1:
+            rest = t["wall"] - st["pack"] - dev_ms
+            log(f"  delay 1: rest (wall minus the stages) {rest:.1f} ms, of "
+                f"it the syntax pass {t['syntax']:.1f} ms "
+                f"({100 * t['syntax'] / rest:.1f}%)")
+        launches += c["itx"]
+        PIPE["wave"] = PIPE.get("wave", 0) + c["wave"]
+    base = sum(walls[1, None]) / 2
+    log("pipeline timing: wall against the mean of the two delay-1 runs: "
+        + ", ".join(f"delay {d}{' (0.5 ms switch)' if sw else ''} "
+                    f"{100 * w[0] / base:.1f}%"
+                    for (d, sw), w in walls.items() if d > 1))
+    return launches
+
+
 def idct8x8_phase(dev):
     """The 8x8 DCT_DCT batch: its entry point once at N=I8_N (launches
     counted), then kernel vs plain at N=256 x bpc 8/10/12 and at N=I8_N,
@@ -1147,15 +1387,23 @@ def vector_phase(dev, d):
         TW.calls = 0
         dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
         m = hashlib.md5()
+
+        def take():
+            try:
+                pic = dec.get_picture()
+            except T.EAgain:
+                return False
+            for rows in pic.iter_plane_rows():
+                m.update(rows)
+            return True
+
         for pkt in IvfDemuxer(path):
             dec.send_data(pkt.data, pkt.timestamp)
-            while True:
-                try:
-                    pic = dec.get_picture()
-                except T.EAgain:
-                    break
-                for rows in pic.iter_plane_rows():
-                    m.update(rows)
+            while take():
+                pass
+        misses = 0
+        while misses < 2:  # the drain handshake
+            misses = 0 if take() else misses + 1
         fb = T.engine.stats["fallback"] - before["fallback"]
         log(f"vector {rel}: md5 {m.hexdigest()} (meson {want}) fallback {fb}"
             f", class_step calls {TW.calls}")
@@ -1256,6 +1504,8 @@ def main():
         n, err = residual_phase(dev, still, tmp)
         launches += n + cli_phase(dev, tmp)
         worst = max(worst, err)
+    launches += pipeline_phase(dev)
+    WAVE["launches"] += PIPE["wave"]
     rows = timing_phase(blobs)
     i8 = idct8x8_phase(dev)
     vector_phase(dev, args.test_data)

@@ -3,9 +3,17 @@
 Behavior parity: src/lib.rs (rav1d_send_data:538, rav1d_get_picture:571,
 gen_picture:507, flush:671) and src/decode.rs rav1d_submit_frame:4650.
 
-This is the synchronous single-frame-context pipeline (n_fc==1
-semantics): each frame's syntax pass and dense pass run inline, and a
-picture's host planes are complete when it is handed out.
+Frames go through dav1d's frame ring (rav1d_tpu/decoder.py:641-702):
+each frame's syntax pass runs in the caller's thread, and its dense pass
+on a one-thread FIFO worker, with at most `_frame_delay()` frames in
+flight, so frame N+1's syntax pass overlaps frame N's pack and device
+work. Settings.max_frame_delay sets the depth: 1 runs the dense pass
+inline (n_fc == 1), 0 picks 2 for the engine on a CUDA device and 1
+elsewhere. On the engine a picture leaves the delayed-output ring
+(dav1d's out_delayed) `_fetch_delay()` frames late, or on the drain
+handshake. A picture's host planes are complete when it is handed out
+(`Picture.materialize`). A dense pass that fails on the worker raises
+DecodeError once, on the next send_data or get_picture.
 
 The dense pass runs on a torch device (`Decoder(device=...)`, default the
 first CUDA card) through the port's engine (engine/), which owns the
@@ -24,6 +32,8 @@ from __future__ import annotations
 
 import errno
 import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -134,6 +144,7 @@ class Decoder:
 
     def __init__(self, settings: Settings | None = None, device=None,
                  host_path: bool = False):
+        self.settings = settings or Settings()
         if host_path:
             self.device = None
             self.uploader = None
@@ -142,8 +153,10 @@ class Decoder:
             if self.device.type == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError("no CUDA device: pass device='cpu' to run "
                                    "the port's plain versions on the CPU")
-            self.uploader = Uploader(self.device)
-        self.settings = settings or Settings()
+            # fetch buffers for the frames in flight and in the output ring;
+            # past them the oldest pending fetch completes first (FetchPool)
+            self.uploader = Uploader(self.device,
+                                     fetch_depth=2 * self._frame_delay() + 1)
         self.seq_hdr = None
         self.frame_hdr = None
         self.refs = [RefSlot() for _ in range(8)]
@@ -168,6 +181,19 @@ class Decoder:
         self._tu_flag = False  # NEW_TEMPORAL_UNIT pending (picture.rs flags)
         self.all_layers = self.settings.all_layers
         self._timebase = (25, 1)
+        self._dense_exec = None  # FIFO worker for the dense half (n_fc ring)
+        self._in_flight = []
+        # the engine's delayed-output ring (dav1d's out_delayed,
+        # src/lib.rs:160-164): pictures wait here until more than
+        # `_fetch_delay()` are queued. `_drain` is dav1d_get_picture's
+        # c->drain handshake: set on every get_picture, reset by
+        # send_data, so two gets with no input between them drain it.
+        self._out_fifo = []
+        self._drain = False
+        # the first dense-pass failure on the worker, raised once on the
+        # next API call (src/lib.rs:875-900 cached_error)
+        self._cached_error = None
+        self._error_lock = threading.Lock()
         self._log = self.settings.logger or (
             lambda msg: print(msg, file=sys.stderr)
         )
@@ -193,7 +219,16 @@ class Decoder:
     def _queue_out(self, pic):
         pic.new_tu = self._tu_flag
         self._tu_flag = False
-        self._out = pic
+        if self._fetch_delay() > 0 and not self._layered():
+            self._out_fifo.append(pic)
+        else:
+            self._out = pic
+
+    def _fetch_delay(self) -> int:
+        """Output delay in frames (dav1d: out_delayed depth = n_fc): the
+        frame delay on the engine, 0 on the host path and with delay 1."""
+        d = self._frame_delay()
+        return 0 if self.uploader is None or d == 1 else d
 
     def _picture_ready(self, drain):
         if not self._layered():
@@ -237,8 +272,10 @@ class Decoder:
         """
         if self._pending_input is not None:
             raise EAgain("previous input not fully consumed")
+        self._raise_cached_error()
         if len(data) == 0:
             raise DecodeError("empty data")
+        self._drain = False  # new input cancels the drain handshake
         self._pending_input = [bytes(data), timestamp]
         try:
             self._gen_picture()
@@ -269,10 +306,25 @@ class Decoder:
             else:
                 self._pending_input[0] = buf[consumed:]
 
+    def _raise_cached_error(self):
+        """Surface a dense-pass failure exactly once (lib.rs:889-900)."""
+        with self._error_lock:
+            err, self._cached_error = self._cached_error, None
+        if err is None:
+            return
+        if isinstance(err, DecodeError):
+            raise err
+        raise DecodeError(str(err)) from err
+
     def get_picture(self) -> Picture:
-        """Return the next decoded picture. Raises EAgain when none is ready.
-        Synchronous decode = n_fc==1, so each call drains the layer cache
+        """Return the next decoded picture, its host planes complete.
+        Raises EAgain when none is ready. On the engine's output ring a
+        picture leaves when more than `_fetch_delay()` are queued, or when
+        two calls come with no send_data between them (the drain
+        handshake); otherwise each call drains the layer cache
         (rav1d_get_picture: output_picture_ready(c, c.n_fc == 1))."""
+        self._raise_cached_error()
+        drain, self._drain = self._drain, True
         try:
             self._gen_picture()
         except EAgain:
@@ -286,18 +338,44 @@ class Decoder:
             self.n_tiles = 0
             err = e if isinstance(e, DecodeError) else DecodeError(str(e))
             raise err from e
+        while self._out_fifo:
+            if len(self._out_fifo) <= self._fetch_delay() and not drain:
+                raise EAgain("output delayed (frame ring)")
+            out = self._hand_out(self._out_fifo.pop(0))
+            if out is not None:
+                return out
         if self._picture_ready(True):
-            out = self._output_image()
-            if self.apply_grain and out.frame_hdr is not None and _has_grain(out):
-                out = self._apply_grain(out)
-            return out
+            out = self._hand_out(self._output_image())
+            if out is not None:
+                return out
         raise EAgain("no picture ready")
 
+    def _hand_out(self, out):
+        """A picture with its planes complete and film grain applied, or
+        None for one whose dense pass failed: like dav1d's drain_picture,
+        the decoder drops it, raising the failure if no call has yet."""
+        out.materialize()
+        if getattr(out, "_dense_failed", False):
+            self._raise_cached_error()
+            return None
+        if self.apply_grain and out.frame_hdr is not None and _has_grain(out):
+            out = self._apply_grain(out)
+        return out
+
     def flush(self):
-        """Drop all buffered input/output and reference state (dav1d_flush)."""
+        """Drop all buffered input/output and reference state (dav1d_flush):
+        wait for the frame ring, drop its failures, the output ring and the
+        pending fetches, and release the fetch buffers and the references'
+        device planes. The decoder then decodes from the next key frame."""
+        self._drain_dense()
+        self._cached_error = None
         self._pending_input = None
         self._out = None
         self._cache = None
+        self._out_fifo.clear()
+        self._drain = False
+        if self.uploader is not None:
+            self.uploader.fetches.release()
         self._tu_flag = False
         self.frame_hdr = None
         self.tiles.clear()
@@ -554,8 +632,13 @@ class Decoder:
                 slot.refmvs = None if frame_hdr.allow_intrabc else f.mvs
                 slot.refpoc = tuple(f.refpoc)
 
-        # dense pass, inline (n_fc == 1)
-        self._decode_dense(f)
+        # dense pass: on the frame ring (n_fc >= 2), so the next frame's
+        # syntax pass overlaps this frame's pixel work (src/thread_task.rs:714
+        # worker loop), or inline
+        if self._frame_delay() > 1:
+            self._submit_dense(f)
+        else:
+            self._decode_dense(f)
 
         if frame_hdr.show_frame or self.output_invisible_frames:
             self._queue_out(f.sr_cur)
@@ -566,3 +649,55 @@ class Decoder:
         from .recon.frame import decode_frame_dense
 
         decode_frame_dense(f, self.uploader)
+
+    # -- frame ring (dense-pass pipelining) ---------------------------------
+
+    def _frame_delay(self) -> int:
+        """Frames in flight: Settings.max_frame_delay, 0 = auto (2 for the
+        engine on a CUDA device, 1 on the host path and the CPU engine)."""
+        d = self.settings.max_frame_delay
+        if d > 0:
+            return d
+        cuda = self.device is not None and self.device.type == "cuda"
+        return 2 if cuda else 1
+
+    def _submit_dense(self, f):
+        """Queue the dense half on the single FIFO worker. FIFO order means
+        a frame's dense pass starts only after every reference frame's
+        pixels are complete: the row-watermark dependency collapsed to
+        whole frames (src/thread_task.rs:496-543)."""
+        if self._dense_exec is None:
+            self._dense_exec = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="rav1d-dense")
+        while len(self._in_flight) >= self._frame_delay():
+            self._in_flight.pop(0).result()
+        fut = self._dense_exec.submit(self._dense_task, f)
+        f.sr_cur._dense_future = fut
+        self._in_flight.append(fut)
+
+    def _dense_task(self, f):
+        """The worker's body: the dense pass, on this decoder's card. A
+        failure is recorded (the first one) for the next API call to raise,
+        and its picture is never handed out; frames that predict from it
+        are corrupt, as in dav1d."""
+        try:
+            if self.device is not None and self.device.type == "cuda":
+                with torch.cuda.device(self.device):
+                    self._decode_dense(f)
+            else:
+                self._decode_dense(f)
+        except Exception as e:
+            self._log(f"rav1d: dense pass failed: {e!r}")
+            f.sr_cur._dense_failed = True
+            with self._error_lock:
+                if self._cached_error is None:
+                    self._cached_error = e
+
+    def _drain_dense(self):
+        """Wait for every frame on the ring and stop the worker."""
+        for fut in self._in_flight:
+            fut.result()
+        self._in_flight = []
+        if self._dense_exec is not None:
+            self._dense_exec.shutdown(wait=True)
+            self._dense_exec = None

@@ -8,10 +8,14 @@ into a reused staging buffer (page-locked for a CUDA device), copied to the
 device in one host-to-device transfer, and zero-padded there to the
 capacity the JAX engine pads to (det_cap_words, rounded up to a power of
 two), so every region read lands inside the tensor exactly as it does in
-the reference.
+the reference. `FetchPool` is the other direction (run2's deferred fetch,
+run2.py:1101-1175): the host buffers the frames' outputs are copied into,
+and the pictures whose copy is not complete yet.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -76,13 +80,85 @@ class FrameBlob:
         return self.add_words(a.view(np.int32))
 
 
-class Uploader:
-    """Reused staging buffer + the event that guards its reuse."""
+class FetchPool:
+    """Host buffers (page-locked for a CUDA device) that the frames' packed
+    outputs are copied into with no host wait (engine/run.py execute), and
+    the pictures whose copy is still pending, oldest first. A picture's
+    `materialize` completes its fetch and gives the buffer back. At most
+    `depth` buffers exist: when none is free, the oldest pending picture is
+    completed first (rav1d_tpu's FETCH_LAG rule), which waits only for a
+    frame queued before the one that asks. One lock: the frame ring's
+    worker starts fetches while the decoder's thread completes them."""
 
-    def __init__(self, device):
+    def __init__(self, device, depth):
+        self.pin = torch.device(device).type == "cuda"
+        self.depth = depth
+        self.free = []
+        self.count = 0  # buffers in existence, free or held
+        self.pending = []  # [(picture, buffer, finish)]
+        self.lock = threading.RLock()
+
+    def take(self, nbytes):
+        """A uint8 host buffer of at least `nbytes` bytes."""
+        with self.lock:
+            while True:
+                fit = [b for b in self.free if b.numel() >= nbytes]
+                if fit:
+                    buf = min(fit, key=torch.Tensor.numel)
+                    self.free.remove(buf)
+                    return buf
+                if self.count < self.depth:
+                    self.count += 1
+                    return torch.empty(bucket_pow2(nbytes), dtype=torch.uint8,
+                                       pin_memory=self.pin)
+                if self.free:  # every free buffer is too small
+                    self.free.pop()
+                    self.count -= 1
+                else:
+                    self.complete(self.pending[0][0])
+
+    def add(self, pic, buf, finish):
+        """Register `pic` as pending on `buf`; `finish()` waits for the copy
+        and fills the picture's planes."""
+        with self.lock:
+            self.pending.append((pic, buf, finish))
+            pic._pending_fetch = self
+
+    def complete(self, pic):
+        """Run the pending fetch of `pic`, if any, and free its buffer."""
+        with self.lock:
+            for i, (p, buf, finish) in enumerate(self.pending):
+                if p is pic:
+                    break
+            else:
+                return
+            try:
+                finish()
+            finally:  # only now: another thread's materialize waits here
+                del self.pending[i]
+                pic._pending_fetch = None
+                self.free.append(buf)
+
+    def release(self):
+        """Drop every pending fetch, its picture's planes never filled, and
+        every buffer (flush: nothing will read those pictures)."""
+        with self.lock:
+            for pic, _, _ in self.pending:
+                pic._pending_fetch = None
+            self.pending = []
+            self.free = []
+            self.count = 0
+
+
+class Uploader:
+    """Reused staging buffer + the event that guards its reuse, and the
+    frames' fetch pool (`fetch_depth` host buffers)."""
+
+    def __init__(self, device, fetch_depth=3):
         self.device = torch.device(device)
         self.staging = None
         self.event = None
+        self.fetches = FetchPool(self.device, fetch_depth)
 
     def _buffer(self, n):
         if self.staging is None or self.staging.numel() < n:

@@ -1,13 +1,17 @@
 """Frame runner: pack one frame, upload it once, run the programs (resid,
-inter for an inter frame, wave, filter), fetch the packed output into the
-picture's host planes.
+inter for an inter frame, wave, filter), and start the fetch of the packed
+output into a host buffer.
 
 Port of rav1d_tpu/engine/run2.py execute (with run2._stack and
 engine/inter.py dev_plane), for every bit depth and chroma layout, with
 superres (the filter program upscales into the geometry of f.sr_cur). The
-capture and trace switches and the deferred batched fetch are not here:
-the port fetches each frame synchronously, so a decoded picture's planes
-are complete when the decoder hands it out.
+capture and trace switches are not here. Nothing in `execute` waits for
+the device: the output is copied with `non_blocking` into a buffer of the
+uploader's FetchPool (engine/blob.py) after the frame's programs on the
+current stream, and the picture's `materialize` (picture.py) waits for
+that copy, fills the host planes and adds the frame's stage times, read
+from its CUDA events then. The decoder materializes every picture it
+hands out. The frame's device tensors stay referenced until then.
 
 Reference planes stay on the device, as uint8 at 8 bits and as int16 at
 10 and 12 bits (values up to 4095; torch.uint16 lacks indexing on some
@@ -18,8 +22,9 @@ first use and cached, each upload counted in engine.stats["ref_uploads"].
 
 `stage_ms` accumulates the same stages as run2.stage_ms (pack, upload,
 programs, fetch) over the process, with "programs" also split into resid,
-inter, wave and filter. Device stages are timed with CUDA events on a CUDA
-device, with the host clock on the CPU.
+inter, wave and filter; a frame's stages are added when its picture is
+materialized. Device stages are timed with CUDA events on a CUDA device,
+with the host clock on the CPU.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ stage_ms = dict.fromkeys(STAGES, 0.0)
 
 
 class _Marks:
-    """Timestamps between stages: CUDA events on a CUDA device (read after
-    the frame's final synchronisation), the host clock elsewhere."""
+    """Timestamps between stages: CUDA events on a CUDA device (read once
+    the last one has completed: `wait`), the host clock elsewhere."""
 
     def __init__(self, device):
         self.cuda = device.type == "cuda"
@@ -55,9 +60,13 @@ class _Marks:
         else:
             self.marks.append((name, time.perf_counter()))
 
-    def spans(self):
+    def wait(self):
+        """Wait for the work before the last mark (an event, not a stream
+        synchronisation)."""
         if self.cuda:
             self.marks[-1][1].synchronize()
+
+    def spans(self):
         out = {}
         for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
             out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
@@ -77,10 +86,12 @@ def dev_plane(pic, pl, device):
     if cache is None:
         cache = pic._dev_planes = {}
     if pl not in cache:
-        host = np.ascontiguousarray((pic.y, pic.u, pic.v)[pl])
-        if host.dtype == np.uint16:
-            host = host.view(np.int16)
-        cache[pl] = torch.from_numpy(host).to(device)
+        host = torch.from_numpy(
+            np.ascontiguousarray((pic.y, pic.u, pic.v)[pl]).view(
+                np.int16 if pic.bpc > 8 else np.uint8))
+        if torch.device(device).type == "cuda":  # no host wait: pinned
+            host = host.pin_memory()
+        cache[pl] = host.to(device, non_blocking=True)
         stats["ref_uploads"] += 1
     return cache[pl]
 
@@ -97,11 +108,11 @@ def stack_planes(srcs, device, shape):
 
 
 def execute(f, plan, up):
-    """Run the dense pass of a frame on the device of `up` (an
-    engine/blob.py Uploader) and write the result into f.sr_cur's host
-    planes. Returns False, having run nothing on the device, when the
-    packer finds that an inter frame would overflow a pool (the caller
-    runs the host path)."""
+    """Queue the dense pass of a frame on the device of `up` (an
+    engine/blob.py Uploader) and the fetch of its output for f.sr_cur's
+    host planes, which the picture's `materialize` fills. Returns False,
+    having run nothing on the device, when the packer finds that an inter
+    frame would overflow a pool (the caller runs the host path)."""
     t0 = time.perf_counter()
     ah, aw = plan.ah, plan.aw
     psz = ah * aw
@@ -157,13 +168,34 @@ def execute(f, plan, up):
     if out_pic.u is not None:
         out_pic._dev_planes[1] = packed[spsz : spsz + csz].view(ach, acw)
         out_pic._dev_planes[2] = packed[spsz + csz :].view(ach, acw)
-    flat = packed.cpu().numpy()  # synchronous: the frame is complete here
+    # the fetch: an async copy after the programs, completed (and the
+    # stages read) when the picture is materialized
+    nbytes = packed.numel() * packed.element_size()
+    buf = up.fetches.take(nbytes)
+    host = buf[:nbytes].view(packed.dtype)
+    host.copy_(packed, non_blocking=True)
     m.mark("fetch")
+    keep = (dev, ra, planes, packed)
+    up.fetches.add(out_pic, buf, lambda: _finish(out_pic, host, m, pack_ms,
+                                                 keep))
+    return True
 
-    if bpc > 8:
+
+def _finish(out_pic, host, m, pack_ms, keep):
+    """Complete a frame's fetch (FetchPool.complete): wait for the copy,
+    fill the host planes from the buffer, add the frame's stage times.
+    `keep` holds the frame's device tensors until then: the kernels read
+    them through raw pointers that the caching allocator does not see."""
+    m.wait()
+    flat = host.numpy()
+    if flat.dtype == np.int16:
         flat = flat.view(np.uint16)
+    s_ah, s_aw = out_pic.y.shape
+    spsz = s_ah * s_aw
     out_pic.y[:, :] = flat[:spsz].reshape(s_ah, s_aw)
     if out_pic.u is not None:
+        ach, acw = out_pic.u.shape
+        csz = ach * acw
         out_pic.u[:, :] = flat[spsz : spsz + csz].reshape(ach, acw)
         out_pic.v[:, :] = flat[spsz + csz :].reshape(ach, acw)
 
@@ -181,4 +213,3 @@ def execute(f, plan, up):
                        + rec["filter"])
     for k in STAGES:
         stage_ms[k] += rec[k]
-    return True

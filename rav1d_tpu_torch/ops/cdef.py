@@ -47,6 +47,19 @@ def _fd_bins():
 
 
 _FD_BINS = _fd_bins()
+_FD_DEV = {}  # device -> (the bins' index tensors, the cost divisors)
+
+
+def _fd_consts(dev):
+    """find_dir's constant tensors on `dev`, copied there once (a copy from
+    pageable memory per frame would wait for the device)."""
+    key = str(dev)
+    if key not in _FD_DEV:
+        _FD_DEV[key] = (
+            [torch.from_numpy(ix).to(dev) for ix, _ in _FD_BINS],
+            torch.tensor([840, 420, 280, 210, 168, 140, 120], dtype=I32,
+                         device=dev))
+    return _FD_DEV[key]
 
 
 def _sq(x):
@@ -61,14 +74,13 @@ def find_dir_batch(blocks, bpc):
     px = ((blocks.to(I32) >> bdm8) - 128).reshape(-1, 64)
     n = px.shape[0]
     sums = []
-    for ix, nb in _FD_BINS:
+    ixs, div = _fd_consts(dev)
+    for ix, (_, nb) in zip(ixs, _FD_BINS):
         s = torch.zeros((n, nb), dtype=I32, device=dev)
-        s.index_add_(1, torch.from_numpy(ix).to(dev), px)
+        s.index_add_(1, ix, px)
         sums.append(s)
     d0, a0, h0, a1, d1, a2, h1, a3 = sums
 
-    div = torch.tensor([840, 420, 280, 210, 168, 140, 120], dtype=I32,
-                       device=dev)
     cost = [None] * 8
     cost[2] = _sq(h0).sum(1, dtype=I32) * 105
     cost[6] = _sq(h1).sum(1, dtype=I32) * 105
@@ -76,7 +88,7 @@ def find_dir_batch(blocks, bpc):
         v = ((_sq(dd[:, :7]) + _sq(dd[:, 8:15].flip(1)))
              * div[None, :]).sum(1, dtype=I32)
         cost[ci] = v + _sq(dd[:, 7]) * 105
-    div135 = div[[1, 3, 5]]
+    div135 = div[1:6:2]  # 420, 210, 140
     for k, aa in ((0, a0), (1, a1), (2, a2), (3, a3)):
         c = _sq(aa[:, 3:8]).sum(1, dtype=I32) * 105
         c = c + ((_sq(aa[:, :3]) + _sq(aa[:, 8:11].flip(1))) * div135[None, :]

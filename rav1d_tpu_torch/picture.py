@@ -55,9 +55,25 @@ class Picture:
         return (self.h + self.ss_ver) >> self.ss_ver
 
     def materialize(self):
-        """The host planes are complete when the decoder hands a picture
-        out (the torch engine fetches each frame synchronously): nothing
-        to fetch."""
+        """Complete the host planes (rav1d_tpu/picture.py materialize): wait
+        for the picture's dense pass on the decoder's frame ring, then for
+        the fetch of its engine output (engine/blob.py FetchPool), which
+        copies the page-locked buffer into the planes. The decoder calls it
+        on every picture it hands out; the frame ring's worker calls it on
+        a reference that the host path reads. A failed fetch (a CUDA error
+        at its event) raises DecodeError."""
+        fut = getattr(self, "_dense_future", None)
+        if fut is not None:
+            fut.result()  # the ring's task records its own failures
+            self._dense_future = None
+        pool = getattr(self, "_pending_fetch", None)
+        if pool is not None:
+            try:
+                pool.complete(self)
+            except RuntimeError as e:
+                from .decoder import DecodeError
+
+                raise DecodeError(str(e)) from e
         return self
 
     def iter_plane_rows(self):

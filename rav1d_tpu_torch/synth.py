@@ -737,8 +737,10 @@ def stream_md5(packets):
 
 def decode_md5s(dec, packets, eagain=None):
     """Feed `packets` to a decoder with the rav1d_tpu API; MD5 per picture.
-    `eagain` is the class get_picture raises when no picture is ready
-    (default: this package's EAgain)."""
+    After the last packet, the drain handshake: get_picture until two calls
+    in a row raise, so a decoder with an output ring gives its last
+    pictures too. `eagain` is the class get_picture raises when no picture
+    is ready (default: this package's EAgain)."""
     if eagain is None:
         from .decoder import EAgain as eagain
 
@@ -750,6 +752,13 @@ def decode_md5s(dec, packets, eagain=None):
                 out.append(picture_md5(dec.get_picture()))
             except eagain:
                 break
+    misses = 0
+    while misses < 2:
+        try:
+            out.append(picture_md5(dec.get_picture()))
+            misses = 0
+        except eagain:
+            misses += 1
     return out
 
 
