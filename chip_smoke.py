@@ -6,16 +6,20 @@ chroma layout and with superres, once on a CUDA card, end to end.
 Phases (any failure exits non-zero before the last line):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
    kernel and the 8x8 DCT_DCT kernel; csrc/wave.cu: the intra wavefront's
-   frame kernel, its barrier-only twin and the level kernel; nvcc, sm_90a,
-   one process per source, both started together) and print ptxas's
-   registers, stack frames and spills. The port's native syntax library
+   frame kernel, its barrier-only twin and the level kernel; csrc/lf.cu,
+   cdef.cu and lr.cu: the post filters' deblock, CDEF, Wiener and
+   self-guided kernels; nvcc, sm_90a, one process per source, all started
+   together) and print ptxas's registers, stack frames and spills. The port's native syntax library
    (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
    imported) must have loaded: a decode on the Python syntax anchor would
    change every host number;
 2. kernel: the itx kernel, through its per-size entry points (ops/cuda/
    itx.py itx and wht), against the plain torch versions on the card, all
    19 tx sizes and the WHT x bpc 8/10/12, N=1000 random int32 blocks
-   including extreme values; bit-identical required;
+   including extreme values; and each filter kernel, through its wrapper
+   (ops/cuda/filters.py), against its plain pass (engine/filters.py) on
+   random planes, maps and stripes in hand-built blobs at 8, 10 and 12
+   bits (filter_kernel_phase); bit-identical required;
 Each stream of phases 3-7 runs through stream_on_card: the port's host
 path (Decoder(host_path=True), captured) must give the committed digests
 (rav1d_tpu_torch/smoke_digests.json) where there are some; on each engine
@@ -25,14 +29,20 @@ wave frame kernel) and its per-level form (one launch of the level kernel
 per level with items) must both equal wave_plain on the same input (zero
 planes, or the inter program's on an inter frame; at 1080p only on still
 seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain wavefront
-takes 10-30 s each); then one rav1d_tpu_torch.Decoder(device="cuda") at
+takes 10-30 s each), and on every engine frame filter_ (the filter
+kernels: two deblock launches, one CDEF launch, one Wiener and one
+self-guided launch per plane with such stripes) must equal filter_plain
+on the wave program's output, planes and packed output; then one
+rav1d_tpu_torch.Decoder(device="cuda") at
 frame delay 1 decodes the stream frame by frame to the host path's MD5s
 with no fallback but the planner's own, no upload of a host reference
 plane (every reference is the engine's own device output), exactly one itx
 launch per engine frame, one wave frame launch per engine frame with wave
-items and no level launch, and no call of the plain transforms
-(engine/kernels.py itx_any_core, wht_core) or of the plain wave step
-(engine/wave.py class_step), printing per-frame stage_ms and the wall time
+items and no level launch, exactly those filter launches per engine
+frame, and no call of the plain transforms (engine/kernels.py
+itx_any_core, wht_core), of the plain wave step (engine/wave.py
+class_step) or of the plain filter passes (engine/filters.py calls),
+printing per-frame stage_ms and the wall time
 the stages leave (the host front end and the planner). At 1080p, per
 frame: the wave program through each entry alone (CUDA events), the device
 time of all its kernels and of the frame kernel, or of the level kernel's
@@ -40,7 +50,10 @@ launches (torch.profiler), per level, the barrier-only floor of the frame
 kernel (the same grid, level walk and barriers, no item work) and the
 floor of an empty kernel launched as the level kernel is over the same
 levels, the bound (wave_work), and the traced frame kernel's per-level
-phases in clock cycles (wave_trace).
+phases in clock cycles (wave_trace); and the filter program alone:
+filter_ and filter_plain in turns (CUDA events), the device time of each
+filter kernel (torch.profiler) and of its launches alone (CUDA events),
+each plain pass's time, and each kernel's bound (filter_work).
 3. slice: seeded 1920x1080 synthetic AV1 still pictures
    (rav1d_tpu_torch/synth.py), after a small picture's decode;
 4. inter: a seeded 1920x1080 synthetic inter sequence (synth.
@@ -75,14 +88,17 @@ phases in clock cycles (wave_trace).
    <file>]) in process must return 0, with one itx launch per frame; the
    per-frame times are printed (the decode also makes one wave frame
    launch per frame with wave items, no level launch and no class_step
-   call);
+   call, and its filter launches; each of its filter_ calls, recorded,
+   must equal filter_plain);
 10. pipeline: the frame ring (pipeline_phase): the 1080p 8-bit and 10-bit
    inter sequences, the 8-bit 640x360 header-tools sequence (2x2 tiles),
    the 640x360 superres sequence (its fourth frame falls back to the host
    path and reads engine-decoded references on the ring's worker) and a
    640x360 intrabc sequence, each at delays 2 and 3 under
    torch.cuda.set_sync_debug_mode("error"), must equal delay 1: MD5s,
-   fallback frames, engine stats and launch counts. Then the 1080p inter
+   fallback frames, engine stats and launch counts (the filter kernels'
+   too; every filter_ call of delays 1, 2 and 3, recorded on the worker,
+   must equal filter_plain). Then the 1080p inter
    sequence's packets three times over (9 units) at delays 1, 2, 3 and 1,
    and at delay 2 with the interpreter's switch interval at 0.5 ms: per
    run the stream's wall and mean per frame, the caller's thread's time
@@ -105,7 +121,8 @@ phases in clock cycles (wave_trace).
    path, with no fallback.
 Every decode must make no class_step call, and each, but for the whole
 conformance streams of the vector phase, one wave frame launch per frame
-with wave items and no level launch.
+with wave items and no level launch, and its frames' filter launches with
+no plain filter call.
 Then neither JAX nor any module of rav1d_tpu may have been imported.
 
 Prints the card's name and power limit, the syntax backend, per-frame
@@ -121,6 +138,7 @@ counts an FMA as two operations), and as its last line
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -316,14 +334,18 @@ def slice_phase(dev):
     warm = [synth.still_picture(256, 128, 7)]
     nframes = wave_frames(synth.capture_frames(warm))
     TW.calls = WK.launches = WK.level_launches = 0
-    synth.decode_md5s(T.Decoder(T.Settings(apply_grain=False), device=dev),
-                      warm)
+    reset_filter_counts()
+    with FilterRecorder() as rec:
+        synth.decode_md5s(T.Decoder(T.Settings(apply_grain=False),
+                                    device=dev), warm)
     torch.cuda.synchronize()
     if TW.calls or WK.launches != nframes or WK.level_launches:
         raise AssertionError(f"the warm-up decode: {TW.calls} class_step "
                              f"calls, {WK.launches} wave frame launches for "
                              f"{nframes} frames, {WK.level_launches} level "
                              "launches")
+    check_filter_counts("the warm-up decode", filter_counts(),
+                        filter_want(rec.check("the warm-up decode")))
     launches = worst = 0
     blobs, captured = [], []
     for s in SEEDS:
@@ -591,10 +613,11 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         raise AssertionError(f"{label}: inter slots without tiles {empty}, "
                              f"interintra items {ii}")
 
-    # the residual and wave programs on each engine frame's blob against
-    # their plain versions (and the allocator brought to the frame's
-    # buffer sizes)
+    # the residual, wave and filter programs on each engine frame's blob
+    # against their plain versions (and the allocator brought to the
+    # frame's buffer sizes)
     worst = nframes = 0
+    engine_frames = []  # (hdr, layout_i) of each engine frame
     for i, (f, plan) in enumerate(frames):
         pk = None if plan is None else pack_frame(f, plan)
         if pk is None:
@@ -641,12 +664,23 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
             WAVE["rows"][key] = wave_timing(key, pk, d, ra, planes, kw, p_ms)
             if key == f"still seed 1 {W}x{H} frame 0":
                 WAVE["still1"] = key, (pk, d, ra, planes, kw)
+        # the filter program on the wave program's output: the kernels
+        # against filter_plain, and timed at 1080p
+        fkw = filter_kw(f, plan, pk)
+        fin = P.wave(planes, ra, d, pk.hdr, pk.waves, **kw)
+        filter_check(f"{label} frame {i}", fin, d, pk.hdr, fkw)
+        engine_frames.append((pk.hdr, fkw["layout_i"]))
+        if time_wave:
+            FILT["rows"][key] = filter_timing(key, fin, d, pk, fkw)
+    log(f"  {label}: filter_ == filter_plain (planes and packed output) on "
+        f"{len(engine_frames)} engine frames")
 
     T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
     I.launches = 0
     kernels.calls = 0
     WK.launches = WK.level_launches = 0
     TW.calls = 0
+    reset_filter_counts()
     # delay 1: the frame ring off, so that stage_ms stays per frame
     dec = T.Decoder(T.Settings(apply_grain=False, max_frame_delay=1),
                     device=dev)
@@ -662,6 +696,9 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         log(f"  port frame {i}: {ms:.1f} ms wall  md5 {got[-1]}  "
             f"{'==' if got[-1:] == host[i : i + 1] else '!='} host"
             + ("  (host path: the planner's gate)" if i in fell else ""))
+        if f"{label} frame {i}" in FILT["rows"]:
+            FILT["rows"][f"{label} frame {i}"]["stage_ms"] = \
+                run.stage_ms["filter"]
         rest = ms - sum(v for k, v in run.stage_ms.items() if k != "programs")
         log("    stage_ms " + json.dumps({k: round(v, 3)
                                           for k, v in run.stage_ms.items()})
@@ -671,6 +708,7 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     plain_calls = kernels.calls
     stats = dict(T.engine.stats)
     w_launches, w_level, w_calls = WK.launches, WK.level_launches, TW.calls
+    f_counts = filter_counts()
     WAVE["launches"] += w_launches
     log(f"  {label}: engine stats {stats}  itx launches {launches}  plain "
         f"transform calls {plain_calls}  wave frame launches {w_launches} "
@@ -695,6 +733,7 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         raise AssertionError(f"{label}: {w_launches} wave frame launches for "
                              f"{nframes} frames, {w_level} level launches, "
                              f"{w_calls} class_step calls")
+    check_filter_counts(label, f_counts, filter_want(engine_frames))
     return launches, worst, frames
 
 
@@ -897,6 +936,583 @@ def wave_trace(pk, clk):
         crit_modes={str(k): round(v / total, 3) for k, v in top})
 
 
+# ------------------------------ post filters ------------------------------
+
+# the filter kernels: (counter key, kernel name in the profiler, entry,
+# source, the TPU kernel it replaces)
+FILTERS = (
+    ("lf", "lf_pass_kernel", "rav1d_lf_pass", "lf.cu",
+     "rav1d_tpu/engine/filters.py:34"),
+    ("cdef", "cdef_frame_kernel", "rav1d_cdef_frame", "cdef.cu",
+     "rav1d_tpu/engine/filters.py:84"),
+    ("wiener", "lr_wiener_kernel", "rav1d_lr_wiener", "lr.cu",
+     "rav1d_tpu/engine/filters.py:246"),
+    ("sgr", "lr_sgr_kernel", "rav1d_lr_sgr", "lr.cu",
+     "rav1d_tpu/engine/filters.py:253"),
+)
+# the filter kernels across the run: launches in the decodes, frames whose
+# filter_ was held to filter_plain, the largest difference per kernel in
+# the kernel phase, per-frame timings by label
+FILT = {"launches": {k[0]: 0 for k in FILTERS}, "compared": 0,
+        "err": {k[0]: 0 for k in FILTERS}, "rows": {}, "seconds": 0.0}
+
+
+def _filter_seconds(fn):
+    """fn, its wall time added to FILT["seconds"]: what the filter checks
+    and timings add to the run."""
+    @functools.wraps(fn)
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            FILT["seconds"] += time.perf_counter() - t0
+    return call
+
+
+def filter_kw(f, plan, pk):
+    """programs.filter_'s keywords for a frame, as engine/run.py execute
+    makes them."""
+    out = f.sr_cur
+    ach, acw = out.u.shape if out.u is not None else (0, 0)
+    sr = (out.y.shape + (out.w, out.h, 4 * f.bw)) if pk.need_sr else None
+    return dict(geom=(plan.ah, plan.aw, ach, acw, f.bh, f.bw, f.cur.h),
+                bpc=f.cur.bpc, layout_i=int(f.cur.layout), lr_ws=pk.lr_ws,
+                sr_geom=sr)
+
+
+def filter_counts():
+    """The filter kernels' launch counters and the plain passes' calls."""
+    from rav1d_tpu_torch.engine import filters as FL
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    return dict(lf=FK.lf_launches, cdef=FK.cdef_launches,
+                wiener=FK.wiener_launches, sgr=FK.sgr_launches,
+                filter_plain=FL.calls)
+
+
+def reset_filter_counts():
+    from rav1d_tpu_torch.engine import filters as FL
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    FK.lf_launches = FK.cdef_launches = 0
+    FK.wiener_launches = FK.sgr_launches = 0
+    FL.calls = 0
+
+
+def filter_want(frames):
+    """The filter launches of engine frames [(hdr, layout_i)]: two deblock
+    and one CDEF launch each, one Wiener and one self-guided launch per
+    plane with such stripes; no plain filter call."""
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    want = dict(lf=0, cdef=0, wiener=0, sgr=0, filter_plain=0)
+    for hdr, layout_i in frames:
+        w, s = FK.lr_launches(hdr, layout_i)
+        want["lf"] += 2
+        want["cdef"] += 1
+        want["wiener"] += w
+        want["sgr"] += s
+    return want
+
+
+def check_filter_counts(label, got, want):
+    """Launch counts of a decode: they must be `want`; counted into FILT."""
+    log(f"  {label}: filter launches {json.dumps(got)}, want "
+        f"{json.dumps(want)}")
+    if got != want:
+        raise AssertionError(f"{label}: filter launches {got}, not {want}")
+    for k in FILT["launches"]:
+        FILT["launches"][k] += got[k]
+
+
+@_filter_seconds
+def filter_check(label, fin, d, hdr, kw):
+    """filter_ (the kernels) against filter_plain on a frame's filter input
+    `fin`: planes and packed output equal. Returns filter_'s output."""
+    import torch
+
+    from rav1d_tpu_torch.engine import programs as P
+
+    got, packed = P.filter_(fin.clone(), d, hdr, **kw)
+    want, packed_w = P.filter_plain(fin.clone(), d, hdr, **kw)
+    if not (torch.equal(got, want) and torch.equal(packed, packed_w)):
+        err = max_err(got, want) if got.shape == want.shape else -1
+        raise AssertionError(f"{label}: filter_ (the filter kernels) != "
+                             f"filter_plain (max |err| {err})")
+    FILT["compared"] += 1
+    return got
+
+
+class FilterRecorder:
+    """While installed, each programs.filter_ call (engine/run.py calls it
+    through the module, on the frame ring's worker too) is recorded: a copy
+    of its input planes (filter_ writes them), its blob (a fresh tensor per
+    frame), header and keywords, and its outputs. `check` then holds each
+    to filter_plain, after the decode: the recording itself reads nothing
+    back, so it runs under set_sync_debug_mode("error")."""
+
+    def __enter__(self):
+        from rav1d_tpu_torch.engine import programs as P
+
+        self.P, self.real, self.calls = P, P.filter_, []
+
+        def filter_(planes, dev, hdr, **kw):
+            rec = (planes.clone(), dev, hdr.copy(), kw)
+            out = self.real(planes, dev, hdr, **kw)
+            self.calls.append(rec + tuple(out))
+            return out
+
+        P.filter_ = filter_
+        return self
+
+    def __exit__(self, *exc):
+        self.P.filter_ = self.real
+
+    @_filter_seconds
+    def check(self, label):
+        """filter_plain on every recorded input against what filter_ gave;
+        returns the frames' (hdr, layout_i) for filter_want."""
+        import torch
+
+        for i, (fin, d, hdr, kw, got, packed) in enumerate(self.calls):
+            want, packed_w = self.P.filter_plain(fin, d, hdr, **kw)
+            if not (torch.equal(got, want) and torch.equal(packed, packed_w)):
+                raise AssertionError(f"{label}: filter call {i}: filter_ != "
+                                     "filter_plain")
+            FILT["compared"] += 1
+        frames = [(c[2], c[3]["layout_i"]) for c in self.calls]
+        self.calls = []
+        return frames
+
+
+# least 32-bit operations per filtered line of a deblock edge by filter
+# width, and the pixels it reads and writes (an estimate from the formulas
+# of ops/lf.py: the masks' differences, absolutes and compares, the
+# filter's sums, shifts and clamps)
+_LF_OPS = {4: 45, 6: 100, 8: 135, 16: 360}
+_LF_READ = {4: 4, 6: 6, 8: 8, 16: 14}
+_LF_WRITE = {4: 4, 6: 4, 8: 6, 16: 12}
+# CDEF: per unit's direction search; per filtered pixel with both
+# strengths, the primary only, the secondary only (ops/cdef.py: 12, 4 or
+# 8 taps, each a difference, absolute, shift, subtract, max, min, sign and
+# multiply-add; the running minimum and maximum; the round)
+_CDEF_DIR_OPS = 700
+_CDEF_PX_OPS = {3: 140, 1: 50, 2: 100}
+# LR per restored pixel: Wiener (7 + 7 taps, rounds and clips), one
+# self-guided filter (box sums, the A/B tables, the weighted sums), both
+_LR_OPS = {"w": 35, 0: 60, 1: 60, 2: 120}
+
+
+def filter_work(pk, kw):
+    """{kernel: (bytes, operations)} of a frame's filters, each input read
+    once and each output written once, at int32 pixels, from the frame's
+    maps and stripes: deblock, the selected edges' lines (the pixels each
+    filter width reads and writes) and the maps; CDEF, the luma of each
+    unit that needs a direction, each filtered unit's pixels read and
+    written, the maps; LR, each stripe's tile (its rows and columns with
+    the 3-pixel margins) read and its pixels written, its descriptor."""
+    import numpy as np
+
+    from rav1d_tpu_torch.engine.layout import CDEF0, DB0
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    words = pk.words()
+    hdr = pk.hdr
+
+    def u8(base, n):
+        return words[base : base + (n + 3) // 4].view(np.uint8)[:n].astype(
+            np.int64)
+
+    _, _, _, _, bh, bw, _ = kw["geom"]
+    lay = kw["layout_i"]
+    ss_hor, ss_ver = FK.subsampling(lay)
+    ch4, cw4 = (bh + ss_ver) >> ss_ver, (bw + ss_hor) >> ss_hor
+    planes = [(bh, bw)] + ([(ch4, cw4)] * 2 if lay else [])
+    work = {}
+    nb = ops = 512
+    for hor in (0, 1):
+        for p, (nh, nw) in enumerate(planes):
+            b = u8(int(hdr[DB0 + 1 + 3 * hor + p]), nh * nw)
+            cls, lvl = b >> 6, b & 63
+            nb += nh * nw
+            for c in (1, 2, 3):
+                n = int(((cls == c) & (lvl != 0)).sum())
+                wd = (4 << (c - 1)) if p == 0 else 4 + 2 * (c - 1)
+                nb += 4 * n * 4 * (_LF_READ[wd] + _LF_WRITE[wd])
+                ops += 4 * n * _LF_OPS[wd]
+    work["lf"] = (nb, ops)
+    nby, nbx = (bh + 1) >> 1, (bw + 1) >> 1
+    yl = u8(int(hdr[CDEF0]), nby * nbx)
+    ul = u8(int(hdr[CDEF0 + 1]), nby * nbx)
+    ycode = ((yl >> 2) > 0) + 2 * ((yl & 3) > 0)
+    ucode = ((ul >> 2) > 0) + 2 * ((ul & 3) > 0) if lay else ul * 0
+    need_dir = ((yl >> 2) > 0) | ((ul >> 2) > 0) if lay else (yl >> 2) > 0
+    cpx = (8 >> ss_ver) * (8 >> ss_hor)
+    nb = 2 * nby * nbx + 4 * 64 * int((need_dir & (ycode == 0)).sum())
+    ops = _CDEF_DIR_OPS * int(need_dir.sum())
+    for code, per in _CDEF_PX_OPS.items():
+        ny, nu = int((ycode == code).sum()), int((ucode == code).sum())
+        nb += 4 * 2 * (64 * ny + 2 * cpx * nu)
+        ops += per * (64 * ny + 2 * cpx * nu)
+    work["cdef"] = (nb, ops)
+    for key, kinds in (("wiener", ("w",)), ("sgr", (0, 1, 2))):
+        nb = ops = 0
+        for p, _ in enumerate(planes):
+            W = kw["lr_ws"][1 if p else 0]
+            for kind in kinds:
+                base, n = FK.lr_chunks(hdr, p)[kind]
+                if not n:
+                    continue
+                d = words[base : base + n * 16 * 64].reshape(n, 16, 64)
+                d = d.transpose(1, 0, 2).reshape(16, -1).astype(np.int64)
+                h = np.clip(d[3], 0, 64)
+                w = np.clip(d[2], 0, W)
+                on = (h > 0) & (w > 0)
+                nb += int((4 * ((h + 6) * (w + 6) + h * w) + 64)[on].sum())
+                ops += _LR_OPS[kind] * int((h * w)[on].sum())
+        work[key] = (nb, ops)
+    return work
+
+
+def profiled_names_ms(fn, reps, names):
+    """(device time per call of every kernel fn launches, {name: device
+    time per call of the kernels whose name contains it}) in a
+    torch.profiler window over `reps` calls; None for a time the profiler
+    does not show in any of five windows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):  # a window now and then records no device time
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, per = 0.0, dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                t = getattr(e, "device_time_total", None)
+                t = e.cuda_time_total if t is None else t
+                us += t
+                for n in names:
+                    if n in e.key:
+                        per[n] += t
+        if us and all(per.values()):
+            break
+    return (us / reps / 1e3 if us else None,
+            {n: (v / reps / 1e3 if v else None) for n, v in per.items()})
+
+
+def plain_pieces_ms(fn):
+    """fn (a filter_plain call) once with CUDA events around each call of
+    the plain passes: {kernel key: ms} (host dispatch included: the plain
+    passes are launch-bound)."""
+    import torch
+
+    from rav1d_tpu_torch.engine import filters as FL
+
+    marks = {k[0]: [] for k in FILTERS}
+    names = {"lf_dir_pass": "lf", "cdef_pass": "cdef",
+             "lr_wiener_pass": "wiener", "lr_sgr_pass": "sgr"}
+    real = {n: getattr(FL, n) for n in names}
+
+    def timed(n):
+        def call(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real[n](*a)
+            e1.record()
+            marks[names[n]].append((e0, e1))
+            return out
+        return call
+
+    for n in names:
+        setattr(FL, n, timed(n))
+    try:
+        fn()
+    finally:
+        for n, f in real.items():
+            setattr(FL, n, f)
+    torch.cuda.synchronize()
+    return {k: (sum(a.elapsed_time(b) for a, b in v) if v else None)
+            for k, v in marks.items()}
+
+
+def kernel_event_ms(fin, d, pk, kw):
+    """{kernel: ms} of each filter kernel's launches for one frame, through
+    its wrapper alone on the frame's filter input (CUDA events over 10
+    frames' launches, host calls included; the launches are counted but
+    happen outside the decodes, whose counts are reset before them)."""
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    _, _, _, _, bh, bw, vis_h = kw["geom"]
+    k = dict(bh=bh, bw=bw, layout_i=kw["layout_i"], bpc=kw["bpc"])
+    ss_ver = FK.subsampling(kw["layout_i"])[1]
+    x, pre, out = fin.clone(), fin.clone(), fin.clone()
+
+    def lf():
+        FK.lf_pass(x, d, pk.hdr, False, **k)
+        FK.lf_pass(x, d, pk.hdr, True, **k)
+
+    def lr(launch, kinds):
+        def run():
+            for p in range(3 if kw["layout_i"] else 1):
+                if any(FK.lr_chunks(pk.hdr, p)[i][1] for i in kinds):
+                    sv = ss_ver if p else 0
+                    launch(out[p], x[p], pre[p], d, pk.hdr, p,
+                           ph=(vis_h + sv) >> sv,
+                           W=kw["lr_ws"][1 if p else 0], bpc=kw["bpc"])
+        return run
+
+    return {"lf": cuda_ms(lf, 10),
+            "cdef": cuda_ms(lambda: FK.cdef_frame(out, pre, d, pk.hdr, **k),
+                            10),
+            "wiener": cuda_ms(lr(FK.lr_wiener, ("w",)), 10),
+            "sgr": cuda_ms(lr(FK.lr_sgr, (0, 1, 2)), 10)}
+
+
+@_filter_seconds
+def filter_timing(label, fin, d, pk, kw):
+    """The filter program alone on a frame's filter input: filter_ (the
+    kernels) and filter_plain in turns (CUDA events, host calls included),
+    the device time of all filter_'s kernels and of each filter kernel
+    (torch.profiler), each plain pass's time (CUDA events), and each
+    kernel's bound (filter_work). Returns a dict of them."""
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    x, y = fin.clone(), fin.clone()  # filter_ writes its input in place
+
+    def kern():
+        P.filter_(x, d, pk.hdr, **kw)
+
+    def plain():
+        P.filter_plain(y, d, pk.hdr, **kw)
+
+    ms = [cuda_ms(kern, 10)]
+    pms = [cuda_ms(plain, 1)]
+    pms.append(cuda_ms(plain, 1))
+    ms.append(cuda_ms(kern, 10))
+    names = [k[1] for k in FILTERS]
+    dev_ms, per = profiled_names_ms(kern, 5, names)
+    ev = kernel_event_ms(fin, d, pk, kw)
+    pieces = plain_pieces_ms(plain)
+    work = filter_work(pk, kw)
+    w, s = FK.lr_launches(pk.hdr, kw["layout_i"])
+    nl = dict(lf=2, cdef=1, wiener=w, sgr=s)
+    row = dict(ms=min(ms), ms_all=ms, plain_ms=min(pms), plain_all=pms,
+               dev_ms=dev_ms, kernels={})
+    for key, name, *_ in FILTERS:
+        b_ms, b_by = bound(*work[key])
+        row["kernels"][key] = dict(dev_ms=per[name], ev_ms=ev[key],
+                                   launches=nl[key],
+                                   plain_ms=pieces[key], nbytes=work[key][0],
+                                   ops=work[key][1], bound=b_ms, bound_by=b_by)
+
+    def txt(v, f="%.4f ms"):
+        return "not measured" if v is None else f % v
+
+    log(f"  filter {label}: filter_ (kernels) {ms[0]:.3f}/{ms[1]:.3f} ms, "
+        f"filter_plain {pms[0]:.1f}/{pms[1]:.1f} ms (CUDA events, in turns); "
+        f"device {txt(dev_ms)} (all of filter_'s kernels, torch.profiler)")
+    for key, k in row["kernels"].items():
+        log(f"    {key}: {k['launches']} launches, device {txt(k['dev_ms'])}"
+            f" (torch.profiler), its launches alone {k['ev_ms']:.4f} ms "
+            "(CUDA events), "
+            f"bound {k['bound']:.5f} ms ({k['bound_by']}: {k['nbytes']} bytes, "
+            f"{k['ops']} ops), plain passes {txt(k['plain_ms'], '%.2f ms')}")
+    return row
+
+
+def _rand_planes(rng, shape, bpc):
+    """Pixels in range: a level per 16x16 region, a step of up to 4 << bd
+    per 4x4 block, noise of +-1 << bd on half of the blocks, and sparse
+    bright pixels (edges to filter, flat runs, speckles)."""
+    import numpy as np
+
+    bd = bpc - 8
+    h, w = shape[-2:]
+    lead = tuple(shape[:-2])
+
+    def up(a, k):
+        return a.repeat(k, -2).repeat(k, -1)[..., :h, :w]
+
+    coarse = rng.integers(0, 1 << bpc, lead + ((h + 15) // 16,
+                                               (w + 15) // 16))
+    steps = rng.integers(-4, 5, lead + ((h + 3) // 4, (w + 3) // 4)) << bd
+    rough = rng.integers(0, 2, steps.shape)
+    v = (up(coarse, 16) + up(steps, 4)
+         + (rng.integers(-1, 2, shape) << bd) * up(rough, 4)
+         + (rng.random(shape) < 0.02) * (3 << bd))
+    return np.clip(v, 0, (1 << bpc) - 1).astype(np.int32)
+
+
+@_filter_seconds
+def filter_kernel_phase(dev):
+    """Each filter kernel against its plain version on the card, on random
+    inputs at 8, 10 and 12 bits (4:2:0, 4:2:2, 4:4:4), in hand-built
+    blobs: both deblock directions over all planes (every width class,
+    random levels with 0 and 63) against engine/filters.py lf_dir_pass
+    per plane; CDEF against cdef_pass (random level maps: both strengths,
+    either, neither); LR against lr_wiener_pass and lr_sgr_pass on a grid
+    of stripes with a random kind each. Bit-identical required; the
+    largest difference per kernel goes into FILT."""
+    import numpy as np
+    import torch
+
+    from rav1d_tpu_torch.engine import filters as FL
+    from rav1d_tpu_torch.engine.layout import CDEF0, DB0, HDR_LEN, LR0, LRB
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+    from rav1d_tpu_torch.ops.ref.lf import calc_eih
+    from rav1d_tpu_torch.tables.spec_data import SGR_PARAMS
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(dev)
+
+    def check(key, got, want):
+        err = max_err(got, want)
+        FILT["err"][key] = max(FILT["err"][key], err)
+        if err:
+            raise AssertionError(f"{key} kernel != plain at {bpc} bpc")
+
+    for bpc, layout_i in ((8, 1), (10, 2), (12, 3)):
+        rng = np.random.default_rng(1000 + bpc)
+        bd = bpc - 8
+        ss_hor, ss_ver = FK.subsampling(layout_i)
+        bh, bw = 34, 50
+        ah, aw = 4 * bh, 4 * bw
+        planes = _rand_planes(rng, (3, ah, aw), bpc)
+        hdr = np.zeros(HDR_LEN, np.int32)
+        words = [np.zeros(HDR_LEN, np.int32)]
+        pos = [HDR_LEN]
+
+        def add(a):
+            a = np.asarray(a, np.int32).reshape(-1)
+            words.append(a)
+            pos[0] += a.size
+            return pos[0] - a.size
+
+        def add_u8(b):
+            b = np.asarray(b, np.uint8).reshape(-1)
+            return add(np.pad(b, (0, -b.size % 4)).view("<i4"))
+
+        eih = np.array(calc_eih(bpc % 5), np.int32)
+        hdr[DB0] = add(eih)
+        shapes = [(bh, bw)] + [((bh + ss_ver) >> ss_ver,
+                                (bw + ss_hor) >> ss_hor)] * 2
+        maps = {}
+        for hor in (0, 1):
+            for p, (nh, nw) in enumerate(shapes):
+                if hor:
+                    nh, nw = nw, nh
+                cls = rng.integers(0, 4, (nh, nw))
+                lvl = rng.integers(0, 64, (nh, nw))
+                lvl[rng.random((nh, nw)) < 0.1] = 63
+                maps[hor, p] = (cls, lvl)
+                hdr[DB0 + 1 + 3 * hor + p] = add_u8((cls << 6) | lvl)
+        nby, nbx = (bh + 1) >> 1, (bw + 1) >> 1
+        ylvl = rng.integers(0, 64, (nby, nbx)) * (rng.random((nby, nbx)) < .8)
+        uvlvl = rng.integers(0, 64, (nby, nbx)) * (rng.random((nby, nbx)) < .8)
+        hdr[CDEF0] = add_u8(ylvl)
+        hdr[CDEF0 + 1] = add_u8(uvlvl)
+        hdr[CDEF0 + 2] = damping = 3 + bpc % 4 + bd
+        # LR: 64-pixel units over the visible plane, 56- then 64-row
+        # stripes, a random kind each (pack.py _collect_lr's geometry)
+        ph, W = ah - 6, 96
+        slots = {}
+        for p in range(3):
+            vw = aw if p == 0 else (aw + ss_hor) >> ss_hor
+            vh = ph if p == 0 else (ph + ss_ver) >> ss_ver
+            y = 0
+            while y < vh:
+                sh = min((64 - 8 * (y == 0)) >> (ss_ver if p else 0), vh - y)
+                for x in range(0, vw, 64):
+                    w = min(64, vw - x)
+                    kind = ("w", 0, 1, 2)[int(rng.integers(0, 4))]
+                    hl, hr = x > 0, x + w < vw
+                    top = (y, y) if y == 0 else (vh + y - 2, vh + y - 1)
+                    below = y + sh
+                    bot = ((below - 1, below - 1) if below == vh else
+                           (vh + below, vh + min(below + 1, vh - 1)))
+                    if kind == "w":
+                        prm = [int(rng.integers(a, b + 1)) for a, b in
+                               zip((-5, -23, -17) * 2, (10, 8, 46) * 2)]
+                    else:
+                        row = SGR_PARAMS[int(rng.integers(0, 14))]
+                        w0 = int(rng.integers(-96, 32))
+                        prm = [int(row[0]), int(row[1]), w0,
+                               128 - w0 - int(rng.integers(-32, 96)), 0, 0]
+                    slots.setdefault((p, kind), []).append(
+                        [x, y, w, sh, x - 3 * hl, x + w - 1 + 3 * hr, *top,
+                         *bot, *prm])
+                y += sh
+        for (p, kind), cols in slots.items():
+            d = np.asarray(cols, np.int32).T
+            nc = (d.shape[1] + LRB - 1) // LRB
+            ch = np.zeros((16, nc * LRB), np.int32)
+            ch[:, : d.shape[1]] = d
+            i = 4 * p + FK.KINDS.index(kind)
+            hdr[LR0 + 2 * i] = add(ch.reshape(16, nc, LRB).transpose(1, 0, 2))
+            hdr[LR0 + 2 * i + 1] = nc
+            slots[p, kind] = t(ch)
+        blob = np.concatenate(words + [np.zeros(16, np.int32)])
+        blob[:HDR_LEN] = hdr
+        blob = t(blob)
+        kw = dict(bh=bh, bw=bw, layout_i=layout_i, bpc=bpc)
+
+        got, want = t(planes), t(planes)
+        for hor in (0, 1):
+            FK.lf_pass(got, blob, hdr, bool(hor), **kw)
+            for p in range(3):
+                cls, lvl = maps[hor, p]
+                want[p] = FL.lf_dir_pass(want[p], t(cls), t(lvl), t(eih),
+                                         p == 0, bool(hor), bpc)
+        check("lf", got, want)
+
+        sec = np.where((ylvl & 3) == 3, 4, ylvl & 3) << bd
+        usec = np.where((uvlvl & 3) == 3, 4, uvlvl & 3) << bd
+        cmaps = t(np.stack([(ylvl >> 2) << bd, sec, uvlvl,
+                            (uvlvl >> 2) << bd, usec]))
+        got, want = t(planes), t(planes)
+        FK.cdef_frame(got, t(planes), blob, hdr, **kw)
+        FL.cdef_pass(want, cmaps, damping, nby, nbx, bh, bw, ss_hor, ss_ver,
+                     1 if layout_i == 2 else 0, bpc)
+        check("cdef", got, want)
+
+        src, lpf = t(planes), t(_rand_planes(rng, (3, ah, aw), bpc))
+        for key, kinds in (("wiener", ("w",)), ("sgr", (0, 1, 2))):
+            got = src.clone()
+            want = torch.cat([src.reshape(3, -1), torch.zeros(
+                (3, 1), dtype=torch.int32, device=dev)], 1)
+            for p in range(3):
+                if not any((p, k) in slots for k in kinds):
+                    continue
+                vh = ph if p == 0 else (ph + ss_ver) >> ss_ver
+                cat = torch.cat([src[p, :vh], lpf[p, :vh]])
+                launch = FK.lr_wiener if key == "wiener" else FK.lr_sgr
+                launch(got[p], src[p], lpf[p], blob, hdr, p, ph=vh, W=W,
+                       bpc=bpc)
+                pf = want[p].clone()
+                for k in kinds:
+                    if k == "w" and (p, k) in slots:
+                        FL.lr_wiener_pass(pf, cat, slots[p, k], W, bpc, aw)
+                    elif (p, k) in slots:
+                        FL.lr_sgr_pass(pf, cat, slots[p, k], W, k, bpc, aw)
+                want[p] = pf
+            want = want[:, :-1].reshape(3, ah, aw)
+            check(key, got, want)
+            if torch.equal(want, src):
+                raise AssertionError(f"{key}: the stripes changed nothing")
+    log(f"filter kernel phase: deblock, CDEF, Wiener and self-guided "
+        f"kernels bit-identical to their plain versions at 8, 10 and 12 "
+        f"bits (max |err| {json.dumps(FILT['err'])})")
+
+
 def high_bitdepth_phase(dev):
     """The committed 1080p streams of smoke_digests.json "formats" (a
     10-bit 4:2:0 key + two inter frames, the format of the bench's
@@ -1076,11 +1692,14 @@ def cli_phase(dev, tmp):
     times = os.path.join(tmp, "frametimes.txt")
     fb = T.engine.stats["fallback"]
     I.launches = WK.launches = WK.level_launches = TW.calls = 0
-    t0 = time.perf_counter()
-    rc = cli.main(["-i", path, "--verify", md5, "--frametimes", times])
-    wall = time.perf_counter() - t0
+    reset_filter_counts()
+    with FilterRecorder() as rec:
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", path, "--verify", md5, "--frametimes", times])
+        wall = time.perf_counter() - t0
     launches = I.launches
     w_launches, w_level, w_calls = WK.launches, WK.level_launches, TW.calls
+    check_filter_counts("cli", filter_counts(), filter_want(rec.check("cli")))
     WAVE["launches"] += w_launches
     with open(times) as fh:
         ms = [int(v) / 1e6 for v in fh.read().split()]
@@ -1152,7 +1771,7 @@ def ring_decode(dev, packets, d, times=None):
     def counts():
         return dict(T.engine.stats, itx=I.launches, wave=WK.launches,
                     level=WK.level_launches, class_step=TW.calls,
-                    plain=kernels.calls)
+                    plain=kernels.calls, **filter_counts())
 
     before = counts()
     (T.engine.run_dense, RF.decode_frame_syntax, RF.materialize_work_items,
@@ -1247,17 +1866,28 @@ def pipeline_phase(dev):
         pass
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    def filters_of(label, c, rec):
+        """Every recorded filter_ call held to filter_plain, and the
+        decode's filter launches to what its frames need."""
+        want = filter_want(rec.check(label))
+        check_filter_counts(label, {k: c[k] for k in want}, want)
+
     launches = 0
+    inter_counts = None
     for label, packets in streams:
-        want, fell, c1 = ring_decode(dev, packets, 1)
+        with FilterRecorder() as rec:
+            want, fell, c1 = ring_decode(dev, packets, 1)
+        filters_of(f"pipeline {label} delay 1", c1, rec)
+        inter_counts = inter_counts or c1
         log(f"pipeline {label}: delay 1 fallback frames {fell}, counts "
             + json.dumps(c1))
         for d in (2, 3):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                got, fell_d, c = ring_decode(dev, packets, d)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+            with FilterRecorder() as rec:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got, fell_d, c = ring_decode(dev, packets, d)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
             same = got == want and fell_d == fell and c == c1
             log(f"pipeline {label}: delay {d} {'==' if same else '!='} "
                 f"delay 1 (MD5s, fallback frames {fell_d}, counts "
@@ -1265,6 +1895,7 @@ def pipeline_phase(dev):
             if not same:
                 raise AssertionError(f"pipeline {label}: delay {d} differs "
                                      "from delay 1")
+            filters_of(f"pipeline {label} delay {d}", c, rec)
             launches += c["itx"]
             PIPE["wave"] = PIPE.get("wave", 0) + c["wave"]
         if (c1["level"] or c1["class_step"] or c1["plain"]
@@ -1316,6 +1947,11 @@ def pipeline_phase(dev):
                 f"({100 * t['syntax'] / rest:.1f}%)")
         launches += c["itx"]
         PIPE["wave"] = PIPE.get("wave", 0) + c["wave"]
+        # the same stream three times over: three times delay 1's filter
+        # launches, no plain call
+        fc = {k: c[k] for k in filter_want([])}
+        check_filter_counts(f"pipeline timing delay {d}", fc, {
+            k: 3 * inter_counts[k] for k in fc})
     base = sum(walls[1, None]) / 2
     log("pipeline timing: wall against the mean of the two delay-1 runs: "
         + ", ".join(f"delay {d}{' (0.5 ms switch)' if sw else ''} "
@@ -1385,6 +2021,7 @@ def vector_phase(dev, d):
             continue
         before = dict(T.engine.stats)
         TW.calls = 0
+        reset_filter_counts()
         dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
         m = hashlib.md5()
 
@@ -1405,10 +2042,12 @@ def vector_phase(dev, d):
         while misses < 2:  # the drain handshake
             misses = 0 if take() else misses + 1
         fb = T.engine.stats["fallback"] - before["fallback"]
+        plain = filter_counts()["filter_plain"]
         log(f"vector {rel}: md5 {m.hexdigest()} (meson {want}) fallback {fb}"
-            f", class_step calls {TW.calls}")
-        if m.hexdigest() != want or TW.calls:
-            raise AssertionError(f"{rel}: md5 mismatch or class_step calls")
+            f", class_step calls {TW.calls}, plain filter calls {plain}")
+        if m.hexdigest() != want or TW.calls or plain:
+            raise AssertionError(f"{rel}: md5 mismatch, or class_step or "
+                                 "plain filter calls")
     for rel, n in HOST_PATH_VECTORS:
         first_frames_phase(dev, d, rel, n)
 
@@ -1416,10 +2055,11 @@ def vector_phase(dev, d):
 def first_frames_phase(dev, d, rel, n):
     """The first n frames of a vector against the port's host path, with
     no fallback, one wave frame launch per frame with wave items, no level
-    launch and no class_step call."""
+    launch, no class_step call and the frames' filter launches."""
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import synth
     from rav1d_tpu_torch.engine import wave as TW
+    from rav1d_tpu_torch.engine.pack import pack_frame
     from rav1d_tpu_torch.io.ivf import IvfDemuxer
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
@@ -1429,11 +2069,16 @@ def first_frames_phase(dev, d, rel, n):
         return
     packets = [pkt.data for _, pkt in zip(range(n), IvfDemuxer(path))]
     want = []
-    nframes = wave_frames(synth.capture_frames(packets, want))
+    frames = synth.capture_frames(packets, want)
+    nframes = wave_frames(frames)
+    f_want = filter_want([(pack_frame(f, plan).hdr, int(f.cur.layout))
+                          for f, plan in frames if plan is not None])
     before = dict(T.engine.stats)
     TW.calls = WK.launches = WK.level_launches = 0
+    reset_filter_counts()
     got = synth.decode_md5s(
         T.Decoder(T.Settings(apply_grain=False), device=dev), packets)
+    check_filter_counts(rel, filter_counts(), f_want)
     fb = T.engine.stats["fallback"] - before["fallback"]
     log(f"vector {rel}: {len(got)} frames, "
         f"{sum(a == b for a, b in zip(got, want))} equal to the host path, "
@@ -1465,6 +2110,7 @@ def main():
     from rav1d_tpu_torch.native import BUILD
     from rav1d_tpu_torch.native import syntax as native_syntax
     from rav1d_tpu_torch.ops.cuda import build
+    from rav1d_tpu_torch.ops.cuda import filters as FK
     from rav1d_tpu_torch.ops.cuda import itx as I
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
@@ -1480,18 +2126,20 @@ def main():
     log(f"syntax backend: native C ({os.path.relpath(so, HERE)})")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, together
-        for fut in [ex.submit(I.lib), ex.submit(WK.lib)]:
+    with ThreadPoolExecutor(5) as ex:  # one nvcc per source, together
+        for fut in [ex.submit(I.lib), ex.submit(WK.lib)] + [
+                ex.submit(FK.lib, n) for n in ("lf", "cdef", "lr")]:
             fut.result()
-    log(f"set-up: itx, idct8x8 and wave kernels built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name in ("itx", "wave"):
+    log(f"set-up: itx, idct8x8, wave, deblock, CDEF and loop restoration "
+        f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for name in ("itx", "wave", "lf", "cdef", "lr"):
         for ln in build.LOGS.get(name, "").splitlines():  # ptxas -v
             if any(k in ln for k in ("entry function", "Function properties",
                                      "Used", "stack frame")):
                 log("  " + ln.replace("ptxas info    :", "").strip())
 
     worst = kernel_phase(dev)
+    filter_kernel_phase(dev)
     launches, worst_ra, blobs, still = slice_phase(dev)
     worst = max(worst, worst_ra)
     for phase in (inter_phase, high_bitdepth_phase, formats_phase,
@@ -1540,6 +2188,19 @@ def main():
             f"{r['floor']:.3f} ms; bound {r['bound']:.5f} ms"
             + ("" if r["plain_ms"] is None
                else f", wave_plain {r['plain_ms']:.1f} ms"))
+    for label, r in FILT["rows"].items():
+        per = "; ".join(
+            f"{k} {txt(v['dev_ms'])} device ({v['ev_ms']:.4f} ms alone), "
+            f"bound {v['bound']:.5f} ms, plain {txt(v['plain_ms'])}"
+            for k, v in r["kernels"].items())
+        log(f"filter per frame {label}: stage_ms.filter "
+            f"{txt(r.get('stage_ms'))} (the decode), filter_ {r['ms']:.3f} ms"
+            f", filter_plain {r['plain_ms']:.1f} ms (CUDA events), device "
+            f"{txt(r['dev_ms'])}; {per}")
+    log(f"filter kernels: launches in the decodes {json.dumps(FILT['launches'])}"
+        f", {FILT['compared']} frames' filter_ equal to filter_plain; kernel "
+        f"phase max |err| {json.dumps(FILT['err'])}; the filter checks and "
+        f"timings took {FILT['seconds']:.1f} s of the run")
     log(f"wave kernels: {WAVE['launches']} frame launches in the decodes, "
         f"{WAVE['compared']} frames equal to wave_plain, max |err| "
         f"{WAVE['err']} (frame kernel), {WAVE['err_levels']} (level kernel)")
@@ -1577,6 +2238,25 @@ def main():
             "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes AV1's integer inverse
             # transforms or intra prediction bit-exactly
+            "library_ms": None,
+        })
+    # the filter kernels: still seed 1's frame, each kernel's device time
+    # (its launches' CUDA-event time where the profiler shows none) against
+    # its plain passes
+    fr = FILT["rows"][lab]["kernels"]
+    for key, _, entry, src, replaces in FILTERS:
+        k = fr[key]
+        if not FILT["launches"][key]:
+            raise AssertionError(f"{entry} was not launched in the decodes")
+        kernels.append({
+            "name": entry, "route": "cuda",
+            "source": "rav1d_tpu_torch/csrc/" + src, "replaces": replaces,
+            "launches": FILT["launches"][key], "max_abs_err": FILT["err"][key],
+            "ms": k["ev_ms"] if k["dev_ms"] is None else k["dev_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound"],
+            "bound_by": k["bound_by"],
+            # no single PyTorch call computes AV1's deblock, CDEF or loop
+            # restoration bit-exactly
             "library_ms": None,
         })
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

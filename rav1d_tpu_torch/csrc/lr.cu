@@ -1,0 +1,449 @@
+// Loop restoration of a plane, CUDA C++ for sm_90a: every Wiener stripe in
+// one launch (rav1d_lr_wiener), every self-guided stripe of all three
+// kinds in another (rav1d_lr_sgr).
+//
+// Replaces the XLA device kernels the JAX engine runs per (kind, plane)
+// slot: rav1d_tpu/engine/filters.py _gather_stripes (:212), _lr_scatter
+// (:234) and lr_wiener_pass_raw (:246) over rav1d_tpu/ops/tpu/lr.py
+// wiener_batch (:21), and lr_sgr_pass_raw (:253) over sgr_batch (:156)
+// with _selfguided (:85), _boxsum (:52) and _mul_shift_exact (:76), called
+// by rav1d_tpu/engine/mega.py filter_prog (:678). The port's plain
+// versions are engine/filters.py gather_stripes, lr_scatter,
+// lr_wiener_pass and lr_sgr_pass over ops/lr.py wiener_batch and
+// sgr_batch (engine/programs.py filter_plain); these kernels compute
+// exactly what they compute.
+//
+// What the plain version computes, per stripe of a slot (16 descriptor
+// rows S_* of engine/filters.py, LRB stripes per chunk in the blob): a
+// 70-row tile of W + 6 columns gathered from cat = [the post-CDEF plane's
+// first ph rows; the pre-CDEF plane's first ph rows]: tile rows 0-1 from
+// row TOP0, 2 from TOP1, 3 .. 3 + h - 1 the stripe's rows y0 + i - 3
+// (clamped to [0, h - 1]), 3 + h from BOT0 and the rest from BOT1 (a row
+// >= ph is the pre-CDEF plane's row - ph; rows clamped to [0, 2 ph - 1]);
+// column c from x0 - 3 + c clamped to [XLO, XHI] and then to the plane.
+// Then the 7-tap Wiener filter (horizontal into a clipped intermediate,
+// then vertical; the 12-bit rounding shifts differ) or the self-guided
+// filter: 5x5 (n = 25) and/or 3x3 (n = 9) box sums of the tile and of its
+// squares, per row of the filter's row set the scaled variance p, the
+// index z = (p * s + 2^19) >> 20 (exact: a 13-bit split in int32), x =
+// sgr_x_by_x[min(z, 255)] and the two tables A (from x * sum, at 164 or
+// 455 over 2^12) and B = x; then per pixel the 6/5 (5x5: even rows from
+// the rows above and below, odd rows from their own) or 4/3 (3x3)
+// weighted neighbourhoods, their difference with the pixel, and the
+// weighted sum of the filters' outputs added to the pixel and clipped.
+// The outputs of rows < min(h, 64) and columns < min(S_W, W) are written
+// to the plane at (y0 + r) * aw + x0 + c, where that lies in the plane.
+// Every intermediate is int32 arithmetic that wraps as the frameworks'
+// does (computed in uint32 here; C++ signed overflow is undefined).
+//
+// Design: one thread block per (stripe, 32 output columns), 256 threads;
+// blocks past the stripe's h or width return at once. The block gathers
+// its tile (70 x 38 words) straight from the two planes through the
+// stripe's row and column maps (no concatenated copy of the planes), into
+// shared memory, with the table; Wiener: the horizontal pass into a
+// shared 70 x 32 intermediate, then the vertical pass and the store;
+// self-guided: the A and B tables of its filters (5x5: 33 rows, 3x3: 66
+// rows, 34 columns) into shared memory, then each pixel and the store. A
+// self-guided launch takes the three kinds' regions of the plane, the
+// kind of a stripe given by its region. The output is a separate plane
+// (the program's copy of the planes), so no stripe reads a pixel another
+// wrote. The kernel covers the stripe's own width, not the padded bucket
+// W (a TPU compile-key artifact): the columns it leaves are ones the
+// plain version drops.
+//
+// Bound on this card: bytes. A plane's stripes read their rows once plus
+// 6 rows of context and write them once: about 2.1 planes' words moved,
+// 17.5 MB for 1080p luma if every unit restores, 5 us at 3.35 TB/s; the
+// 5x5 and 3x3 box sums over the tile and the table steps (about 150
+// int32 operations per pixel for the mixed kind, 60 for Wiener) stay
+// below it at 16.7 T/s for Wiener and come close for the mixed kind.
+//
+// The same source compiles for the host with g++ (the #else branch at the
+// end): rav1d_lr_wiener_host and rav1d_lr_sgr_host walk the same blocks
+// with the same step functions, thread by thread, each barrier a loop
+// boundary, for the CPU tests.
+
+#include <stddef.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define LR_HD __host__ __device__ __forceinline__
+#define LR_CONST __constant__
+#else
+#define LR_HD static inline
+#define LR_CONST static const
+#endif
+
+enum {
+    LR_THREADS = 256,
+    LR_LRB = 64,      // stripes per descriptor chunk (engine/layout.py LRB)
+    LR_ROWS = 70,     // tile rows: 64 + 6
+    LR_CW = 32,       // output columns per block
+    LR_TC = LR_CW + 6,  // tile columns per block
+    LR_AC = LR_CW + 2,  // A and B table columns per block
+    LR_R5 = 33,       // 5x5 table rows: 1, 3, .., 65
+    LR_R3 = 66,       // 3x3 table rows: 1 .. 66
+};
+
+// descriptor rows (engine/filters.py S_*)
+enum { S_X0, S_Y0, S_W, S_H, S_XLO, S_XHI, S_TOP0, S_TOP1, S_BOT0, S_BOT1, S_P0 };
+
+// sgr_x_by_x (engine/consts.py, from the spec tables)
+LR_CONST int LR_X_BY_X[256] = {
+    255, 128,  85,  64,  51,  43,  37,  32,  28,  26,  23,  21,  20,  18,  17,  16,
+     15,  14,  13,  13,  12,  12,  11,  11,  10,  10,   9,   9,   9,   9,   8,   8,
+      8,   8,   7,   7,   7,   7,   7,   6,   6,   6,   6,   6,   6,   6,   5,   5,
+      5,   5,   5,   5,   5,   5,   5,   5,   4,   4,   4,   4,   4,   4,   4,   4,
+      4,   4,   4,   4,   4,   4,   4,   4,   4,   3,   3,   3,   3,   3,   3,   3,
+      3,   3,   3,   3,   3,   3,   3,   3,   3,   3,   3,   3,   3,   3,   3,   3,
+      3,   3,   3,   3,   3,   3,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,
+      2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,
+      2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,
+      2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   2,
+      2,   2,   2,   2,   2,   2,   2,   2,   2,   2,   1,   1,   1,   1,   1,   1,
+      1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,
+      1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,
+      1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,
+      1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,
+      1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   1,   0};
+
+// The launch's arguments (ops/cuda/filters.py LrPass, field for field).
+struct LrPass {
+    int* out;          // the plane's restored copy, (ah, aw) int32
+    const int* src;    // the post-CDEF plane, (ah, aw) int32
+    const int* lpf;    // the pre-CDEF (post-deblock) plane, (ah, aw) int32
+    const int* blob;   // the frame blob
+    int ah, aw;
+    int ph;            // the plane's visible rows (cat's half)
+    int W;             // the slot's tile width: output columns < W
+    int bpc;
+    int nreg;          // descriptor regions: 1 (Wiener) or 3 (self-guided kinds 0, 1, 2)
+    int base[3];       // word offset of each region
+    int first[4];      // first stripe of each region (LRB per chunk)
+};
+
+// wrapping int32 arithmetic
+LR_HD int wadd(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
+LR_HD int wsub(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
+LR_HD int wmul(int a, int b) { return (int)((unsigned)a * (unsigned)b); }
+
+LR_HD int lr_clamp(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+LR_HD int lr_ld(const int* p) {
+#ifdef __CUDA_ARCH__
+    return __ldg(p);
+#else
+    return *p;
+#endif
+}
+
+// One block's stripe: its descriptor and shared buffers.
+struct LrStripe {
+    int kind;          // -1 Wiener, else the self-guided kind
+    int d[16];         // the descriptor
+    int c0;            // the block's first output column
+    int hh, ww;        // output rows and columns of the stripe
+    int* tile;         // LR_ROWS x LR_TC
+    int* tmp;          // Wiener: LR_ROWS x LR_CW; self-guided: the A/B tables
+    int* xbx;          // self-guided: sgr_x_by_x
+};
+
+LR_HD int lr_blocks(const LrPass& p) {
+    return p.nreg == 1 || p.nreg == 3 ? p.first[p.nreg] : -1;
+}
+
+LR_HD LrStripe lr_stripe(const LrPass& p, int s, int cb, int* sm) {
+    LrStripe b;
+    int r = 0;
+    while (r + 1 < p.nreg && s >= p.first[r + 1]) r++;
+    const int j = s - p.first[r];
+    b.kind = p.nreg == 1 ? -1 : r;
+    const int* dsc = p.blob + p.base[r] + (size_t)(j / LR_LRB) * 16 * LR_LRB + (j % LR_LRB);
+    for (int f = 0; f < 16; f++) b.d[f] = lr_ld(dsc + f * LR_LRB);
+    b.c0 = cb * LR_CW;
+    b.hh = b.d[S_H] < 64 ? b.d[S_H] : 64;
+    b.ww = b.d[S_W] < p.W ? b.d[S_W] : p.W;
+    b.tile = sm;
+    b.tmp = sm + LR_ROWS * LR_TC;
+    b.xbx = sm + LR_ROWS * LR_TC + 2 * LR_AC * (LR_R5 + LR_R3);
+    return b;
+}
+
+LR_HD bool lr_active(const LrStripe& b) { return b.hh > 0 && b.c0 < b.ww; }
+
+LR_HD int lr_smem_words() { return LR_ROWS * LR_TC + 2 * LR_AC * (LR_R5 + LR_R3) + 256; }
+
+// the cat row of tile row i (engine/filters.py gather_stripes)
+LR_HD int lr_row(const LrStripe& b, int i) {
+    const int h = b.d[S_H];
+    if (i < 2) return b.d[S_TOP0];
+    if (i < 3) return b.d[S_TOP1];
+    if (i < 3 + h) {
+        int k = i - 3 < 0 ? 0 : i - 3;
+        const int m = h - 1 < 0 ? 0 : h - 1;
+        return b.d[S_Y0] + (k < m ? k : m);
+    }
+    return i == 3 + h ? b.d[S_BOT0] : b.d[S_BOT1];
+}
+
+// step 1: the tile (and the table)
+LR_HD void lr_load(const LrPass& p, const LrStripe& b, int t) {
+    for (int i = t; i < LR_ROWS * LR_TC; i += LR_THREADS) {
+        const int r = i / LR_TC, c = i % LR_TC;
+        const int rr = lr_clamp(lr_row(b, r), 0, 2 * p.ph - 1);
+        int cc = b.d[S_X0] - 3 + b.c0 + c;
+        cc = cc > b.d[S_XLO] ? cc : b.d[S_XLO];
+        cc = cc < b.d[S_XHI] ? cc : b.d[S_XHI];
+        cc = lr_clamp(cc, 0, p.aw - 1);
+        const int* pl = rr < p.ph ? p.src + (size_t)rr * p.aw : p.lpf + (size_t)(rr - p.ph) * p.aw;
+        b.tile[i] = lr_ld(pl + cc);
+    }
+    if (b.kind >= 0)
+        for (int i = t; i < 256; i += LR_THREADS) b.xbx[i] = LR_X_BY_X[i];
+}
+
+LR_HD void lr_store(const LrPass& p, const LrStripe& b, int r, int c, int v) {
+    const long long idx = (long long)(b.d[S_Y0] + r) * p.aw + b.d[S_X0] + c;
+    if (idx >= 0 && idx < (long long)p.ah * p.aw) p.out[idx] = v;
+}
+
+// ---------------------------------- Wiener ----------------------------------
+
+LR_HD void lr_taps(const LrPass& p, const LrStripe& b, int* fh, int* fv) {
+    const int* q = b.d + S_P0;
+    const int f3h = wadd(wmul(wsub(0, wadd(wadd(q[0], q[1]), q[2])), 2), p.bpc == 8 ? 0 : 128);
+    const int f3v = wsub(128, wmul(wadd(wadd(q[3], q[4]), q[5]), 2));
+    const int h[7] = {q[0], q[1], q[2], f3h, q[2], q[1], q[0]};
+    const int v[7] = {q[3], q[4], q[5], f3v, q[5], q[4], q[3]};
+    for (int k = 0; k < 7; k++) {
+        fh[k] = h[k];
+        fv[k] = v[k];
+    }
+}
+
+// step 2: the horizontal pass (ops/lr.py wiener_batch)
+LR_HD void lr_wiener_hor(const LrPass& p, const LrStripe& b, int t) {
+    int fh[7], fv[7];
+    lr_taps(p, b, fh, fv);
+    const int rb = 3 + (p.bpc == 12 ? 2 : 0);
+    const int clip = 1 << (p.bpc + 1 + 7 - rb);
+    const int nrow = b.hh + 6;
+    for (int i = t; i < nrow * LR_CW; i += LR_THREADS) {
+        const int r = i / LR_CW, c = i % LR_CW;
+        const int* row = b.tile + r * LR_TC + c;
+        int acc = 1 << (p.bpc + 6);
+        if (p.bpc == 8) acc = wadd(acc, wmul(row[3], 128));
+        for (int k = 0; k < 7; k++) acc = wadd(acc, wmul(row[k], fh[k]));
+        b.tmp[i] = lr_clamp(wadd(acc, 1 << (rb - 1)) >> rb, 0, clip - 1);
+    }
+}
+
+// step 3: the vertical pass and the store
+LR_HD void lr_wiener_ver(const LrPass& p, const LrStripe& b, int t) {
+    int fh[7], fv[7];
+    lr_taps(p, b, fh, fv);
+    const int rb = 11 - (p.bpc == 12 ? 2 : 0);
+    const int off = 1 << (p.bpc + rb - 1);
+    for (int i = t; i < b.hh * LR_CW; i += LR_THREADS) {
+        const int r = i / LR_CW, c = i % LR_CW;
+        if (b.c0 + c >= b.ww) continue;
+        int acc = -off;
+        for (int k = 0; k < 7; k++) acc = wadd(acc, wmul(b.tmp[(r + k) * LR_CW + c], fv[k]));
+        lr_store(p, b, r, b.c0 + c,
+                 lr_clamp(wadd(acc, 1 << (rb - 1)) >> rb, 0, (1 << p.bpc) - 1));
+    }
+}
+
+// ------------------------------- self-guided --------------------------------
+
+// (p * s + 2^(sh-1)) >> sh through the 13-bit split of ops/lr.py
+// _mul_shift_exact, in its int32 arithmetic
+LR_HD int lr_mul_shift(int p, int s, int sh) {
+    const int hi = p >> 13, lo = p & 8191;
+    const int t1 = wadd(wmul(lo, s), 1 << (sh - 1)) >> 13;
+    return wadd(wmul(hi, s), t1) >> (sh - 13);
+}
+
+// A and B of the box at cat row R, tile column C (global to the stripe):
+// 5x5 sums rows R-1..R+3, columns C-2..C+2; 3x3 rows R..R+2, C-1..C+1
+// (ops/lr.py _boxsum's anchoring)
+LR_HD void lr_ab(const LrPass& p, const LrStripe& b, int five, int R, int Cl, int* A, int* B) {
+    const int n = five ? 25 : 9, obx = five ? 164 : 455;
+    const int r0 = five ? R - 1 : R, nr = five ? 5 : 3;
+    const int cl0 = five ? Cl - 2 : Cl - 1;  // local tile columns
+    int sum = 0, sq = 0;
+    for (int y = 0; y < nr; y++)
+        for (int x = 0; x < nr; x++) {
+            const int v = b.tile[(r0 + y) * LR_TC + cl0 + x];
+            sum = wadd(sum, v);
+            sq = wadd(sq, wmul(v, v));
+        }
+    const int bd = p.bpc - 8;
+    const int a = wadd(sq, (1 << (2 * bd)) >> 1) >> (2 * bd);
+    const int bb = wadd(sum, (1 << bd) >> 1) >> bd;
+    int pv = wsub(wmul(a, n), wmul(bb, bb));
+    pv = pv < 0 ? 0 : pv;
+    const int s = five ? b.d[S_P0] : b.d[S_P0 + 1];
+    int z = lr_mul_shift(pv, s, 20);
+    z = z < 255 ? z : 255;
+    const int x = b.xbx[z < 0 ? (z < -256 ? 0 : z + 256) : z];  // a negative index counts from the end
+    const int m = wmul(x, sum);
+    *A = wadd(wmul(m >> 12, obx), wadd(wmul(m & 4095, obx), 1 << 11) >> 12);
+    *B = x;
+}
+
+// step 2: the tables. 5x5 at rows R = 1, 3, .., 65 (index (R - 1) / 2),
+// 3x3 at R = 1 .. 66 (index R - 1); columns C = c0 + 2 + a, a < LR_AC.
+LR_HD void lr_sgr_tables(const LrPass& p, const LrStripe& b, int t) {
+    int* A5 = b.tmp;
+    int* B5 = A5 + LR_R5 * LR_AC;
+    int* A3 = B5 + LR_R5 * LR_AC;
+    int* B3 = A3 + LR_R3 * LR_AC;
+    if (b.kind != 1)
+        for (int i = t; i < LR_R5 * LR_AC; i += LR_THREADS) {
+            const int ri = i / LR_AC, a = i % LR_AC;
+            lr_ab(p, b, 1, 2 * ri + 1, a + 2, A5 + i, B5 + i);
+        }
+    if (b.kind != 0)
+        for (int i = t; i < LR_R3 * LR_AC; i += LR_THREADS) {
+            const int ri = i / LR_AC, a = i % LR_AC;
+            lr_ab(p, b, 0, ri + 1, a + 2, A3 + i, B3 + i);
+        }
+}
+
+// the 5x5 filter's output at stripe row j, table column a (the pixel's
+// column c0 + a - 1 + ... : a = local output column + 1)
+LR_HD int lr_out5(const LrStripe& b, int j, int a, int src) {
+    const int* A = b.tmp;
+    const int* B = A + LR_R5 * LR_AC;
+    if (!(j & 1)) {  // rows above and below (R = j + 1 and j + 3)
+        const int u = (j >> 1) * LR_AC, d = u + LR_AC;
+        const int aa = wadd(wmul(wadd(B[u + a], B[d + a]), 6),
+                            wmul(wadd(wadd(B[u + a - 1], B[d + a - 1]),
+                                      wadd(B[u + a + 1], B[d + a + 1])), 5));
+        const int bb = wadd(wmul(wadd(A[u + a], A[d + a]), 6),
+                            wmul(wadd(wadd(A[u + a - 1], A[d + a - 1]),
+                                      wadd(A[u + a + 1], A[d + a + 1])), 5));
+        return wadd(wsub(bb, wmul(aa, src)), 1 << 8) >> 9;
+    }
+    const int m = ((j + 1) >> 1) * LR_AC;  // its own row, R = j + 2
+    const int aa = wadd(wmul(B[m + a], 6), wmul(wadd(B[m + a - 1], B[m + a + 1]), 5));
+    const int bb = wadd(wmul(A[m + a], 6), wmul(wadd(A[m + a - 1], A[m + a + 1]), 5));
+    return wadd(wsub(bb, wmul(aa, src)), 1 << 7) >> 8;
+}
+
+LR_HD int lr_eight(const int* M, int j, int a) {
+    const int u = j * LR_AC, m = u + LR_AC, d = m + LR_AC;  // R = j + 1, j + 2, j + 3
+    const int four = wadd(wadd(wadd(M[m + a], M[m + a - 1]), wadd(M[m + a + 1], M[u + a])),
+                          M[d + a]);
+    const int three = wadd(wadd(M[u + a - 1], M[d + a - 1]), wadd(M[u + a + 1], M[d + a + 1]));
+    return wadd(wmul(four, 4), wmul(three, 3));
+}
+
+LR_HD int lr_out3(const LrStripe& b, int j, int a, int src) {
+    const int* A = b.tmp + 2 * LR_R5 * LR_AC;
+    const int* B = A + LR_R3 * LR_AC;
+    return wadd(wsub(lr_eight(A, j, a), wmul(lr_eight(B, j, a), src)), 1 << 8) >> 9;
+}
+
+// step 3: each pixel and the store (ops/lr.py sgr_batch)
+LR_HD void lr_sgr_out(const LrPass& p, const LrStripe& b, int t) {
+    const int w0 = b.d[S_P0 + 2], w1 = b.d[S_P0 + 3];
+    for (int i = t; i < b.hh * LR_CW; i += LR_THREADS) {
+        const int j = i / LR_CW, c = i % LR_CW;
+        if (b.c0 + c >= b.ww) continue;
+        const int src = b.tile[(j + 3) * LR_TC + c + 3];
+        int v;
+        if (b.kind == 0) v = wmul(w0, lr_out5(b, j, c + 1, src));
+        else if (b.kind == 1) v = wmul(w1, lr_out3(b, j, c + 1, src));
+        else v = wadd(wmul(w0, lr_out5(b, j, c + 1, src)), wmul(w1, lr_out3(b, j, c + 1, src)));
+        lr_store(p, b, j, b.c0 + c,
+                 lr_clamp(wadd(src, wadd(v, 1 << 10) >> 11), 0, (1 << p.bpc) - 1));
+    }
+}
+
+#ifdef __CUDACC__
+
+__global__ void __launch_bounds__(LR_THREADS) lr_wiener_kernel(const __grid_constant__ LrPass p) {
+    __shared__ int sm[LR_ROWS * LR_TC + LR_ROWS * LR_CW];
+    const LrStripe b = lr_stripe(p, blockIdx.x, blockIdx.y, sm);
+    if (!lr_active(b)) return;  // the same for every thread of the block
+    lr_load(p, b, threadIdx.x);
+    __syncthreads();
+    lr_wiener_hor(p, b, threadIdx.x);
+    __syncthreads();
+    lr_wiener_ver(p, b, threadIdx.x);
+}
+
+__global__ void __launch_bounds__(LR_THREADS) lr_sgr_kernel(const __grid_constant__ LrPass p) {
+    __shared__ int sm[LR_ROWS * LR_TC + 2 * LR_AC * (LR_R5 + LR_R3) + 256];
+    const LrStripe b = lr_stripe(p, blockIdx.x, blockIdx.y, sm);
+    if (!lr_active(b)) return;
+    lr_load(p, b, threadIdx.x);
+    __syncthreads();
+    lr_sgr_tables(p, b, threadIdx.x);
+    __syncthreads();
+    lr_sgr_out(p, b, threadIdx.x);
+}
+
+static int lr_launch(const void* kernel, const LrPass* f, void* stream) {
+    const int ns = lr_blocks(*f);
+    if (ns < 0 || f->W < 1 || f->bpc < 8 || f->bpc > 12) return -1;
+    if (ns == 0 || f->ph <= 0) return 0;
+    void* args[] = {(void*)f};
+    const cudaError_t e = cudaLaunchKernel(kernel, dim3(ns, (f->W + LR_CW - 1) / LR_CW),
+                                           dim3(LR_THREADS), args, 0, (cudaStream_t)stream);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// Plain C entries (bound with ctypes): one launch over every stripe of
+// the regions on `stream`. Return the launch's error code (-1 for
+// arguments the kernels do not take).
+extern "C" int rav1d_lr_wiener(const LrPass* f, void* stream) {
+    return f->nreg != 1 ? -1 : lr_launch((const void*)lr_wiener_kernel, f, stream);
+}
+
+extern "C" int rav1d_lr_sgr(const LrPass* f, void* stream) {
+    return f->nreg != 3 ? -1 : lr_launch((const void*)lr_sgr_kernel, f, stream);
+}
+
+#else  // a host build of the same functions, for the CPU tests
+
+#include <vector>
+
+static int lr_host(const LrPass& p, int sgr) {
+    const int ns = lr_blocks(p);
+    if (ns < 0 || p.W < 1 || p.bpc < 8 || p.bpc > 12 || p.nreg != (sgr ? 3 : 1)) return -1;
+    if (p.ph <= 0) return 0;
+    std::vector<int> sm(lr_smem_words());
+    for (int s = 0; s < ns; s++)
+        for (int cb = 0; cb < (p.W + LR_CW - 1) / LR_CW; cb++) {
+            for (int& w : sm) w = 0x5a5a5a5a;
+            const LrStripe b = lr_stripe(p, s, cb, sm.data());
+            if (!lr_active(b)) continue;
+            for (int t = 0; t < LR_THREADS; t++) lr_load(p, b, t);
+            if (sgr) {
+                for (int t = 0; t < LR_THREADS; t++) lr_sgr_tables(p, b, t);
+                for (int t = 0; t < LR_THREADS; t++) lr_sgr_out(p, b, t);
+            } else {
+                for (int t = 0; t < LR_THREADS; t++) lr_wiener_hor(p, b, t);
+                for (int t = 0; t < LR_THREADS; t++) lr_wiener_ver(p, b, t);
+            }
+        }
+    return 0;
+}
+
+// rav1d_lr_wiener and rav1d_lr_sgr without the stream: every block in
+// order, each step for every thread in turn.
+extern "C" int rav1d_lr_wiener_host(const LrPass* f) { return lr_host(*f, 0); }
+
+extern "C" int rav1d_lr_sgr_host(const LrPass* f) { return lr_host(*f, 1); }
+
+// sgr_x_by_x, for the tests (256 ints)
+extern "C" int rav1d_lr_table_host(int* out) {
+    for (int i = 0; i < 256; i++) out[i] = LR_X_BY_X[i];
+    return 256;
+}
+
+#endif  // __CUDACC__

@@ -7,6 +7,12 @@ lr_sgr_pass_raw), fed by the level/stripe descriptors of the frame blob.
 Gathers clamp their indices as JAX gathers do; scatters send out-of-range
 writes to the trash word at the end of the flat buffer, as JAX's
 mode="drop" discards them.
+
+These are the plain versions of the hand-written filter kernels
+(ops/cuda/filters.py), which run every frame's filters on the card;
+`calls` counts the calls of the deblock, CDEF and LR passes (not the
+superres upscale, which has no kernel yet), so a run can show that the
+card's filter stage made none.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from ..ops.ref.lf import WRITE_EXTENT
 from .consts import tables
 
 I32 = torch.int32
+calls = 0
 
 
 def _ar(n, dev):
@@ -38,6 +45,8 @@ def lf_dir_pass(plane, cmap, lmap, eih, luma, hor, bpc):
     plane: (H, W) int32; cmap/lmap: (nh4, nw4) final edge class / level
     maps; eih: (2, 64) E/I luts. hor transposes so the same math serves
     both directions. Returns the filtered plane."""
+    global calls
+    calls += 1
     if hor:
         plane = plane.T
     nh4, nw4 = cmap.shape
@@ -90,6 +99,8 @@ def cdef_pass(planes, maps, damping, nby, nbx, bh, bw, ss_hor, ss_ver,
               uv422, bpc):
     """Dense whole-frame CDEF: direction search on pre-CDEF luma + filter
     of every active 8x8 unit, all planes, in place on planes (3, H, W)."""
+    global calls
+    calls += 1
     dev = planes.device
     y_pri, y_sec, uv_lvl, uv_pri, uv_sec = (maps[0], maps[1], maps[2],
                                             maps[3], maps[4])
@@ -250,6 +261,8 @@ def lr_scatter(pf, out, d, aw):
 
 
 def lr_wiener_pass(pf, cat, d, W, bpc, aw):
+    global calls
+    calls += 1
     tmps = gather_stripes(cat, d, W + 6)
     out = wiener_batch(tmps, torch.stack([d[S_P0], d[S_P1], d[S_P2]], 1),
                        torch.stack([d[S_P3], d[S_P4], d[S_P5]], 1), W, 64, bpc)
@@ -257,6 +270,8 @@ def lr_wiener_pass(pf, cat, d, W, bpc, aw):
 
 
 def lr_sgr_pass(pf, cat, d, W, kind, bpc, aw):
+    global calls
+    calls += 1
     tmps = gather_stripes(cat, d, W + 6)
     cur = tmps[:, 3 : 3 + 64, 3 : 3 + W]
     out = sgr_batch(cur, tmps, d[S_P0], d[S_P1],

@@ -1,8 +1,9 @@
 """The device engine's four programs on torch.
 
 Ports of rav1d_tpu/engine/mega.py resid_prog, inter_prog, wave_prog and
-filter_prog; resid and wave launch hand-written kernels on the card and
-run their plain versions (resid_plain, wave_plain) on the CPU. Every
+filter_prog; resid, wave and filter_ launch hand-written kernels on the
+card and run their plain versions (resid_plain, wave_plain,
+filter_plain) on the CPU. Every
 program reads the frame's descriptors from the one uploaded int32 blob
 `dev`, at the word offsets of the header; the trip counts, filter cases
 and feature gates that JAX reads from the device blob come from the host
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.cuda import filters as cuda_filters
 from ..ops.cuda import itx as cuda_itx
 from ..ops.cuda import wave as cuda_wave
 from ..ops.ref.mc import intermediate_bits
@@ -497,7 +499,98 @@ def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws, sr_geom=None):
     sr_h, srcw_y), the upscaled planes' shape, the upscaled picture's size
     and the coded luma width, or None without superres. Returns (planes,
     packed output: the whole luma plane then the (ach, acw) chroma planes,
-    uint8 at 8 bits, int16 at 10 and 12)."""
+    uint8 at 8 bits, int16 at 10 and 12). On the card the hand-written
+    filter kernels (filter_kernels: two deblock launches, one CDEF launch,
+    one Wiener and one self-guided launch per plane with such stripes); on
+    the CPU the plain version `filter_plain`."""
+    kw = dict(geom=geom, bpc=bpc, layout_i=layout_i, lr_ws=lr_ws,
+              sr_geom=sr_geom)
+    if planes.device.type == "cpu":
+        return filter_plain(planes, dev, hdr, **kw)
+    return filter_kernels(planes, dev, hdr, **kw)
+
+
+def _superres(planes, pre_cdef, hdr, cur_h, sr_geom, ss_hor, ss_ver,
+              has_chroma, bpc):
+    """The upscale of both the planes and the post-deblock snapshot (plain
+    torch: engine/filters.py resize_plane). Returns (planes, pre_cdef, the
+    upscaled width, the upscaled picture's rows)."""
+    d_ = planes.device
+    s_ah, s_aw, sr_w, vis_h, srcw_y = sr_geom
+    outs, pres = [], []
+    for pl in range(3):
+        if pl and not has_chroma:
+            z = torch.zeros((s_ah, s_aw), dtype=I32, device=d_)
+            outs.append(z)
+            pres.append(z)
+            continue
+        sh = ss_hor if pl else 0
+        sv = ss_ver if pl else 0
+        ci = 1 if pl else 0
+        h = (cur_h + sv) >> sv
+        args = (h, (sr_w + sh) >> sh, (srcw_y + sh) >> sh,
+                int(hdr[SR0 + 2 * ci]), int(hdr[SR0 + 2 * ci + 1]), bpc,
+                s_aw)
+        outs.append(F.pad(FL.resize_plane(planes[pl], *args),
+                          (0, 0, 0, s_ah - h)))
+        pres.append(F.pad(FL.resize_plane(pre_cdef[pl], *args),
+                          (0, 0, 0, s_ah - h)))
+    return torch.stack(outs), torch.stack(pres), s_aw, vis_h
+
+
+def _pack_out(planes, ach, acw, bpc, has_chroma):
+    """The packed output (the only device->host payload)."""
+    odt = torch.uint8 if bpc == 8 else torch.int16
+    y = planes[0].reshape(-1)
+    if has_chroma:
+        u = planes[1][:ach, :acw].reshape(-1)
+        v = planes[2][:ach, :acw].reshape(-1)
+        return torch.cat([y, u, v]).to(odt)
+    return y.to(odt)
+
+
+def filter_kernels(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws,
+                   sr_geom=None, k=cuda_filters):
+    """`filter_` through the filter kernels of `k` (ops/cuda/filters.py,
+    whose wrappers launch them on the card; the CPU tests pass the
+    sources' host builds): deblock in place, one launch per direction over
+    every plane; the post-deblock snapshot; CDEF from the snapshot into the
+    planes, one launch; superres (plain torch); loop restoration from the
+    planes and the snapshot into a copy of the planes, one Wiener and one
+    self-guided launch per plane with such stripes; the packed output."""
+    _, _, ach, acw, bh, bw, cur_h = geom
+    ss_hor, ss_ver = cuda_filters.subsampling(layout_i)
+    has_chroma = layout_i != 0
+    kw = dict(bh=bh, bw=bw, layout_i=layout_i, bpc=bpc)
+    planes = planes.contiguous()
+    k.lf_pass(planes, dev, hdr, False, **kw)
+    k.lf_pass(planes, dev, hdr, True, **kw)
+    pre_cdef = planes.clone()  # post-deblock snapshot: CDEF's input, LR's lpf
+    k.cdef_frame(planes, pre_cdef, dev, hdr, **kw)
+    vis_h = cur_h
+    if sr_geom is not None:
+        planes, pre_cdef, _, vis_h = _superres(
+            planes, pre_cdef, hdr, cur_h, sr_geom, ss_hor, ss_ver, has_chroma,
+            bpc)
+    out = None
+    for pl, wiener, sgr in cuda_filters.lr_planes(hdr, layout_i):
+        if out is None:  # every stripe reads the planes before any write
+            out = planes.clone()
+        sv = ss_ver if pl else 0
+        lw = dict(ph=(vis_h + sv) >> sv, W=lr_ws[1 if pl else 0], bpc=bpc)
+        if wiener:
+            k.lr_wiener(out[pl], planes[pl], pre_cdef[pl], dev, hdr, pl, **lw)
+        if sgr:
+            k.lr_sgr(out[pl], planes[pl], pre_cdef[pl], dev, hdr, pl, **lw)
+    if out is not None:
+        planes = out
+    return planes, _pack_out(planes, ach, acw, bpc, has_chroma)
+
+
+def filter_plain(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws,
+                 sr_geom=None):
+    """The plain version of `filter_` (mega.py filter_prog in torch):
+    engine/filters.py's deblock, CDEF, superres and LR passes."""
     d_ = dev.device
     ah, aw, ach, acw, bh, bw, cur_h = geom
     ss_hor = 0 if layout_i == 3 else 1
@@ -549,28 +642,9 @@ def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws, sr_geom=None):
     # ---- superres: both the planes and the post-deblock snapshot ----
     vis_h = cur_h
     if sr_geom is not None:
-        s_ah, s_aw, sr_w, vis_h, srcw_y = sr_geom
-        outs, pres = [], []
-        for pl in range(3):
-            if pl and not has_chroma:
-                z = torch.zeros((s_ah, s_aw), dtype=I32, device=d_)
-                outs.append(z)
-                pres.append(z)
-                continue
-            sh = ss_hor if pl else 0
-            sv = ss_ver if pl else 0
-            ci = 1 if pl else 0
-            h = (cur_h + sv) >> sv
-            args = (h, (sr_w + sh) >> sh, (srcw_y + sh) >> sh,
-                    int(hdr[SR0 + 2 * ci]), int(hdr[SR0 + 2 * ci + 1]), bpc,
-                    s_aw)
-            outs.append(F.pad(FL.resize_plane(planes[pl], *args),
-                              (0, 0, 0, s_ah - h)))
-            pres.append(F.pad(FL.resize_plane(pre_cdef[pl], *args),
-                              (0, 0, 0, s_ah - h)))
-        planes = torch.stack(outs)
-        pre_cdef = torch.stack(pres)
-        aw = s_aw
+        planes, pre_cdef, aw, vis_h = _superres(
+            planes, pre_cdef, hdr, cur_h, sr_geom, ss_hor, ss_ver, has_chroma,
+            bpc)
 
     # ---- loop restoration: stripes of each (kind, plane) slot ----
     Wy, Wc = lr_ws
@@ -602,13 +676,4 @@ def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws, sr_geom=None):
         if pfl is not None:
             planes[pl] = pfl[:-1].view(plane.shape)
 
-    # ---- pack the output (the only device->host payload) ----
-    odt = torch.uint8 if bpc == 8 else torch.int16
-    y = planes[0].reshape(-1)
-    if has_chroma:
-        u = planes[1][:ach, :acw].reshape(-1)
-        v = planes[2][:ach, :acw].reshape(-1)
-        packed = torch.cat([y, u, v]).to(odt)
-    else:
-        packed = y.to(odt)
-    return planes, packed
+    return planes, _pack_out(planes, ach, acw, bpc, has_chroma)

@@ -1,0 +1,261 @@
+"""The post filters' wrappers: deblock, CDEF and loop restoration on the
+card.
+
+Each wrapper launches one hand-written kernel (built at first use from
+csrc/, one library per source) on the current stream:
+
+- `lf_pass(planes, dev, hdr, hor, ...)`: csrc/lf.cu rav1d_lf_pass, the
+  deblocking filter of every plane in one direction (vertical edges, then
+  `hor` for horizontal ones), in place;
+- `cdef_frame(planes, pre, dev, hdr, ...)`: csrc/cdef.cu rav1d_cdef_frame,
+  the direction search and filter of every 8x8 unit of every plane, read
+  from the pre-CDEF snapshot `pre`, written to `planes`;
+- `lr_wiener(out, src, lpf, dev, hdr, pl, ...)` and `lr_sgr(...)`:
+  csrc/lr.cu rav1d_lr_wiener and rav1d_lr_sgr, every Wiener stripe of
+  plane `pl`, or every self-guided stripe of its three kinds, read from
+  the post-CDEF plane `src` and the pre-CDEF plane `lpf`, written to `out`.
+
+Their plain versions are engine/filters.py lf_dir_pass, cdef_pass,
+lr_wiener_pass and lr_sgr_pass (engine/programs.py filter_plain). The
+wrappers take CUDA tensors only and raise on anything else and on a failed
+or refused launch; they read nothing back from the card, copy nothing to
+it, and never fall back. `*_args` build a launch's arguments for any
+device (the CPU tests hand them to the sources' host builds). Counters:
+`lf_launches`, `cdef_launches`, `wiener_launches`, `sgr_launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...engine.layout import CDEF0, DB0, LR0, LRB
+from . import build
+
+lf_launches = 0
+cdef_launches = 0
+wiener_launches = 0
+sgr_launches = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LIBS = {}
+I32 = torch.int32
+SMEM_MAX = 232448  # bytes of shared memory a block can use on an H100
+KINDS = ("w", 0, 1, 2)  # the LR slots of a plane, in the blob header's order
+
+
+class LfPass(ctypes.Structure):
+    """csrc/lf.cu struct LfPass, field for field."""
+
+    _fields_ = [("planes", _P), ("blob", _P), ("ah", _I), ("aw", _I),
+                ("hor", _I), ("bpc", _I), ("eih", _I), ("nplanes", _I),
+                ("map", _I * 3), ("nh4", _I * 3), ("nw4", _I * 3),
+                ("first", _I * 4), ("maxnw", _I)]
+
+
+class CdefFrame(ctypes.Structure):
+    """csrc/cdef.cu struct CdefFrame, field for field."""
+
+    _fields_ = [("planes", _P), ("pre", _P), ("blob", _P), ("ah", _I),
+                ("aw", _I), ("ylvl", _I), ("uvlvl", _I), ("nby", _I),
+                ("nbx", _I), ("bh", _I), ("bw", _I), ("damping", _I),
+                ("bpc", _I), ("ss_hor", _I), ("ss_ver", _I), ("uv422", _I)]
+
+
+class LrPass(ctypes.Structure):
+    """csrc/lr.cu struct LrPass, field for field."""
+
+    _fields_ = [("out", _P), ("src", _P), ("lpf", _P), ("blob", _P),
+                ("ah", _I), ("aw", _I), ("ph", _I), ("W", _I), ("bpc", _I),
+                ("nreg", _I), ("base", _I * 3), ("first", _I * 4)]
+
+
+_ENTRIES = {"lf": ("lf.cu", ("rav1d_lf_pass",)),
+            "cdef": ("cdef.cu", ("rav1d_cdef_frame",)),
+            "lr": ("lr.cu", ("rav1d_lr_wiener", "rav1d_lr_sgr"))}
+
+
+def lib(name):
+    """Build (at first use) and load the library of csrc/lf.cu, cdef.cu or
+    lr.cu (`name` "lf", "cdef" or "lr"), its entries' signatures set."""
+    if name not in _LIBS:
+        src, entries = _ENTRIES[name]
+        so = build.build(name, src)
+        for e in entries:
+            fn = getattr(so, e)
+            fn.argtypes = [_P, _P]
+            fn.restype = _I
+        _LIBS[name] = so
+    return _LIBS[name]
+
+
+def subsampling(layout_i):
+    """(ss_hor, ss_ver) of a PixelLayout int."""
+    return (0 if layout_i == 3 else 1), (1 if layout_i == 1 else 0)
+
+
+def _check(*ts):
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev or t.dtype != I32 or not t.is_contiguous():
+            raise ValueError("filter kernels: buffers must be contiguous "
+                             "int32 tensors on one device")
+
+
+def _fits(dev, base, words, what):
+    if not (0 <= base and base + words <= dev.numel()):
+        raise ValueError(f"filter kernels: {what} at {base} ({words} words) "
+                         f"does not fit a blob of {dev.numel()} words")
+
+
+def lf_args(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc):
+    """The LfPass of one direction's pass over the frame's planes (3, ah,
+    aw): the maps of passes 0-2 (vertical edges) or 3-5 (`hor`), stored
+    post-transpose for horizontal edges, as filter_plain reads them."""
+    _check(planes, dev)
+    _, ah, aw = planes.shape
+    ss_hor, ss_ver = subsampling(layout_i)
+    ch4, cw4 = (bh + ss_ver) >> ss_ver, (bw + ss_hor) >> ss_hor
+    shapes = [(bh, bw), (ch4, cw4), (ch4, cw4)][: 1 if layout_i == 0 else 3]
+    if hor:
+        shapes = [(w, h) for h, w in shapes]
+    ln, lines = (ah, aw) if hor else (aw, ah)
+    wp = (ln + 24) - (ln + 24) % 4
+    a = LfPass(planes.data_ptr(), dev.data_ptr(), ah, aw, int(hor), bpc,
+               int(hdr[DB0]), len(shapes))
+    _fits(dev, a.eih, 128, "the E/I luts")
+    first = 0
+    for p, (nh4, nw4) in enumerate(shapes):
+        if 4 * nw4 + 12 > wp or 4 * nh4 > lines + 8:
+            raise ValueError(f"deblock kernel: a ({nh4}, {nw4}) map does not "
+                             f"fit lines of {ln} pixels")
+        a.map[p] = int(hdr[DB0 + 1 + 3 * int(hor) + p])
+        _fits(dev, a.map[p], (nh4 * nw4 + 3) // 4, "a deblock map")
+        a.nh4[p], a.nw4[p], a.first[p] = nh4, nw4, first
+        first += 4 * nh4
+    a.first[len(shapes)] = first
+    a.maxnw = max(w for _, w in shapes)
+    if (2 * (ln + 24) + a.maxnw + 4) * 4 > SMEM_MAX:
+        raise ValueError(f"deblock kernel: lines of {ln} pixels do not fit "
+                         "a block's shared memory")
+    if bpc not in (8, 10, 12):
+        raise ValueError(f"deblock kernel: bpc {bpc}")
+    return a
+
+
+def cdef_args(planes, pre, dev, hdr, *, bh, bw, layout_i, bpc):
+    """The CdefFrame of the frame: `pre` the pre-CDEF snapshot of
+    `planes` (3, ah, aw), the byte maps and damping from the header."""
+    _check(planes, pre, dev)
+    if pre.shape != planes.shape:
+        raise ValueError("cdef kernel: the snapshot's shape differs")
+    _, ah, aw = planes.shape
+    ss_hor, ss_ver = subsampling(layout_i)
+    nby, nbx = (bh + 1) >> 1, (bw + 1) >> 1
+    uv422 = -1 if layout_i == 0 else (1 if layout_i == 2 else 0)
+    a = CdefFrame(planes.data_ptr(), pre.data_ptr(), dev.data_ptr(), ah, aw,
+                  int(hdr[CDEF0]), int(hdr[CDEF0 + 1]), nby, nbx, bh, bw,
+                  int(hdr[CDEF0 + 2]), bpc, ss_hor, ss_ver, uv422)
+    for base in (a.ylvl, a.uvlvl):
+        _fits(dev, base, (nby * nbx + 3) // 4, "a cdef level map")
+    if bpc not in (8, 10, 12):
+        raise ValueError(f"cdef kernel: bpc {bpc}")
+    return a
+
+
+def lr_chunks(hdr, pl):
+    """{kind: (descriptor base, chunks)} of plane pl's LR slots."""
+    return {k: (int(hdr[LR0 + 2 * (4 * pl + i)]),
+                int(hdr[LR0 + 2 * (4 * pl + i) + 1]))
+            for i, k in enumerate(KINDS)}
+
+
+def lr_args(out, src, lpf, dev, hdr, pl, kinds, *, ph, W, bpc):
+    """The LrPass of plane pl's slots `kinds` (("w",) or (0, 1, 2)): `out`
+    its restored copy, `src` the post-CDEF plane and `lpf` the pre-CDEF
+    plane, each (ah, aw); ph its visible rows; W the slot's tile width."""
+    _check(out, src, lpf, dev)
+    if not (out.shape == src.shape == lpf.shape) or out.dim() != 2:
+        raise ValueError("lr kernel: out, src and lpf must be (ah, aw) planes")
+    ah, aw = out.shape
+    ch = lr_chunks(hdr, pl)
+    a = LrPass(out.data_ptr(), src.data_ptr(), lpf.data_ptr(), dev.data_ptr(),
+               ah, aw, ph, W, bpc, len(kinds))
+    first = 0
+    for r, k in enumerate(kinds):
+        base, n = ch[k]
+        if n:
+            _fits(dev, base, n * 16 * LRB, "an LR descriptor region")
+        a.base[r], a.first[r] = base, first
+        first += n * LRB
+    a.first[len(kinds)] = first
+    if not (0 <= ph <= ah) or W < 1 or bpc not in (8, 10, 12):
+        raise ValueError(f"lr kernel: ph {ph} of {ah} rows, W {W}, bpc {bpc}")
+    return a
+
+
+def lr_planes(hdr, layout_i):
+    """[(plane, Wiener stripes?, self-guided stripes?)] of the planes with
+    LR stripes: each takes one launch of each kind it has."""
+    out = []
+    for pl in range(1 if layout_i == 0 else 3):
+        ch = lr_chunks(hdr, pl)
+        w, s = bool(ch["w"][1]), any(ch[k][1] for k in (0, 1, 2))
+        if w or s:
+            out.append((pl, w, s))
+    return out
+
+
+def lr_launches(hdr, layout_i):
+    """(Wiener launches, self-guided launches) of a frame."""
+    planes = lr_planes(hdr, layout_i)
+    return sum(w for _, w, _ in planes), sum(s for _, _, s in planes)
+
+
+def _launch(name, entry, a, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"filter kernels: CUDA tensors only, got {t.device}")
+    rc = getattr(lib(name), entry)(ctypes.byref(a),
+                                   torch.cuda.current_stream(t.device)
+                                   .cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: the launch failed (error {rc})")
+
+
+def lf_pass(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc):
+    """One direction's deblocking of every plane of `planes` (3, ah, aw),
+    in place: one launch."""
+    global lf_launches
+    a = lf_args(planes, dev, hdr, hor, bh=bh, bw=bw, layout_i=layout_i,
+                bpc=bpc)
+    _launch("lf", "rav1d_lf_pass", a, planes)
+    lf_launches += 1
+
+
+def cdef_frame(planes, pre, dev, hdr, *, bh, bw, layout_i, bpc):
+    """CDEF of every plane: reads `pre`, writes the filtered units of
+    `planes`: one launch."""
+    global cdef_launches
+    a = cdef_args(planes, pre, dev, hdr, bh=bh, bw=bw, layout_i=layout_i,
+                  bpc=bpc)
+    _launch("cdef", "rav1d_cdef_frame", a, planes)
+    cdef_launches += 1
+
+
+def lr_wiener(out, src, lpf, dev, hdr, pl, *, ph, W, bpc):
+    """Every Wiener stripe of plane pl into `out`: one launch."""
+    global wiener_launches
+    a = lr_args(out, src, lpf, dev, hdr, pl, ("w",), ph=ph, W=W, bpc=bpc)
+    _launch("lr", "rav1d_lr_wiener", a, out)
+    wiener_launches += 1
+
+
+def lr_sgr(out, src, lpf, dev, hdr, pl, *, ph, W, bpc):
+    """Every self-guided stripe of plane pl, all three kinds, into `out`:
+    one launch."""
+    global sgr_launches
+    a = lr_args(out, src, lpf, dev, hdr, pl, (0, 1, 2), ph=ph, W=W, bpc=bpc)
+    _launch("lr", "rav1d_lr_sgr", a, out)
+    sgr_launches += 1

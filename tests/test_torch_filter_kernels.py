@@ -1,0 +1,604 @@
+"""The post-filter kernels against the plain filter passes and the JAX
+engine's, exactly.
+
+csrc/lf.cu, csrc/cdef.cu and csrc/lr.cu compiled for the host with g++:
+their host entries (rav1d_lf_pass_host, rav1d_cdef_frame_host,
+rav1d_lr_wiener_host, rav1d_lr_sgr_host) walk the thread blocks of a
+launch with the kernels' own step functions, thread by thread, each
+barrier a loop boundary, on the arguments ops/cuda/filters.py builds for
+the launch (`*_args`). The kernels themselves build and run only on the
+card, where chip_smoke.py holds them to their plain versions. Checked:
+
+- deblock (`lf_args` over a hand-built blob): one direction's pass over
+  all three planes against engine/filters.py lf_dir_pass per plane and
+  rav1d_tpu's lf_dir_pass_raw (over ops/tpu/lf.py filter_lines_batch),
+  both directions at 8, 10 and 12 bits (4:2:0, 4:2:2, 4:4:4): every
+  width class, levels 0 and 63, cells whose windows cross the plane's
+  left and right borders, flat and rough edges;
+- CDEF (`cdef_args`): the frame against cdef_pass and rav1d_tpu's
+  cdef_pass_raw (find_dir_batch, cdef_filter_batch) in 4:2:0, 4:2:2 and
+  4:4:4 at 8, 10 and 12 bits, damping 3-6 (and one below the packer's
+  range, where the secondary shift is negative): all eight directions,
+  units with the primary strength only, the secondary only, both and
+  neither, a variance of 0, MISSING taps across each frame edge and the
+  plane's, speckles whose filtered value the taps' range clamps;
+- loop restoration (`lr_args`): Wiener and the self-guided kinds 0, 1
+  and 2 against lr_wiener_pass / lr_sgr_pass and rav1d_tpu's
+  lr_wiener_pass_raw / lr_sgr_pass_raw (wiener_batch, sgr_batch) at 8,
+  10 and 12 bits, on stripes at the top, bottom, left and right of the
+  frame, with S_W < W, S_W = W and S_W > W and S_H < 64, lpf rows from
+  the pre-CDEF plane; 66 narrow stripes in two descriptor chunks;
+- the kernels' constant tables against engine/consts.py and ops/cdef.py;
+- engine/programs.py filter_kernels through the host entries against
+  filter_plain on frames the other test files pack: the (136, 96) stills
+  of tests/test_torch_programs.py, the 10-bit 4:2:2 deblock-tools frame of
+  tests/test_torch_formats_programs.py, a 12-bit 4:4:4 and a 12-bit 4:0:0
+  still and a superres still, with the launches the program makes;
+  the 4:0:0 still against rav1d_tpu's mega.filter_prog;
+- the wrappers' rules: a CPU tensor raises and counts nothing;
+  programs.filter_ on CPU tensors is filter_plain (engine/filters.py
+  calls, no wrapper launch).
+
+Inputs are seeded with numpy. Tolerance: exact.
+"""
+
+import ctypes
+import functools
+import os
+import subprocess
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rav1d_tpu.engine import filters as JF
+from rav1d_tpu.engine import mega as JM
+from rav1d_tpu_torch import synth
+from rav1d_tpu_torch.engine import filters as FL
+from rav1d_tpu_torch.engine import programs as P
+from rav1d_tpu_torch.engine.blob import Uploader
+from rav1d_tpu_torch.engine.consts import numpy_tables
+from rav1d_tpu_torch.engine.layout import CDEF0, DB0, HDR_LEN, LR0, LRB
+from rav1d_tpu_torch.engine.pack import pack_frame
+from rav1d_tpu_torch.engine.run import stack_planes
+from rav1d_tpu_torch.headers import PixelLayout as PL
+from rav1d_tpu_torch.ops import cdef as OC
+from rav1d_tpu_torch.ops.cuda import filters as FK
+from rav1d_tpu_torch.ops.ref.lf import calc_eih
+from rav1d_tpu_torch.tables.spec_data import SGR_PARAMS
+
+CSRC = os.path.join(os.path.dirname(FK.__file__), "..", "..", "csrc")
+BPC_LAYOUT = {8: PL.I420, 10: PL.I422, 12: PL.I444}
+_VOID = ctypes.c_void_p
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """The three sources compiled for the host with g++ and loaded, as a
+    filter_kernels `k` that runs their host entries."""
+    d = str(tmp_path_factory.mktemp("filters"))
+    libs = {}
+    for name in ("lf", "cdef", "lr"):
+        so = os.path.join(d, f"lib{name}_host.so")
+        subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
+                        "-fPIC", "-o", so, os.path.join(CSRC, name + ".cu")],
+                       check=True)
+        libs[name] = ctypes.CDLL(so)
+    for fn in (libs["lf"].rav1d_lf_pass_host, libs["cdef"].rav1d_cdef_frame_host,
+               libs["lr"].rav1d_lr_wiener_host, libs["lr"].rav1d_lr_sgr_host,
+               libs["cdef"].rav1d_cdef_tables_host,
+               libs["lr"].rav1d_lr_table_host):
+        fn.argtypes = [_VOID]
+        fn.restype = ctypes.c_int
+    return HostKernels(libs)
+
+
+class HostKernels:
+    """ops/cuda/filters.py's launch wrappers with the host entries in place
+    of the launches; `n` counts the calls per kernel."""
+
+    def __init__(self, libs):
+        self.libs = libs
+        self.n = dict.fromkeys(("lf", "cdef", "wiener", "sgr"), 0)
+
+    def _run(self, lib, entry, a, key):
+        assert getattr(self.libs[lib], entry)(ctypes.byref(a)) == 0
+        self.n[key] += 1
+
+    def lf_pass(self, planes, dev, hdr, hor, **kw):
+        self._run("lf", "rav1d_lf_pass_host",
+                  FK.lf_args(planes, dev, hdr, hor, **kw), "lf")
+
+    def cdef_frame(self, planes, pre, dev, hdr, **kw):
+        self._run("cdef", "rav1d_cdef_frame_host",
+                  FK.cdef_args(planes, pre, dev, hdr, **kw), "cdef")
+
+    def lr_wiener(self, out, src, lpf, dev, hdr, pl, **kw):
+        self._run("lr", "rav1d_lr_wiener_host",
+                  FK.lr_args(out, src, lpf, dev, hdr, pl, ("w",), **kw),
+                  "wiener")
+
+    def lr_sgr(self, out, src, lpf, dev, hdr, pl, **kw):
+        self._run("lr", "rav1d_lr_sgr_host",
+                  FK.lr_args(out, src, lpf, dev, hdr, pl, (0, 1, 2), **kw),
+                  "sgr")
+
+
+class Blob:
+    """A hand-built frame blob: the header's words, then regions."""
+
+    def __init__(self):
+        self.hdr = np.zeros(HDR_LEN, np.int32)
+        self.words = [np.zeros(HDR_LEN, np.int32)]
+        self.pos = HDR_LEN
+
+    def add(self, words):
+        w = np.asarray(words, np.int32).reshape(-1)
+        base = self.pos
+        self.words.append(w)
+        self.pos += w.size
+        return base
+
+    def add_u8(self, b):
+        b = np.asarray(b, np.uint8).reshape(-1)
+        return self.add(np.pad(b, (0, -b.size % 4)).view("<i4"))
+
+    def dev(self):
+        w = np.concatenate(self.words + [np.zeros(16, np.int32)])
+        w[:HDR_LEN] = self.hdr
+        return torch.from_numpy(w)
+
+
+def _t(a):
+    """A torch copy of a numpy array (the passes write their inputs)."""
+    return torch.from_numpy(np.array(a, np.int32))
+
+
+def _jit(fn, static):
+    return jax.jit(fn, static_argnums=static)
+
+
+_JLF = _jit(JF.lf_dir_pass_raw, (4, 5, 6))
+_JCDEF = _jit(JF.cdef_pass_raw, tuple(range(2, 11)))
+_JWIENER = _jit(JF.lr_wiener_pass_raw, (3, 4, 5))
+_JSGR = _jit(JF.lr_sgr_pass_raw, (3, 4, 5, 6))
+
+
+def _smooth(rng, shape, bpc, cell=4):
+    """Pixels in range: a level per 16x16 region, a step of up to 4 << bd
+    per (cell x cell) block, and noise of +-1 << bd on half of the blocks
+    (the other half flat)."""
+    bd = bpc - 8
+    h, w = shape[-2:]
+    lead = shape[:-2]
+    coarse = rng.integers(0, 1 << bpc, lead + ((h + 15) // 16, (w + 15) // 16))
+    steps = rng.integers(-4, 5, lead + ((h + cell - 1) // cell,
+                                        (w + cell - 1) // cell)) << bd
+    rough = rng.integers(0, 2, steps.shape)
+    up = lambda a, k: a.repeat(k, -2).repeat(k, -1)[..., :h, :w]  # noqa: E731
+    noise = rng.integers(-1, 2, shape) << bd
+    v = up(coarse, 16) + up(steps, cell) + noise * up(rough, cell)
+    return np.clip(v, 0, (1 << bpc) - 1).astype(np.int32)
+
+
+def _ss(layout):
+    return FK.subsampling(int(layout))
+
+
+# -------------------------------- deblock --------------------------------
+
+
+def _db_maps(rng, nh4, nw4):
+    """(class, level) maps: every class, level 0 on some cells, 63 on
+    others; the left and right border cells at width class 3."""
+    cls = rng.integers(0, 4, (nh4, nw4))
+    cls[:, 0] = 3
+    cls[:, -1] = 3
+    lvl = rng.integers(1, 63, (nh4, nw4))
+    lvl[rng.random((nh4, nw4)) < 0.15] = 0
+    lvl[rng.random((nh4, nw4)) < 0.15] = 63
+    return cls.astype(np.int32), lvl.astype(np.int32)
+
+
+@pytest.mark.parametrize("hor", [False, True], ids=["vertical", "horizontal"])
+@pytest.mark.parametrize("bpc", [8, 10, 12])
+def test_deblock_pass(host, bpc, hor):
+    layout = BPC_LAYOUT[bpc]
+    ss_hor, ss_ver = _ss(layout)
+    rng = np.random.default_rng(100 * bpc + hor)
+    bh, bw = 10, 14
+    ah, aw = 4 * bh, 4 * bw  # the luma edges reach the plane's borders
+    planes = _smooth(rng, (3, ah, aw), bpc)
+    e, i = calc_eih(bpc % 5)
+    eih = np.array([e, i], np.int32)
+    blob = Blob()
+    blob.hdr[DB0] = blob.add(eih)
+    shapes = [(bh, bw)] + [((bh + ss_ver) >> ss_ver, (bw + ss_hor) >> ss_hor)] * 2
+    if hor:
+        shapes = [(w, h) for h, w in shapes]
+    maps = []
+    for p, (nh4, nw4) in enumerate(shapes):
+        cls, lvl = _db_maps(rng, nh4, nw4)
+        maps.append((cls, lvl))
+        blob.hdr[DB0 + 1 + 3 * hor + p] = blob.add_u8((cls << 6) | lvl)
+    sel = np.concatenate([(c * (lv != 0)).ravel() for c, lv in maps])
+    assert set(np.unique(sel)) == {0, 1, 2, 3}
+    lv_sel = np.concatenate([lv[c != 0] for c, lv in maps])
+    assert 63 in lv_sel and 0 in lv_sel
+
+    want = _t(planes)
+    jax_out = []
+    for p, (cls, lvl) in enumerate(maps):
+        want[p] = FL.lf_dir_pass(want[p], _t(cls), _t(lvl), _t(eih), p == 0,
+                                 hor, bpc)
+        jax_out.append(np.asarray(_JLF(jnp.asarray(planes[p]), cls, lvl, eih,
+                                       p == 0, hor, bpc)))
+    np.testing.assert_array_equal(want.numpy(), np.stack(jax_out))
+    got = _t(planes)
+    host.lf_pass(got, blob.dev(), blob.hdr, hor, bh=bh, bw=bw,
+                 layout_i=int(layout), bpc=bpc)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (want.numpy() != planes).sum() > 50
+
+
+# --------------------------------- CDEF ----------------------------------
+
+# orientation vectors of the luma units' line patterns
+_ORIENT = [(0, 1), (1, 2), (1, 1), (2, 1), (1, 0), (2, -1), (1, -1), (1, -2)]
+
+
+def _speckle(base, bd, shape):
+    """A flat block with a bright pixel in every 4x4 (the filter's output
+    overshoots the taps' range there, so the clamp to it decides)."""
+    yy, xx = np.mgrid[0 : shape[0], 0 : shape[1]]
+    return base + (((yy % 4 == 1) & (xx % 4 == 2)) * (2 << bd))
+
+
+def _cdef_luma(rng, nby, nbx, ah, aw, bpc):
+    """Luma whose 8x8 units carry lines of each orientation (so every
+    direction wins somewhere), flat units (variance 0), speckles and
+    noise."""
+    bd = bpc - 8
+    y = np.zeros((ah, aw), np.int64)
+    yy, xx = np.mgrid[0:8, 0:8]
+    for by in range(nby):
+        for bx in range(nbx):
+            k = (by * nbx + bx) % 11
+            base = int(rng.integers(40, 200)) << bd
+            if k < 8:
+                a, b = _ORIENT[k]
+                blk = base + ((((a * yy + b * xx) >> 1) & 3) * 9 << bd)
+                blk = blk + (rng.integers(-1, 2, (8, 8)) << bd)
+            elif k == 8:
+                blk = np.full((8, 8), base)
+            elif k == 9:
+                blk = _speckle(base, bd, (8, 8))
+            else:
+                blk = base + (rng.integers(-12, 13, (8, 8)) << bd)
+            y[by * 8 : by * 8 + 8, bx * 8 : bx * 8 + 8] = blk
+    return np.clip(y, 0, (1 << bpc) - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", [PL.I420, PL.I422, PL.I444],
+                         ids=lambda v: v.name)
+@pytest.mark.parametrize("bpc", [8, 10, 12])
+def test_cdef_frame(host, bpc, layout):
+    ss_hor, ss_ver = _ss(layout)
+    rng = np.random.default_rng(7 * bpc + int(layout))
+    bd = bpc - 8
+    bh, bw = 11, 15  # the last unit row and column have no bottom / right
+    nby, nbx = (bh + 1) >> 1, (bw + 1) >> 1
+    ah, aw = 8 * nby, 8 * nbx  # the last units' taps cross the plane's edge
+    speck = _speckle(0, bd, (ah, aw)) * (rng.random((ah, aw)) < 0.5)
+    planes = np.stack([_cdef_luma(rng, nby, nbx, ah, aw, bpc)]
+                      + [np.minimum(_smooth(rng, (ah, aw), bpc) + speck,
+                                    (1 << bpc) - 1) for _ in range(2)])
+    # per unit: neither strength, the primary only, the secondary only, both
+    kind = rng.integers(0, 4, (nby, nbx))
+    pri = np.where(kind & 1, rng.integers(1, 16, (nby, nbx)), 0)
+    sec = np.where(kind & 2, rng.integers(1, 4, (nby, nbx)), 0)
+    ylvl = (pri << 2) | sec
+    ukind = rng.integers(0, 4, (nby, nbx))
+    uvlvl = ((np.where(ukind & 1, rng.integers(1, 16, (nby, nbx)), 0) << 2)
+             | np.where(ukind & 2, rng.integers(1, 4, (nby, nbx)), 0))
+    # the header's damping is the frame's (3-6) + bd (pack.py _pack_cdef);
+    # at 12-bit 4:4:4 it is 3, below what the packer writes, so that the
+    # secondary shift goes negative (a right shift that fills with the sign)
+    damping = 3 + (bpc + int(layout)) % 4 + bd
+    if (bpc, layout) == (12, PL.I444):
+        damping = 3
+    blob = Blob()
+    blob.hdr[CDEF0] = blob.add_u8(ylvl)
+    blob.hdr[CDEF0 + 1] = blob.add_u8(uvlvl)
+    blob.hdr[CDEF0 + 2] = damping
+
+    blocks = _t(planes[0].reshape(nby, 8, nbx, 8).transpose(0, 2, 1, 3)
+                .reshape(-1, 8, 8))
+    dirs, var = OC.find_dir_batch(blocks, bpc)
+    assert set(dirs.tolist()) == set(range(8)) and (var == 0).any()
+    assert set(kind.ravel()) == {0, 1, 2, 3} == set(ukind.ravel())
+
+    def sec_of(lvl):
+        s = lvl & 3
+        return np.where(s == 3, 4, s) << bd
+
+    maps = np.stack([(ylvl >> 2) << bd, sec_of(ylvl), uvlvl, (uvlvl >> 2) << bd,
+                     sec_of(uvlvl)]).astype(np.int32)
+    uv422 = 1 if layout == PL.I422 else 0
+    args = (damping, nby, nbx, bh, bw, ss_hor, ss_ver, uv422, bpc)
+    want = _t(planes)
+    FL.cdef_pass(want, _t(maps), *args)
+    np.testing.assert_array_equal(
+        want.numpy(), np.asarray(_JCDEF(jnp.asarray(planes), maps, *args)))
+    got = _t(planes)
+    host.cdef_frame(got, _t(planes), blob.dev(), blob.hdr, bh=bh, bw=bw,
+                    layout_i=int(layout), bpc=bpc)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for p in range(3):
+        assert (want.numpy()[p] != planes[p]).sum() > 20
+
+
+# ---------------------------------- LR -----------------------------------
+
+LR_AH, LR_AW, LR_PH, LR_VW, LR_W = 136, 208, 130, 200, 96
+
+
+def _stripe(x0, y0, w, h, params):
+    """A stripe descriptor as the packer writes one (pack.py _collect_lr)
+    for a unit at (x0, y0) of a LR_VW x LR_PH plane: no lpf rows above the
+    first stripe or below the last, the lpf rows of the pre-CDEF plane
+    (cat rows >= LR_PH) elsewhere."""
+    ph = LR_PH
+    have_l, have_r = x0 > 0, x0 + w < LR_VW
+    xlo, xhi = x0 - 3 * have_l, x0 + w - 1 + 3 * have_r
+    top = (y0, y0) if y0 == 0 else (ph + y0 - 2, ph + y0 - 1)
+    below = y0 + h
+    below2 = below if below + 1 == ph else below + 1
+    bot = ((y0 + h - 1, y0 + h - 1) if below == ph
+           else (ph + below, ph + below2))
+    return [x0, y0, w, h, xlo, xhi, *top, *bot, *params]
+
+
+def _lr_params(rng, kind):
+    if kind == "w":
+        lo, hi = (-5, -23, -17), (10, 8, 46)
+        return [int(rng.integers(a, b + 1)) for a, b in zip(lo + lo, hi + hi)]
+    row = SGR_PARAMS[int(rng.integers(0, 10)) if kind == 0 else
+                     int(rng.integers(10, 14)) if kind == 1 else
+                     int(rng.integers(0, 10))]
+    s0, s1 = int(row[0]), int(row[1])
+    # weights in the spec's ranges, the 5x5 one away from 0 so that every
+    # stripe changes
+    w0 = int(rng.choice([-96, -60, -25, 20, 31]))
+    w1 = int(rng.integers(-32, 96))
+    return [s0, s1, w0, 128 - w0 - w1, 0, 0]
+
+
+def _lr_case(rng, kind, narrow=False):
+    """Stripe descriptors (16, n): top-left, top-right, a middle stripe with
+    lpf rows on both sides and S_W > W (the plain version writes its first
+    W columns), one at the right, a bottom stripe with S_W = W and S_H <
+    64; or, `narrow`, 66 stripes 3 columns wide (two chunks)."""
+    if narrow:
+        cols = [_stripe(3 * i, 56, 3, 8, _lr_params(rng, kind))
+                for i in range(66)]
+    else:
+        cols = [_stripe(0, 0, 64, 56, _lr_params(rng, kind)),
+                _stripe(136, 0, 64, 56, _lr_params(rng, kind)),
+                _stripe(64, 56, LR_W + 8, 64, _lr_params(rng, kind)),
+                _stripe(168, 56, 32, 64, _lr_params(rng, kind)),
+                _stripe(8, 120, LR_W, 10, _lr_params(rng, kind))]
+    return np.asarray(cols, np.int32).T
+
+
+def _lr_check(host, bpc, kind, d):
+    rng = np.random.default_rng(bpc * 31 + (9 if kind == "w" else kind))
+    src = _smooth(rng, (LR_AH, LR_AW), bpc, cell=8)
+    lpf = _smooth(rng, (LR_AH, LR_AW), bpc, cell=8)
+    n = d.shape[1]
+    nc = (n + LRB - 1) // LRB
+    chunks = np.zeros((16, nc * LRB), np.int32)
+    chunks[:, :n] = d
+    blob = Blob()
+    ki = FK.KINDS.index(kind)
+    blob.hdr[LR0 + 2 * ki] = blob.add(
+        chunks.reshape(16, nc, LRB).transpose(1, 0, 2))
+    blob.hdr[LR0 + 2 * ki + 1] = nc
+    dd = _t(chunks)
+    cat = np.concatenate([src[:LR_PH], lpf[:LR_PH]])
+
+    pf = torch.cat([_t(src).reshape(-1), torch.zeros(1, dtype=torch.int32)])
+    if kind == "w":
+        FL.lr_wiener_pass(pf, _t(cat), dd, LR_W, bpc, LR_AW)
+        jout = _JWIENER(jnp.asarray(src.ravel()), cat, chunks, LR_W, bpc, LR_AW)
+    else:
+        FL.lr_sgr_pass(pf, _t(cat), dd, LR_W, kind, bpc, LR_AW)
+        jout = _JSGR(jnp.asarray(src.ravel()), cat, chunks, LR_W, kind, bpc,
+                     LR_AW)
+    want = pf[:-1].view(LR_AH, LR_AW)
+    np.testing.assert_array_equal(want.numpy().ravel(), np.asarray(jout))
+    got = _t(src)
+    kw = dict(ph=LR_PH, W=LR_W, bpc=bpc)
+    if kind == "w":
+        host.lr_wiener(got, _t(src), _t(lpf), blob.dev(), blob.hdr, 0, **kw)
+    else:
+        host.lr_sgr(got, _t(src), _t(lpf), blob.dev(), blob.hdr, 0, **kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    changed = want.numpy() != src
+    for x0, y0, w, h in d[:4].T:
+        assert changed[y0 : y0 + h, x0 : x0 + min(w, LR_W)].any()
+    assert not changed[LR_PH:].any() and not changed[:, LR_VW:].any()
+    if d.shape[1] == 5:  # the columns past W of the S_W > W stripe
+        assert not changed[56:120, 64 + LR_W : 168].any()
+
+
+@pytest.mark.parametrize("kind", ["w", 0, 1, 2], ids=lambda k: f"kind-{k}")
+@pytest.mark.parametrize("bpc", [8, 10, 12])
+def test_lr_stripes(host, bpc, kind):
+    _lr_check(host, bpc, kind, _lr_case(np.random.default_rng(bpc), kind))
+
+
+def test_lr_two_chunks(host):
+    """66 narrow stripes: the second descriptor chunk, the region walk."""
+    _lr_check(host, 10, "w", _lr_case(np.random.default_rng(3), "w", True))
+
+
+def test_constant_tables(host):
+    """The kernels' constant tables are the plain versions' tables."""
+    t = np.zeros(112, np.int32)
+    assert host.libs["cdef"].rav1d_cdef_tables_host(t.ctypes.data) == 112
+    offs = np.array([OC._PRI_OFF, OC._SEC1_OFF, OC._SEC2_OFF]).ravel()
+    np.testing.assert_array_equal(t[:96], offs)
+    np.testing.assert_array_equal(t[96:], numpy_tables()["uv_dirs"].ravel())
+    x = np.zeros(256, np.int32)
+    assert host.libs["lr"].rav1d_lr_table_host(x.ctypes.data) == 256
+    np.testing.assert_array_equal(x, numpy_tables()["sgr_x_by_x"])
+
+
+# ------------------------------ whole frames ------------------------------
+
+
+def _formats_packets():
+    from test_torch_formats_programs import COMBOS
+
+    return COMBOS["10bit-422-lf-tools"][0]()
+
+
+# name: (packets, index of the frame)
+FRAMES = {
+    "8bit-420-s10": (lambda: [synth.still_picture(136, 96, 10)], 0),
+    "8bit-420-s6": (lambda: [synth.still_picture(136, 96, 6)], 0),
+    "10bit-422-lf-tools": (_formats_packets, 1),
+    "12bit-444": (lambda: [synth.still_picture(136, 96, 4, bpc=12,
+                                               layout=PL.I444)], 0),
+    "12bit-400": (lambda: [synth.still_picture(136, 96, 5, bpc=12,
+                                               layout=PL.I400)], 0),
+    "8bit-420-superres": (lambda: [synth.still_picture(136, 96, 10,
+                                                       superres=True)], 0),
+}
+
+
+class Frame:
+    """A frame's blob and its filter program's input (the port's plain
+    resid, inter and wave programs), and the program's statics."""
+
+    def __init__(self, name):
+        packets, i = FRAMES[name]
+        f, plan = synth.capture_frames(packets())[i]
+        pk = self.pk = pack_frame(f, plan)
+        ah, aw, bpc = plan.ah, plan.aw, f.cur.bpc
+        self.dev, _ = Uploader("cpu").upload(pk, ah * aw, bpc)
+        layout = f.cur.layout
+        ss_hor, ss_ver = _ss(layout)
+        out = f.sr_cur
+        ach, acw = out.u.shape if out.u is not None else (0, 0)
+        ra, planes = P.resid(self.dev, pk.hdr, pk.tx_valid, ah=ah, aw=aw,
+                             bpc=bpc)
+        if pk.srcs is not None:
+            planes = P.inter(planes, ra, self.dev, pk.hdr, pk.inter_runs,
+                             stack_planes(pk.srcs[0], "cpu", (ah, aw)),
+                             stack_planes(pk.srcs[1], "cpu", (ach, acw)),
+                             ah=ah, aw=aw, bpc=bpc, vwY=f.cur.w, vhY=f.cur.h,
+                             vwC=(f.cur.w + ss_hor) >> ss_hor,
+                             vhC=(f.cur.h + ss_ver) >> ss_ver)
+        self.planes = P.wave(planes, ra, self.dev, pk.hdr, pk.waves, ah=ah,
+                             aw=aw, bpc=bpc, ss_hor=ss_hor, ss_ver=ss_ver)
+        self.layout, self.bpc = int(layout), bpc
+        sr = (out.y.shape + (out.w, out.h, 4 * f.bw)) if pk.need_sr else None
+        self.kw = dict(geom=(ah, aw, ach, acw, f.bh, f.bw, f.cur.h), bpc=bpc,
+                       layout_i=self.layout, lr_ws=pk.lr_ws, sr_geom=sr)
+
+    def plain(self):
+        return P.filter_plain(self.planes.clone(), self.dev, self.pk.hdr,
+                              **self.kw)
+
+
+@functools.lru_cache(maxsize=None)
+def frame_of(name):
+    return Frame(name)
+
+
+@pytest.mark.parametrize("name", sorted(FRAMES))
+def test_filter_program_matches_plain(host, name):
+    frame = frame_of(name)
+    planes, packed = frame.plain()
+    n0, c0 = dict(host.n), FL.calls
+    got, got_packed = P.filter_kernels(frame.planes.clone(), frame.dev,
+                                       frame.pk.hdr, k=host, **frame.kw)
+    np.testing.assert_array_equal(got.numpy(), planes.numpy())
+    np.testing.assert_array_equal(got_packed.numpy(), packed.numpy())
+    w, s = FK.lr_launches(frame.pk.hdr, frame.layout)
+    assert {k: host.n[k] - n0[k] for k in n0} == dict(lf=2, cdef=1, wiener=w,
+                                                      sgr=s)
+    assert FL.calls == c0
+    assert w + s > 0 or name == "10bit-422-lf-tools"
+
+
+def test_filter_program_matches_jax_filter_prog(host):
+    """The 12-bit 4:0:0 still against mega.filter_prog (its blob is the
+    port's, word-identical to run2's: tests/test_torch_formats_programs.py)."""
+    frame = frame_of("12bit-400")
+    got, packed = P.filter_kernels(frame.planes.clone(), frame.dev,
+                                   frame.pk.hdr, k=host, **frame.kw)
+    kw = dict(frame.kw)
+    planes_j, packed_j = JM.filter_prog(
+        jnp.asarray(frame.planes.numpy()), jnp.asarray(frame.dev.numpy()),
+        need_sr=False, **kw)
+    np.testing.assert_array_equal(packed.numpy().view(np.uint16),
+                                  np.asarray(packed_j))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(planes_j))
+
+
+# ------------------------------ the wrappers ------------------------------
+
+
+def test_cpu_filter_runs_the_plain_version():
+    """programs.filter_ on CPU tensors is filter_plain: the plain passes run
+    (engine/filters.py calls) and no wrapper launches or counts."""
+    frame = frame_of("8bit-420-s10")
+    launches = (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
+                FK.sgr_launches)
+    c0 = FL.calls
+    planes, packed = P.filter_(frame.planes.clone(), frame.dev, frame.pk.hdr,
+                               **frame.kw)
+    want, want_packed = frame.plain()
+    np.testing.assert_array_equal(planes.numpy(), want.numpy())
+    np.testing.assert_array_equal(packed.numpy(), want_packed.numpy())
+    w, s = FK.lr_launches(frame.pk.hdr, frame.layout)
+    assert FL.calls - c0 == 2 * (6 + 1 + w + s)  # filter_ and frame.plain
+    assert (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
+            FK.sgr_launches) == launches
+
+
+def test_wrappers_take_cuda_tensors_only():
+    """Each wrapper raises on CPU tensors before any launch, and counts
+    nothing; its arguments are built as for the card."""
+    frame = frame_of("8bit-420-s10")
+    hdr, dev, kw = frame.pk.hdr, frame.dev, frame.kw
+    _, _, _, _, bh, bw, vis_h = kw["geom"]
+    planes = frame.planes.clone()
+    k = dict(bh=bh, bw=bw, layout_i=frame.layout, bpc=8)
+    lw = dict(ph=vis_h, W=kw["lr_ws"][0], bpc=8)
+    before = (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
+              FK.sgr_launches)
+    calls = [
+        lambda: FK.lf_pass(planes, dev, hdr, False, **k),
+        lambda: FK.lf_pass(planes, dev, hdr, True, **k),
+        lambda: FK.cdef_frame(planes, planes.clone(), dev, hdr, **k),
+        lambda: FK.lr_wiener(planes[0], planes[0], planes[0], dev, hdr, 0,
+                             **lw),
+        lambda: FK.lr_sgr(planes[0], planes[0], planes[0], dev, hdr, 0, **lw),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
+            FK.sgr_launches) == before
+    a = FK.lf_args(planes, dev, hdr, True, **k)
+    # the horizontal pass's lines: the luma plane's 4 * bw columns, then
+    # each 4:2:0 chroma plane's
+    assert (a.nplanes, a.hor, a.first[3]) == (3, 1, 4 * bw + 8 * ((bw + 1) >> 1))
+    with pytest.raises(ValueError, match="int32"):
+        FK.cdef_args(planes.to(torch.int64), planes, dev, hdr, **k)
