@@ -6,10 +6,11 @@ chroma layout and with superres, once on a CUDA card, end to end.
 Phases (any failure exits non-zero before the last line):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
    kernel and the 8x8 DCT_DCT kernel; csrc/wave.cu: the intra wavefront's
-   frame kernel, its barrier-only twin and the level kernel; csrc/lf.cu,
-   cdef.cu and lr.cu: the post filters' deblock, CDEF, Wiener and
-   self-guided kernels; nvcc, sm_90a, one process per source, all started
-   together) and print ptxas's registers, stack frames and spills. The port's native syntax library
+   frame kernel, its barrier-only twin and the level kernel; csrc/inter.cu:
+   the inter program's frame kernel; csrc/lf.cu, cdef.cu and lr.cu: the
+   post filters' deblock, CDEF, Wiener and self-guided kernels; nvcc,
+   sm_90a, one process per source, all started together) and print
+   ptxas's registers, stack frames and spills. The port's native syntax library
    (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
    imported) must have loaded: a decode on the Python syntax anchor would
    change every host number;
@@ -24,10 +25,12 @@ Each stream of phases 3-7 runs through stream_on_card: the port's host
 path (Decoder(host_path=True), captured) must give the committed digests
 (rav1d_tpu_torch/smoke_digests.json) where there are some; on each engine
 frame's blob, packed from that capture, the residual program (one itx
-launch) must equal resid_plain, and the wave program (one launch of the
-wave frame kernel) and its per-level form (one launch of the level kernel
-per level with items) must both equal wave_plain on the same input (zero
-planes, or the inter program's on an inter frame; at 1080p only on still
+launch) must equal resid_plain, on each engine inter frame the inter
+program (one launch of the inter kernel) must equal inter_plain, and the
+wave program (one launch of the wave frame kernel) and its per-level form
+(one launch of the level kernel per level with items) must both equal
+wave_plain on the same input (zero planes, or the inter program's on an
+inter frame; at 1080p only on still
 seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain wavefront
 takes 10-30 s each), and on every engine frame filter_ (the filter
 kernels: two deblock launches, one CDEF launch, one Wiener and one
@@ -37,10 +40,11 @@ rav1d_tpu_torch.Decoder(device="cuda") at
 frame delay 1 decodes the stream frame by frame to the host path's MD5s
 with no fallback but the planner's own, no upload of a host reference
 plane (every reference is the engine's own device output), exactly one itx
-launch per engine frame, one wave frame launch per engine frame with wave
-items and no level launch, exactly those filter launches per engine
-frame, and no call of the plain transforms (engine/kernels.py
-itx_any_core, wht_core), of the plain wave step (engine/wave.py
+launch per engine frame, one inter launch per engine inter frame, one wave
+frame launch per engine frame with wave items and no level launch, exactly
+those filter launches per engine frame, and no call of the plain
+transforms (engine/kernels.py itx_any_core, wht_core), of inter_plain
+(programs.inter_plain_calls), of the plain wave step (engine/wave.py
 class_step) or of the plain filter passes (engine/filters.py calls),
 printing per-frame stage_ms and the wall time
 the stages leave (the host front end and the planner). At 1080p, per
@@ -60,8 +64,10 @@ each plain pass's time, and each kernel's bound (filter_work).
    inter_sequence: a key frame and two inter frames with every inter tool
    of 4:2:0); every inter slot but segy00/segy10 (4:2:2 and 4:4:4 only)
    must carry tiles, and interintra wave items must be present; then the
-   inter program alone on each inter frame's blob (CUDA events and
-   torch.profiler);
+   inter program alone on each inter frame's blob through the inter kernel
+   and through inter_plain in turns (CUDA events; torch.profiler's device
+   time of the kernel and of inter_plain), beside its bound (inter_work);
+   the 10-bit inter frames of phase 5 likewise;
 5. high bit depth: the committed 1080p streams of smoke_digests.json
    "formats": a 10-bit 4:2:0 key + two inter frames and a 12-bit 4:4:4
    picture, whose blobs hold word coefficients (the itx kernel's 10/12-bit
@@ -86,10 +92,11 @@ each plain pass's time, and each kernel's bound (filter_work).
 9. CLI: rav1d_tpu_torch.cli.main(["-i", <a 640x360 IVF file of an 8-bit
    inter sequence>, "--verify", <its host-path MD5>, "--frametimes",
    <file>]) in process must return 0, with one itx launch per frame; the
-   per-frame times are printed (the decode also makes one wave frame
-   launch per frame with wave items, no level launch and no class_step
-   call, and its filter launches; each of its filter_ calls, recorded,
-   must equal filter_plain);
+   per-frame times are printed (the decode also makes one inter launch
+   per inter frame and no inter_plain call, one wave frame launch per
+   frame with wave items, no level launch and no class_step call, and its
+   filter launches; each of its filter_ calls, recorded, must equal
+   filter_plain, and each of its inter programs inter_plain);
 10. pipeline: the frame ring (pipeline_phase): the 1080p 8-bit and 10-bit
    inter sequences, the 8-bit 640x360 header-tools sequence (2x2 tiles),
    the 640x360 superres sequence (its fourth frame falls back to the host
@@ -98,7 +105,9 @@ each plain pass's time, and each kernel's bound (filter_work).
    torch.cuda.set_sync_debug_mode("error"), must equal delay 1: MD5s,
    fallback frames, engine stats and launch counts (the filter kernels'
    too; every filter_ call of delays 1, 2 and 3, recorded on the worker,
-   must equal filter_plain). Then the 1080p inter
+   must equal filter_plain, and every inter program call inter_plain;
+   one inter launch per inter program call and no inter_plain call in the
+   decode). Then the 1080p inter
    sequence's packets three times over (9 units) at delays 1, 2, 3 and 1,
    and at delay 2 with the interpreter's switch interval at 0.5 ms: per
    run the stream's wall and mean per frame, the caller's thread's time
@@ -119,10 +128,11 @@ each plain pass's time, and each kernel's bound (filter_work).
    of the bench's inter stream (16) and of its 10-bit stream
    318_tx_4x4.ivf (8, bench.py's frame limit) against the port's host
    path, with no fallback.
-Every decode must make no class_step call, and each, but for the whole
-conformance streams of the vector phase, one wave frame launch per frame
-with wave items and no level launch, and its frames' filter launches with
-no plain filter call.
+Every decode must make no class_step and no inter_plain call, and each,
+but for the whole conformance streams of the vector phase, one wave frame
+launch per frame with wave items and no level launch, one inter launch
+per engine inter frame, and its frames' filter launches with no plain
+filter call.
 Then neither JAX nor any module of rav1d_tpu may have been imported.
 
 Prints the card's name and power limit, the syntax backend, per-frame
@@ -393,56 +403,174 @@ def inter_phase(dev):
     """The inter path: synth.inter_sequence at 1080p through
     stream_on_card, held to its committed digests, with every inter slot
     but segy00/segy10 (4:2:2 and 4:4:4 only) carrying tiles and interintra
-    wave items present; then the inter program alone on each inter frame's
-    blob (inter_timing). Returns (itx launches, max |err| of ra)."""
+    wave items present; the inter program alone on each inter frame's blob
+    (inter_timing). Returns (itx launches, max |err| of ra)."""
     from rav1d_tpu_torch import synth
     from rav1d_tpu_torch.engine.layout import SLOTS
 
     with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
         want = json.load(fh)["inter"]
-    launches, worst, frames = stream_on_card(
-        dev, f"inter seed {want['seed']} {W}x{H}",
+    label = f"inter seed {want['seed']} {W}x{H}"
+    INTER["main"] = f"{label} frame 1"  # the kernels line's frame
+    launches, worst, _ = stream_on_card(
+        dev, label,
         synth.inter_sequence(W, H, want["seed"]), want=want["md5"],
         slots=[k for k in SLOTS if k not in NOT_420], interintra=True,
-        wave_check=(1,), time_wave=True)
-    inter_timing(dev, frames)
+        wave_check=(1,), time_wave=True, time_inter=True)
     return launches, worst
 
 
-def inter_timing(dev, frames):
-    """The inter program alone on each inter frame's blob: per call, CUDA
-    events (host dispatch included) and the device time of all its
-    kernels (torch.profiler), whose ratio is the device's busy share of
-    the stage."""
+# the inter kernel across the run: launches in the decodes, engine inter
+# frames held to inter_plain and their largest difference, per-frame
+# timings by label
+INTER = {"launches": 0, "compared": 0, "err": 0, "rows": {}}
+
+
+def inter_frames(frames):
+    """The engine inter frames of captured [(f, plan)]: the inter launches
+    their decode makes."""
+    return sum(plan is not None and plan.inter is not None
+               for _, plan in frames)
+
+
+def inter_inputs(f, plan, pk, d):
+    """(reference stacks, keywords) of the inter program on a frame's
+    blob."""
+    from rav1d_tpu_torch.engine.run import stack_planes
+    from rav1d_tpu_torch.headers import PixelLayout as PL
+
+    sh = 0 if f.cur.layout == PL.I444 else 1
+    sv = 1 if f.cur.layout == PL.I420 else 0
+    out = f.sr_cur
+    ach, acw = out.u.shape if out.u is not None else (0, 0)
+    stacks = (stack_planes(pk.srcs[0], d.device, (plan.ah, plan.aw)),
+              stack_planes(pk.srcs[1], d.device, (ach, acw)))
+    return stacks, dict(ah=plan.ah, aw=plan.aw, bpc=f.cur.bpc, vwY=f.cur.w,
+                        vhY=f.cur.h, vwC=(f.cur.w + sh) >> sh,
+                        vhC=(f.cur.h + sv) >> sv)
+
+
+# least 32-bit operations per 8x8 tile (all 64 cells; inter_work scales
+# them by the cells a tile writes): the taps' multiplies and adds (16 a
+# value), rounding adds and shifts (2), clamps (2), int16 wraps (3), the
+# prep bias (1), a warp value's filter index (9), the blends' multiplies,
+# adds and shifts
+_PUT_OPS = {0: 120 * 21 + 64 * 20, 1: 64 * 20, 2: 64 * 20, 3: 0,
+            4: 72 * 9 + 64 * 8}
+_PREP_OPS = {0: 120 * 21 + 64 * 22, 1: 64 * 22, 2: 64 * 22, 3: 64 * 5}
+_WARP_OPS = 120 * 30 + 64 * 29  # the prep's rounding costs the same
+_COMB_OPS = {"avg": 64 * 8, "segy00": 64 * 14, "segy10": 64 * 14 + 32 * 3,
+             "segy11": 64 * 14 + 16 * 6, "mask": 64 * 11, "seguv": 64 * 11,
+             "blend": 64 * 6}
+# the source window of each put and prep case (rows x columns)
+_WINDOW = {0: 15 * 15, 1: 8 * 15, 2: 15 * 8, 3: 8 * 8, 4: 9 * 9}
+
+
+def inter_work(pk, g):
+    """(bytes, operations) of a frame's inter program, each input read
+    once and each output written once: the input planes, the residuals
+    added and the output planes (int32), each tile's descriptor and source
+    window (reference pixels of 1 byte at 8 bits, 2 above) and its masks
+    (int32); the pools are the program's own intermediates. Operations per
+    tile from _PUT_OPS .. _COMB_OPS, scaled by the cells it writes, and 3 a
+    pixel for the residual add (an add, a clip)."""
+    import numpy as np
+
+    from rav1d_tpu_torch.engine import layout as L
+    from rav1d_tpu_torch.ops.cuda import inter as IK
+
+    words = pk.words()
+    psz = g["ah"] * g["aw"]
+    es = 1 if g["bpc"] == 8 else 2
+    nbytes, ops = 3 * 3 * psz * 4, 3 * 3 * psz
+    for name, runs in pk.inter_runs.items():
+        rows = IK.ROWS[name]
+        if name.startswith(("warp", "wprep")):
+            twth = (L.W_TW, L.W_TH)
+        elif name == "blend":
+            twth = (L.B_TW, L.B_TH)
+        elif rows == L.NCOMB:
+            twth = (L.C_TW, L.C_TH)
+        else:
+            twth = (L.D_TW, L.D_TH)
+        for r in runs:
+            nbytes += 4 * rows * r.n  # the descriptors (host tiles' words)
+            if name == "hostpool":
+                continue
+            base = (int(pk.hdr[L.INTER0 + 2 * L.SLOTS[name]])
+                    + r.c0 * rows * L.TB)
+            d = words[base : base + r.nc * rows * L.TB].reshape(r.nc, rows,
+                                                                L.TB)
+            d = d.transpose(1, 0, 2).reshape(rows, -1)[:, : r.n]
+            cells = int((np.clip(d[twth[0]], 0, 8)
+                         * np.clip(d[twth[1]], 0, 8)).sum())
+            if name.startswith(("put", "lap")):
+                nbytes += es * _WINDOW[r.case] * r.n
+                ops += _PUT_OPS[r.case] * cells // 64
+            elif name.startswith("prep"):
+                nbytes += es * _WINDOW[r.case] * r.n
+                ops += _PREP_OPS[r.case] * cells // 64
+            elif name.startswith(("warp", "wprep")):
+                nbytes += es * 225 * r.n
+                ops += _WARP_OPS * cells // 64
+            else:  # masks: the wedge's 64 words, the blend's 8
+                nbytes += 4 * r.n * {"mask": 64, "blend": 8}.get(name, 0)
+                ops += _COMB_OPS[name] * cells // 64
+    return nbytes, ops
+
+
+def inter_timing(label, f, plan, pk, d, ra):
+    """The inter program alone on a frame's blob through the inter kernel
+    (programs.inter, in place on one planes buffer) and through
+    inter_plain, in turns (kernel, plain, plain, kernel): CUDA events per
+    call (host calls included), the device time of all its kernels and of
+    the inter kernel (torch.profiler), inter_plain's device time, the
+    bound (inter_work), and what the kernel's zero phase stands in for: a
+    zero fill of the pools at the packer's limit (CUDA events). Returns a
+    dict of them."""
     import torch
 
     from rav1d_tpu_torch.engine import programs as P
-    from rav1d_tpu_torch.engine.blob import Uploader
-    from rav1d_tpu_torch.engine.pack import pack_frame
-    from rav1d_tpu_torch.engine.run import stack_planes
+    from rav1d_tpu_torch.ops.cuda import inter as IK
 
-    for i, (f, plan) in enumerate(frames):
-        pk = pack_frame(f, plan)
-        if pk.srcs is None:
-            continue
-        ah, aw = plan.ah, plan.aw
-        d, _ = Uploader(dev).upload(pk, ah * aw, 8)
-        ra = P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=8)[0]
-        sY = stack_planes(pk.srcs[0], dev, (ah, aw))
-        sC = stack_planes(pk.srcs[1], dev, f.cur.u.shape)
-        zeros = torch.zeros((3, ah, aw), dtype=torch.int32, device=dev)
+    (sY, sC), g = inter_inputs(f, plan, pk, d)
+    zeros = torch.zeros((3, plan.ah, plan.aw), dtype=torch.int32,
+                        device=d.device)
+    buf = zeros.clone()
+    args = (ra, d, pk.hdr, pk.inter_runs, sY, sC)
 
-        def call():
-            P.inter(zeros, ra, d, pk.hdr, pk.inter_runs, sY, sC, ah=ah,
-                    aw=aw, bpc=8, vwY=f.cur.w, vhY=f.cur.h,
-                    vwC=(f.cur.w + 1) >> 1, vhC=(f.cur.h + 1) >> 1)
+    def kern():
+        P.inter(buf, *args, **g)
 
-        ms = cuda_ms(call, 10)
-        dms = profiled_device_ms(call, 5)[0]
-        log(f"inter program frame {i}: {ms:.3f} ms per call (CUDA events), "
-            f"device {'not measured' if dms is None else f'{dms:.3f} ms'} "
-            f"(torch.profiler, all kernels)"
-            + ("" if dms is None else f", busy {100 * dms / ms:.1f}%"))
+    def plain():
+        P.inter_plain(zeros, *args, **g)
+
+    ms = [cuda_ms(kern, 20)]
+    pms = [cuda_ms(plain, 2)]
+    pms.append(cuda_ms(plain, 2))
+    ms.append(cuda_ms(kern, 20))
+    dev_ms, k_ms = profiled_device_ms(kern, 10, "inter_frame_kernel")
+    p_dev = profiled_device_ms(plain, 2)[0]
+    words = 2 * IK.pool_rows(plan.ah, plan.aw) * 64 + plan.ah * plan.aw
+    fill_ms = cuda_ms(lambda: torch.zeros(words, dtype=torch.int32,
+                                          device=d.device), 10)
+    nbytes, ops = inter_work(pk, g)
+    b_ms, b_by = bound(nbytes, ops)
+    tiles = {k: sum(r.n for r in v) for k, v in pk.inter_runs.items()}
+
+    def txt(v, fmt="%.4f ms"):
+        return "not measured" if v is None else fmt % v
+
+    log(f"  inter {label}: {sum(tiles.values())} tiles; programs.inter "
+        f"(inter kernel) {ms[0]:.4f}/{ms[1]:.4f} ms (CUDA events), device "
+        f"{txt(dev_ms)} (all kernels) of which inter_frame_kernel "
+        f"{txt(k_ms)} (torch.profiler); inter_plain {pms[0]:.3f}/"
+        f"{pms[1]:.3f} ms, device {txt(p_dev, '%.3f ms')}; bound "
+        f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes, {ops} ops); a zero fill "
+        f"of the pools ({4 * words} bytes) {fill_ms:.4f} ms")
+    return dict(ms=min(ms), dev_ms=dev_ms, k_ms=k_ms, plain_ms=min(pms),
+                plain_dev=p_dev, nbytes=nbytes, ops=ops, bound=b_ms,
+                bound_by=b_by, tiles=sum(tiles.values()), fill_ms=fill_ms)
 
 
 def profiled_device_ms(fn, reps, name=None):
@@ -549,7 +677,7 @@ def timing_phase(blobs):
 
 def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
                    slots=(), interintra=False, blobs=None, wave_check=None,
-                   time_wave=False):
+                   time_wave=False, time_inter=False):
     """One stream through the port on the card. The host path (captured:
     each frame's plan, and the MD5s; its time includes the capture) must
     give the committed digests `want` where they are given, and its
@@ -558,14 +686,17 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     be present if `interintra`. On
     each engine frame's blob the resid program (one itx launch) must equal
     resid_plain (the blobs are appended to the list `blobs` if one is
-    given), and on the engine frames `wave_check` names (None: all) the
-    wave program must equal wave_plain (wave_timing times it per frame if
-    `time_wave`). Then one Decoder(device="cuda") must decode the stream
-    frame by frame to the host path's MD5s, with those fallbacks only, no
-    upload of a host reference plane, one itx launch per engine frame, one
-    wave frame launch per engine frame with wave items and no level
-    launch, and no call of the plain transforms or of class_step. Returns
-    (itx launches, max |err| of ra, the captured [(f, plan)])."""
+    given), on each engine inter frame the inter program (one inter kernel
+    launch) must equal inter_plain (inter_timing times it per frame if
+    `time_inter`), and on the engine frames `wave_check` names (None: all)
+    the wave program must equal wave_plain (wave_timing times it per frame
+    if `time_wave`). Then one Decoder(device="cuda") must decode the
+    stream frame by frame to the host path's MD5s, with those fallbacks
+    only, no upload of a host reference plane, one itx launch per engine
+    frame, one inter launch per engine inter frame, one wave frame launch
+    per engine frame with wave items and no level launch, and no call of
+    the plain transforms, of inter_plain or of class_step. Returns (itx
+    launches, max |err| of ra, the captured [(f, plan)])."""
     import torch
 
     import rav1d_tpu_torch as T
@@ -575,6 +706,7 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     from rav1d_tpu_torch.engine import wave as TW
     from rav1d_tpu_torch.engine.blob import Uploader
     from rav1d_tpu_torch.engine.pack import pack_frame
+    from rav1d_tpu_torch.ops.cuda import inter as IK
     from rav1d_tpu_torch.ops.cuda import itx as I
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
@@ -616,12 +748,13 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     # the residual, wave and filter programs on each engine frame's blob
     # against their plain versions (and the allocator brought to the
     # frame's buffer sizes)
-    worst = nframes = 0
+    worst = nframes = ninter = 0
     engine_frames = []  # (hdr, layout_i) of each engine frame
     for i, (f, plan) in enumerate(frames):
         pk = None if plan is None else pack_frame(f, plan)
         if pk is None:
             continue
+        key = f"{label} frame {i}"
         ah, aw, bpc = plan.ah, plan.aw, f.cur.bpc
         d, _ = Uploader(dev).upload(pk, ah * aw, bpc)
         ra = P.resid(d, pk.hdr, pk.tx_valid, ah=ah, aw=aw, bpc=bpc)[0]
@@ -635,6 +768,10 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
             blobs.append((f"{label} frame {i}", bpc, d, pk.hdr, pk.tx_valid,
                           ah, aw))
         planes, kw = wave_input(f, plan, pk, d, ra)
+        if pk.srcs is not None:
+            ninter += 1
+            if time_inter:
+                INTER["rows"][key] = inter_timing(key, f, plan, pk, d, ra)
         nframes += bool(WK.levels(pk.waves))
         p_ms = None
         if wave_check is None or i in wave_check:
@@ -660,7 +797,6 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
                                      f"or level kernel, {bpc} bpc) != "
                                      "wave_plain")
         if time_wave:
-            key = f"{label} frame {i}"
             WAVE["rows"][key] = wave_timing(key, pk, d, ra, planes, kw, p_ms)
             if key == f"still seed 1 {W}x{H} frame 0":
                 WAVE["still1"] = key, (pk, d, ra, planes, kw)
@@ -673,13 +809,15 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         if time_wave:
             FILT["rows"][key] = filter_timing(key, fin, d, pk, fkw)
     log(f"  {label}: filter_ == filter_plain (planes and packed output) on "
-        f"{len(engine_frames)} engine frames")
+        f"{len(engine_frames)} engine frames; the inter kernel == inter_plain "
+        f"on {ninter} engine inter frames")
 
     T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
     I.launches = 0
     kernels.calls = 0
     WK.launches = WK.level_launches = 0
     TW.calls = 0
+    IK.launches = P.inter_plain_calls = 0
     reset_filter_counts()
     # delay 1: the frame ring off, so that stage_ms stays per frame
     dec = T.Decoder(T.Settings(apply_grain=False, max_frame_delay=1),
@@ -699,6 +837,9 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         if f"{label} frame {i}" in FILT["rows"]:
             FILT["rows"][f"{label} frame {i}"]["stage_ms"] = \
                 run.stage_ms["filter"]
+        if f"{label} frame {i}" in INTER["rows"]:
+            INTER["rows"][f"{label} frame {i}"]["stage_ms"] = \
+                run.stage_ms["inter"]
         rest = ms - sum(v for k, v in run.stage_ms.items() if k != "programs")
         log("    stage_ms " + json.dumps({k: round(v, 3)
                                           for k, v in run.stage_ms.items()})
@@ -708,12 +849,15 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     plain_calls = kernels.calls
     stats = dict(T.engine.stats)
     w_launches, w_level, w_calls = WK.launches, WK.level_launches, TW.calls
+    i_launches, i_plain = IK.launches, P.inter_plain_calls
     f_counts = filter_counts()
     WAVE["launches"] += w_launches
+    INTER["launches"] += i_launches
     log(f"  {label}: engine stats {stats}  itx launches {launches}  plain "
-        f"transform calls {plain_calls}  wave frame launches {w_launches} "
-        f"for {nframes} frames with wave items  level launches {w_level}  "
-        f"class_step calls {w_calls}")
+        f"transform calls {plain_calls}  inter launches {i_launches} for "
+        f"{ninter} inter frames  inter_plain calls {i_plain}  wave frame "
+        f"launches {w_launches} for {nframes} frames with wave items  level "
+        f"launches {w_level}  class_step calls {w_calls}")
     if got != host:
         raise AssertionError(f"{label}: port output differs from the host "
                              "path")
@@ -733,17 +877,22 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         raise AssertionError(f"{label}: {w_launches} wave frame launches for "
                              f"{nframes} frames, {w_level} level launches, "
                              f"{w_calls} class_step calls")
+    if i_launches != ninter or i_plain:
+        raise AssertionError(f"{label}: {i_launches} inter launches for "
+                             f"{ninter} engine inter frames, {i_plain} "
+                             "inter_plain calls")
     check_filter_counts(label, f_counts, filter_want(engine_frames))
     return launches, worst, frames
 
 
 def wave_input(f, plan, pk, d, ra):
     """(planes, keywords) of the wave program on a frame's blob: zero
-    planes, or on an inter frame the inter program's output."""
+    planes, or on an inter frame the inter program's output through the
+    inter kernel (on the stacked reference planes), which must equal
+    inter_plain's on the same input."""
     import torch
 
     from rav1d_tpu_torch.engine import programs as P
-    from rav1d_tpu_torch.engine.run import stack_planes
     from rav1d_tpu_torch.headers import PixelLayout as PL
 
     ah, aw, bpc = plan.ah, plan.aw, f.cur.bpc
@@ -751,13 +900,16 @@ def wave_input(f, plan, pk, d, ra):
     sv = 1 if f.cur.layout == PL.I420 else 0
     planes = torch.zeros((3, ah, aw), dtype=torch.int32, device=d.device)
     if pk.srcs is not None:
-        out = f.sr_cur
-        ach, acw = out.u.shape if out.u is not None else (0, 0)
-        planes = P.inter(planes, ra, d, pk.hdr, pk.inter_runs,
-                         stack_planes(pk.srcs[0], d.device, (ah, aw)),
-                         stack_planes(pk.srcs[1], d.device, (ach, acw)),
-                         ah=ah, aw=aw, bpc=bpc, vwY=f.cur.w, vhY=f.cur.h,
-                         vwC=(f.cur.w + sh) >> sh, vhC=(f.cur.h + sv) >> sv)
+        stacks, g = inter_inputs(f, plan, pk, d)
+        args = (ra, d, pk.hdr, pk.inter_runs) + stacks
+        want = P.inter_plain(planes, *args, **g)
+        planes = P.inter(planes, *args, **g)
+        err = max_err(planes, want)
+        INTER["compared"] += 1
+        INTER["err"] = max(INTER["err"], err)
+        if err:
+            raise AssertionError(f"inter kernel ({bpc} bpc) != inter_plain, "
+                                 f"max |err| {err}")
     return planes, dict(ah=ah, aw=aw, bpc=bpc, ss_hor=sh, ss_ver=sv)
 
 
@@ -1084,6 +1236,59 @@ class FilterRecorder:
         frames = [(c[2], c[3]["layout_i"]) for c in self.calls]
         self.calls = []
         return frames
+
+
+class InterRecorder:
+    """While installed, each programs.inter call (engine/run.py calls it
+    through the module, on the frame ring's worker too) is recorded: a copy
+    of its input planes (the kernel writes them in place), its residuals
+    and blob (fresh tensors per frame), header, runs, reference planes and
+    keywords, and a copy of its output. `check` then holds each to
+    inter_plain, after the decode: the recording itself reads nothing
+    back, so it runs under set_sync_debug_mode("error")."""
+
+    def __enter__(self):
+        from rav1d_tpu_torch.engine import programs as P
+
+        self.P, self.real, self.calls = P, P.inter, []
+
+        def inter(planes, ra, dev, hdr, runs, refsY, refsC, **kw):
+            fin = planes.clone()
+            out = self.real(planes, ra, dev, hdr, runs, refsY, refsC, **kw)
+            self.calls.append((fin, ra, dev, hdr.copy(), runs, refsY, refsC,
+                               kw, out.clone()))
+            return out
+
+        P.inter = inter
+        return self
+
+    def __exit__(self, *exc):
+        self.P.inter = self.real
+
+    def check(self, label):
+        """inter_plain on every recorded input against what programs.inter
+        gave; returns how many there were."""
+        import torch
+
+        def stack(refs, like):
+            return (torch.stack(list(refs)) if len(refs) else
+                    torch.zeros((1, 1, 1), dtype=torch.uint8,
+                                device=like.device))
+
+        for i, (fin, ra, d, hdr, runs, rY, rC, kw, got) in enumerate(
+                self.calls):
+            want = self.P.inter_plain(fin, ra, d, hdr, runs, stack(rY, fin),
+                                      stack(rC, fin), **kw)
+            err = max_err(got, want)
+            INTER["compared"] += 1
+            INTER["err"] = max(INTER["err"], err)
+            if err:
+                raise AssertionError(f"{label}: inter call {i}: the inter "
+                                     f"kernel != inter_plain (max |err| "
+                                     f"{err})")
+        n = len(self.calls)
+        self.calls = []
+        return n
 
 
 # least 32-bit operations per filtered line of a deblock edge by filter
@@ -1530,7 +1735,7 @@ def high_bitdepth_phase(dev):
                                    want=digests["formats"][name]["md5"],
                                    blobs=blobs,
                                    wave_check=(0,) if "12bit" in name else (),
-                                   time_wave=True)
+                                   time_wave=True, time_inter=True)
         launches += n
         worst = max(worst, err)
     return launches, worst, blobs
@@ -1675,46 +1880,58 @@ def residual_phase(dev, frames, tmp):
 def cli_phase(dev, tmp):
     """rav1d_tpu_torch.cli.main on a 640x360 IVF file of an 8-bit inter
     sequence, with --verify at its host-path MD5 and --frametimes: it must
-    return 0 after one itx launch per frame, one wave frame launch per
-    frame with wave items, no level launch and no class_step call. Returns
-    the itx launches."""
+    return 0 after one itx launch per frame, one inter launch per inter
+    frame and no inter_plain call, one wave frame launch per frame with
+    wave items, no level launch and no class_step call. Returns the itx
+    launches."""
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import cli, synth
+    from rav1d_tpu_torch.engine import programs as P
     from rav1d_tpu_torch.engine import wave as TW
+    from rav1d_tpu_torch.ops.cuda import inter as IK
     from rav1d_tpu_torch.ops.cuda import itx as I
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
     packets = synth.inter_sequence(FMT_W, FMT_H, 8)
-    nframes = wave_frames(synth.capture_frames(packets))
+    captured = synth.capture_frames(packets)
+    nframes, ninter = wave_frames(captured), inter_frames(captured)
     path = os.path.join(tmp, "cli.ivf")
     synth.write_ivf(path, packets, FMT_W, FMT_H)
     md5 = synth.stream_md5(packets)
     times = os.path.join(tmp, "frametimes.txt")
     fb = T.engine.stats["fallback"]
     I.launches = WK.launches = WK.level_launches = TW.calls = 0
+    IK.launches = P.inter_plain_calls = 0
     reset_filter_counts()
-    with FilterRecorder() as rec:
+    with FilterRecorder() as rec, InterRecorder() as irec:
         t0 = time.perf_counter()
         rc = cli.main(["-i", path, "--verify", md5, "--frametimes", times])
         wall = time.perf_counter() - t0
     launches = I.launches
     w_launches, w_level, w_calls = WK.launches, WK.level_launches, TW.calls
+    i_launches, i_plain = IK.launches, P.inter_plain_calls
     check_filter_counts("cli", filter_counts(), filter_want(rec.check("cli")))
+    i_checked = irec.check("cli")
     WAVE["launches"] += w_launches
+    INTER["launches"] += i_launches
     with open(times) as fh:
         ms = [int(v) / 1e6 for v in fh.read().split()]
     log(f"cli {FMT_W}x{FMT_H}: --verify {md5} rc {rc}, {wall:.2f} s, "
         f"frametimes ms {[round(v, 3) for v in ms]}, itx launches "
-        f"{launches}, wave frame launches {w_launches} for {nframes} "
-        f"frames, level launches {w_level}, class_step calls {w_calls}, "
-        f"fallback "
-        f"{T.engine.stats['fallback'] - fb}")
+        f"{launches}, inter launches {i_launches} for {ninter} inter frames "
+        f"({i_checked} equal to inter_plain after the decode), inter_plain "
+        f"calls {i_plain}, wave frame launches {w_launches} for "
+        f"{nframes} frames, level launches {w_level}, class_step calls "
+        f"{w_calls}, fallback {T.engine.stats['fallback'] - fb}")
     if rc != 0 or launches != len(packets) or len(ms) != len(packets):
         raise AssertionError("cli: --verify failed, or not one itx launch "
                              "and one frame time per frame")
     if w_launches != nframes or w_level or w_calls:
         raise AssertionError("cli: not one wave frame launch per frame, or "
                              "a level launch or a class_step call")
+    if i_launches != ninter or i_plain or i_checked != ninter:
+        raise AssertionError("cli: not one inter launch per inter frame, or "
+                             "an inter_plain call")
     return launches
 
 
@@ -1737,7 +1954,9 @@ def ring_decode(dev, packets, d, times=None):
     from rav1d_tpu_torch import synth
     from rav1d_tpu_torch.engine import kernels
     from rav1d_tpu_torch.engine import plan as PL
+    from rav1d_tpu_torch.engine import programs as P
     from rav1d_tpu_torch.engine import wave as TW
+    from rav1d_tpu_torch.ops.cuda import inter as IK
     from rav1d_tpu_torch.ops.cuda import itx as I
     from rav1d_tpu_torch.ops.cuda import wave as WK
     from rav1d_tpu_torch.recon import frame as RF
@@ -1771,7 +1990,8 @@ def ring_decode(dev, packets, d, times=None):
     def counts():
         return dict(T.engine.stats, itx=I.launches, wave=WK.launches,
                     level=WK.level_launches, class_step=TW.calls,
-                    plain=kernels.calls, **filter_counts())
+                    plain=kernels.calls, inter=IK.launches,
+                    inter_plain=P.inter_plain_calls, **filter_counts())
 
     before = counts()
     (T.engine.run_dense, RF.decode_frame_syntax, RF.materialize_work_items,
@@ -1866,23 +2086,27 @@ def pipeline_phase(dev):
         pass
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    def filters_of(label, c, rec):
+    def filters_of(label, c, rec, irec):
         """Every recorded filter_ call held to filter_plain, and the
-        decode's filter launches to what its frames need."""
+        decode's filter launches to what its frames need; every recorded
+        inter program held to inter_plain, one per inter launch."""
         want = filter_want(rec.check(label))
         check_filter_counts(label, {k: c[k] for k in want}, want)
+        if irec.check(label) != c["inter"]:
+            raise AssertionError(f"{label}: not one inter launch per inter "
+                                 "program")
 
     launches = 0
     inter_counts = None
     for label, packets in streams:
-        with FilterRecorder() as rec:
+        with FilterRecorder() as rec, InterRecorder() as irec:
             want, fell, c1 = ring_decode(dev, packets, 1)
-        filters_of(f"pipeline {label} delay 1", c1, rec)
+        filters_of(f"pipeline {label} delay 1", c1, rec, irec)
         inter_counts = inter_counts or c1
         log(f"pipeline {label}: delay 1 fallback frames {fell}, counts "
             + json.dumps(c1))
         for d in (2, 3):
-            with FilterRecorder() as rec:
+            with FilterRecorder() as rec, InterRecorder() as irec:
                 torch.cuda.set_sync_debug_mode("error")
                 try:
                     got, fell_d, c = ring_decode(dev, packets, d)
@@ -1895,14 +2119,19 @@ def pipeline_phase(dev):
             if not same:
                 raise AssertionError(f"pipeline {label}: delay {d} differs "
                                      "from delay 1")
-            filters_of(f"pipeline {label} delay {d}", c, rec)
+            filters_of(f"pipeline {label} delay {d}", c, rec, irec)
             launches += c["itx"]
             PIPE["wave"] = PIPE.get("wave", 0) + c["wave"]
+            PIPE["inter"] = PIPE.get("inter", 0) + c["inter"]
+        PIPE["inter"] = PIPE.get("inter", 0) + c1["inter"]
         if (c1["level"] or c1["class_step"] or c1["plain"]
                 or c1["itx"] != len(packets) - len(fell)):
             raise AssertionError(f"pipeline {label}: not one itx launch per "
                                  "engine frame, or a level launch or a "
                                  "plain call")
+        if c1["inter_plain"] or not c1["inter"]:
+            raise AssertionError(f"pipeline {label}: no inter launch, or an "
+                                 "inter_plain call")
 
     packets = inter * 3
     want = digests["inter"]["md5"] * 3
@@ -1947,6 +2176,11 @@ def pipeline_phase(dev):
                 f"({100 * t['syntax'] / rest:.1f}%)")
         launches += c["itx"]
         PIPE["wave"] = PIPE.get("wave", 0) + c["wave"]
+        PIPE["inter"] = PIPE.get("inter", 0) + c["inter"]
+        if c["inter_plain"] or c["inter"] != 3 * inter_counts["inter"]:
+            raise AssertionError(f"pipeline timing delay {d}: not three times "
+                                 "delay 1's inter launches, or an inter_plain "
+                                 "call")
         # the same stream three times over: three times delay 1's filter
         # launches, no plain call
         fc = {k: c[k] for k in filter_want([])}
@@ -2007,6 +2241,7 @@ def idct8x8_phase(dev):
 
 def vector_phase(dev, d):
     import rav1d_tpu_torch as T
+    from rav1d_tpu_torch.engine import programs as P
     from rav1d_tpu_torch.engine import wave as TW
     from rav1d_tpu_torch.io.ivf import IvfDemuxer
 
@@ -2020,7 +2255,7 @@ def vector_phase(dev, d):
             log(f"vector phase: {rel} not found; skipped")
             continue
         before = dict(T.engine.stats)
-        TW.calls = 0
+        TW.calls = P.inter_plain_calls = 0
         reset_filter_counts()
         dec = T.Decoder(T.Settings(apply_grain=False), device=dev)
         m = hashlib.md5()
@@ -2044,23 +2279,27 @@ def vector_phase(dev, d):
         fb = T.engine.stats["fallback"] - before["fallback"]
         plain = filter_counts()["filter_plain"]
         log(f"vector {rel}: md5 {m.hexdigest()} (meson {want}) fallback {fb}"
-            f", class_step calls {TW.calls}, plain filter calls {plain}")
-        if m.hexdigest() != want or TW.calls or plain:
-            raise AssertionError(f"{rel}: md5 mismatch, or class_step or "
-                                 "plain filter calls")
+            f", class_step calls {TW.calls}, plain filter calls {plain}, "
+            f"inter_plain calls {P.inter_plain_calls}")
+        if m.hexdigest() != want or TW.calls or plain or P.inter_plain_calls:
+            raise AssertionError(f"{rel}: md5 mismatch, or class_step, plain "
+                                 "filter or inter_plain calls")
     for rel, n in HOST_PATH_VECTORS:
         first_frames_phase(dev, d, rel, n)
 
 
 def first_frames_phase(dev, d, rel, n):
     """The first n frames of a vector against the port's host path, with
-    no fallback, one wave frame launch per frame with wave items, no level
-    launch, no class_step call and the frames' filter launches."""
+    no fallback, one inter launch per inter frame and no inter_plain call,
+    one wave frame launch per frame with wave items, no level launch, no
+    class_step call and the frames' filter launches."""
     import rav1d_tpu_torch as T
     from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine import programs as P
     from rav1d_tpu_torch.engine import wave as TW
     from rav1d_tpu_torch.engine.pack import pack_frame
     from rav1d_tpu_torch.io.ivf import IvfDemuxer
+    from rav1d_tpu_torch.ops.cuda import inter as IK
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
     path = os.path.join(d, rel)
@@ -2075,18 +2314,23 @@ def first_frames_phase(dev, d, rel, n):
                           for f, plan in frames if plan is not None])
     before = dict(T.engine.stats)
     TW.calls = WK.launches = WK.level_launches = 0
+    IK.launches = P.inter_plain_calls = 0
     reset_filter_counts()
     got = synth.decode_md5s(
         T.Decoder(T.Settings(apply_grain=False), device=dev), packets)
+    INTER["launches"] += IK.launches
     check_filter_counts(rel, filter_counts(), f_want)
     fb = T.engine.stats["fallback"] - before["fallback"]
     log(f"vector {rel}: {len(got)} frames, "
         f"{sum(a == b for a, b in zip(got, want))} equal to the host path, "
         f"fallback {fb}, class_step calls {TW.calls}, wave frame launches "
         f"{WK.launches} for {nframes} frames, level launches "
-        f"{WK.level_launches}")
+        f"{WK.level_launches}, inter launches {IK.launches} for "
+        f"{inter_frames(frames)} inter frames, inter_plain calls "
+        f"{P.inter_plain_calls}")
     if (got != want or fb or TW.calls or WK.launches != nframes
-            or WK.level_launches):
+            or WK.level_launches or P.inter_plain_calls
+            or IK.launches != inter_frames(frames)):
         raise AssertionError(f"{rel}: differs from the host path or fell "
                              f"back ({fb})")
 
@@ -2111,6 +2355,7 @@ def main():
     from rav1d_tpu_torch.native import syntax as native_syntax
     from rav1d_tpu_torch.ops.cuda import build
     from rav1d_tpu_torch.ops.cuda import filters as FK
+    from rav1d_tpu_torch.ops.cuda import inter as IK
     from rav1d_tpu_torch.ops.cuda import itx as I
     from rav1d_tpu_torch.ops.cuda import wave as WK
 
@@ -2126,13 +2371,15 @@ def main():
     log(f"syntax backend: native C ({os.path.relpath(so, HERE)})")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as ex:  # one nvcc per source, together
-        for fut in [ex.submit(I.lib), ex.submit(WK.lib)] + [
+    with ThreadPoolExecutor(6) as ex:  # one nvcc per source, together
+        for fut in [ex.submit(I.lib), ex.submit(WK.lib), ex.submit(IK.lib)] + [
                 ex.submit(FK.lib, n) for n in ("lf", "cdef", "lr")]:
             fut.result()
-    log(f"set-up: itx, idct8x8, wave, deblock, CDEF and loop restoration "
-        f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for name in ("itx", "wave", "lf", "cdef", "lr"):
+    log(f"set-up: itx, idct8x8, wave, inter, deblock, CDEF and loop "
+        f"restoration kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s; the inter kernel's grid "
+        f"{IK.grid()} blocks")
+    for name in ("itx", "wave", "inter", "lf", "cdef", "lr"):
         for ln in build.LOGS.get(name, "").splitlines():  # ptxas -v
             if any(k in ln for k in ("entry function", "Function properties",
                                      "Used", "stack frame")):
@@ -2154,6 +2401,7 @@ def main():
         worst = max(worst, err)
     launches += pipeline_phase(dev)
     WAVE["launches"] += PIPE["wave"]
+    INTER["launches"] += PIPE["inter"]
     rows = timing_phase(blobs)
     i8 = idct8x8_phase(dev)
     vector_phase(dev, args.test_data)
@@ -2204,6 +2452,19 @@ def main():
     log(f"wave kernels: {WAVE['launches']} frame launches in the decodes, "
         f"{WAVE['compared']} frames equal to wave_plain, max |err| "
         f"{WAVE['err']} (frame kernel), {WAVE['err_levels']} (level kernel)")
+    for label, r in INTER["rows"].items():
+        log(f"inter per frame {label} ({r['tiles']} tiles): stage_ms.inter "
+            f"{txt(r.get('stage_ms'))} (the decode), programs.inter "
+            f"{r['ms']:.4f} ms (CUDA events), device {txt(r['dev_ms'])} (all "
+            f"kernels), inter_frame_kernel {txt(r['k_ms'])}; inter_plain "
+            f"{r['plain_ms']:.3f} ms, device {txt(r['plain_dev'])}; bound "
+            f"{r['bound']:.5f} ms ({r['bound_by']})")
+    log(f"inter kernel: {INTER['launches']} launches in the decodes, "
+        f"{INTER['compared']} engine inter frames equal to inter_plain, max "
+        f"|err| {INTER['err']}")
+    if not INTER["launches"] or not INTER["compared"]:
+        raise AssertionError("the inter kernel was not launched in the "
+                             "decodes or not compared")
     # the level kernel's own run: its entry over still seed 1's blob, the
     # count reset before and read after (it is on no decoder path now)
     lab, (pk1, d1, ra1, planes1, kw1) = WAVE["still1"]
@@ -2259,6 +2520,22 @@ def main():
             # restoration bit-exactly
             "library_ms": None,
         })
+    # the inter kernel: the 1080p 8-bit inter frame 1, its device time (its
+    # launch's CUDA-event time where the profiler shows none) against
+    # inter_plain
+    r = INTER["rows"][INTER["main"]]
+    kernels.append({
+        "name": "rav1d_inter_frame", "route": "cuda",
+        "source": "rav1d_tpu_torch/csrc/inter.cu",
+        "replaces": "rav1d_tpu/engine/mega.py:466",
+        "launches": INTER["launches"], "max_abs_err": INTER["err"],
+        "ms": r["ms"] if r["k_ms"] is None else r["k_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+        "bound_by": r["bound_by"],
+        # no single PyTorch call computes AV1's motion-compensated
+        # prediction bit-exactly
+        "library_ms": None,
+    })
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())  # again here, where the end of a long log keeps it
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 """The device engine's four programs on torch.
 
 Ports of rav1d_tpu/engine/mega.py resid_prog, inter_prog, wave_prog and
-filter_prog; resid, wave and filter_ launch hand-written kernels on the
-card and run their plain versions (resid_plain, wave_plain,
-filter_plain) on the CPU. Every
+filter_prog; resid, inter, wave and filter_ launch hand-written kernels on
+the card and run their plain versions (resid_plain, inter_plain,
+wave_plain, filter_plain) on the CPU. Every
 program reads the frame's descriptors from the one uploaded int32 blob
 `dev`, at the word offsets of the header; the trip counts, filter cases
 and feature gates that JAX reads from the device blob come from the host
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda import filters as cuda_filters
+from ..ops.cuda import inter as cuda_inter
 from ..ops.cuda import itx as cuda_itx
 from ..ops.cuda import wave as cuda_wave
 from ..ops.ref.mc import intermediate_bits
@@ -256,18 +257,71 @@ def _warp_out(stack, d, vw, vh, bpc):
     return (mid.unfold(1, 8, 1) * vtaps).sum(-1, dtype=I32)
 
 
+def _as_stack(refs, vw, vh):
+    """A (S, H, W) stack of reference planes from a stacked tensor or a
+    sequence of planes (a zero plane of the visible size for none, which
+    reads as 0 wherever a tile reads it)."""
+    if isinstance(refs, torch.Tensor):
+        return refs
+    if not len(refs):
+        return torch.zeros((1, max(vh, 1), max(vw, 1)), dtype=torch.uint8)
+    return torch.stack(list(refs))
+
+
 def inter(planes, ra, dev, hdr, runs, stackY, stackC, *, ah, aw, bpc, vwY,
           vhY, vwC, vhC):
-    """The frame's whole inter phase (mega.py inter_prog): puts and warps
-    into the planes, OBMC laps into the lap pool, preps into the compound
-    pool, the compound combines, the OBMC lap blends, then the batch
-    residual add. `runs` is the packer's {slot: [InterRun]}
+    """The frame's whole inter phase (mega.py inter_prog): on the card one
+    cooperative launch of the inter kernel (inter_kernels, ops/cuda/
+    inter.py), which writes `planes` in place and returns it; on the CPU
+    the plain version `inter_plain`. stackY and stackC are the reference
+    planes the descriptors' stack rows name, as a stacked (S, H, W) tensor
+    or a sequence of (H, W) planes (the kernel reads each through its
+    pointer; the plain version stacks them)."""
+    kw = dict(ah=ah, aw=aw, bpc=bpc, vwY=vwY, vhY=vhY, vwC=vwC, vhC=vhC)
+    if planes.device.type == "cpu":
+        return inter_plain(planes, ra, dev, hdr, runs,
+                           _as_stack(stackY, vwY, vhY),
+                           _as_stack(stackC, vwC, vhC), **kw)
+    return inter_kernels(planes, ra, dev, hdr, runs, stackY, stackC, **kw)
+
+
+def inter_kernels(planes, ra, dev, hdr, runs, stackY, stackC, *, ah, aw, bpc,
+                  vwY, vhY, vwC, vhC, k=cuda_inter):
+    """`inter` through the inter kernel of `k` (ops/cuda/inter.py, whose
+    wrapper launches it on the card; the CPU tests pass the source's host
+    build): one launch over every slot run of the frame and the residual
+    add, into `planes` in place (made contiguous first). The pools are
+    scratch of the packer's limit that the kernel zeroes where a combine,
+    a blend or seguv reads. Returns the planes."""
+    d_ = planes.device
+    rows = cuda_inter.pool_rows(ah, aw)
+    planes = planes.contiguous()
+    pool = torch.empty(rows * 64, dtype=I32, device=d_)
+    lap = torch.empty(rows * 64, dtype=I32, device=d_)
+    mask = torch.empty(ah * aw, dtype=I32, device=d_)
+    k.inter_frame(planes, ra, dev, hdr, runs, stackY, stackC, pool, lap,
+                  mask, ah=ah, aw=aw, bpc=bpc, vwY=vwY, vhY=vhY, vwC=vwC,
+                  vhC=vhC)
+    return planes
+
+
+inter_plain_calls = 0  # calls of inter_plain (none on the card's path)
+
+
+def inter_plain(planes, ra, dev, hdr, runs, stackY, stackC, *, ah, aw, bpc,
+                vwY, vhY, vwC, vhC):
+    """The plain version of `inter` (mega.py inter_prog in torch): puts and
+    warps into the planes, OBMC laps into the lap pool, preps into the
+    compound pool, the compound combines, the OBMC lap blends, then the
+    batch residual add. `runs` is the packer's {slot: [InterRun]}
     (engine/pack.py), `stackY` and `stackC` the reference planes (uint8,
     or int16 above 8 bits) the descriptors' stack rows name. Each run is
     one batch: the tiles of a slot write disjoint pixels, except the
     blends, whose top-lap run is finished before the left-lap run starts.
     Pools are sized to the packer's limit, (8 * psz) // 64 rows (the JAX
     program allocates 6/8 of it and clamps beyond)."""
+    global inter_plain_calls
+    inter_plain_calls += 1
     d_ = dev.device
     psz = ah * aw
     ib = intermediate_bits(bpc)

@@ -142,12 +142,14 @@ def execute(f, plan, up):
     m.mark("upload")
     ra, planes = P.resid(dev, hdr, pack.tx_valid, ah=ah, aw=aw, bpc=bpc)
     m.mark("resid")
+    refs = ()
     if pack.srcs is not None:
-        srcsY, srcsC = pack.srcs
-        stackY = stack_planes(srcsY, up.device, (ah, aw))
-        stackC = stack_planes(srcsC, up.device, (ach, acw))
-        planes = P.inter(planes, ra, dev, hdr, pack.inter_runs, stackY,
-                         stackC, ah=ah, aw=aw, bpc=bpc, vwY=f.cur.w,
+        # the reference planes as they are (no stacked copy): the kernel
+        # reads each through its pointer, the plain version stacks them
+        refs = tuple([dev_plane(pic, pl, up.device) for pic, pl in srcs]
+                     for srcs in pack.srcs)
+        planes = P.inter(planes, ra, dev, hdr, pack.inter_runs, *refs,
+                         ah=ah, aw=aw, bpc=bpc, vwY=f.cur.w,
                          vhY=f.cur.h, vwC=(f.cur.w + ss_hor) >> ss_hor,
                          vhC=(f.cur.h + ss_ver) >> ss_ver)
     m.mark("inter")
@@ -175,7 +177,7 @@ def execute(f, plan, up):
     host = buf[:nbytes].view(packed.dtype)
     host.copy_(packed, non_blocking=True)
     m.mark("fetch")
-    keep = (dev, ra, planes, packed)
+    keep = (dev, ra, planes, packed, refs)
     up.fetches.add(out_pic, buf, lambda: _finish(out_pic, host, m, pack_ms,
                                                  keep))
     return True

@@ -1,4 +1,6 @@
-"""Tile helpers of the inter program on torch.
+"""Tile helpers of the plain inter program on torch
+(engine/programs.py inter_plain; on the card csrc/inter.cu computes the
+same per tile).
 
 Ports of rav1d_tpu/engine/tiles.py `_i16`, `_gather` and `_filters`: every
 inter pixel job is a batch of 8x8 destination tiles, each gathering its
