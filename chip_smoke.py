@@ -7,8 +7,9 @@ Phases (any failure exits non-zero before the last line):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
    kernel and the 8x8 DCT_DCT kernel; csrc/wave.cu: the intra wavefront's
    frame kernel, its barrier-only twin and the level kernel; csrc/inter.cu:
-   the inter program's frame kernel; csrc/lf.cu, cdef.cu and lr.cu: the
-   post filters' deblock, CDEF, Wiener and self-guided kernels; nvcc,
+   the inter program's frame kernel; csrc/lf.cu, cdef.cu, superres.cu and
+   lr.cu: the post filters' deblock, CDEF, superres upscale, Wiener and
+   self-guided kernels; nvcc,
    sm_90a, one process per source, all started together) and print
    ptxas's registers, stack frames and spills. The port's native syntax library
    (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
@@ -20,7 +21,9 @@ Phases (any failure exits non-zero before the last line):
    including extreme values; and each filter kernel, through its wrapper
    (ops/cuda/filters.py), against its plain pass (engine/filters.py) on
    random planes, maps and stripes in hand-built blobs at 8, 10 and 12
-   bits (filter_kernel_phase); bit-identical required;
+   bits, and the superres kernel against programs._superres (resize_plane)
+   on random planes at 8, 10 and 12 bits in every layout at denominators
+   9-16 (filter_kernel_phase); bit-identical required;
 Each stream of phases 3-7 runs through stream_on_card: the port's host
 path (Decoder(host_path=True), captured) must give the committed digests
 (rav1d_tpu_torch/smoke_digests.json) where there are some; on each engine
@@ -34,8 +37,9 @@ inter frame; at 1080p only on still
 seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain wavefront
 takes 10-30 s each), and on every engine frame filter_ (the filter
 kernels: two deblock launches, one CDEF launch, one Wiener and one
-self-guided launch per plane with such stripes) must equal filter_plain
-on the wave program's output, planes and packed output; then one
+self-guided launch per plane with such stripes, one superres launch on a
+superres frame) must equal filter_plain on the wave program's output,
+planes and packed output; then one
 rav1d_tpu_torch.Decoder(device="cuda") at
 frame delay 1 decodes the stream frame by frame to the host path's MD5s
 with no fallback but the planner's own, no upload of a host reference
@@ -57,9 +61,13 @@ levels, the bound (wave_work), and the traced frame kernel's per-level
 phases in clock cycles (wave_trace); and the filter program alone:
 filter_ and filter_plain in turns (CUDA events), the device time of each
 filter kernel (torch.profiler) and of its launches alone (CUDA events),
-each plain pass's time, and each kernel's bound (filter_work).
+each plain pass's time, and each kernel's bound (filter_work); on a
+superres frame also the upscale through one torch.matmul per plane by its
+banded resampling matrix (the library time).
 3. slice: seeded 1920x1080 synthetic AV1 still pictures
-   (rav1d_tpu_torch/synth.py), after a small picture's decode;
+   (rav1d_tpu_torch/synth.py), after a small picture's decode, and a
+   1920x1080 superres still (coded 1707 columns wide), whose filter
+   program is timed (no wave_plain on it);
 4. inter: a seeded 1920x1080 synthetic inter sequence (synth.
    inter_sequence: a key frame and two inter frames with every inter tool
    of 4:2:0); every inter slot but segy00/segy10 (4:2:2 and 4:4:4 only)
@@ -104,7 +112,8 @@ each plain pass's time, and each kernel's bound (filter_work).
    640x360 intrabc sequence, each at delays 2 and 3 under
    torch.cuda.set_sync_debug_mode("error"), must equal delay 1: MD5s,
    fallback frames, engine stats and launch counts (the filter kernels'
-   too; every filter_ call of delays 1, 2 and 3, recorded on the worker,
+   too, the superres kernel's with them; every filter_ call of delays 1, 2
+   and 3, recorded on the worker,
    must equal filter_plain, and every inter program call inter_plain;
    one inter launch per inter program call and no inter_plain call in the
    decode). Then the 1080p inter
@@ -326,9 +335,11 @@ def kernel_phase(dev):
 def slice_phase(dev):
     """The main path: synthetic 1080p still pictures through
     stream_on_card, held to their committed digests, after the decode of
-    a small picture (CUDA context, lazy module loads). Returns (itx
-    launches, max |err| of ra, the frames' blobs, the first picture's
-    captured [(f, plan)])."""
+    a small picture (CUDA context, lazy module loads); then a 1080p
+    superres still (seed 1 coded at 8/9 of its width), held to the host
+    path, its filter program timed (FILT["sr_main"] its row's label).
+    Returns (itx launches, max |err| of ra, the stills' blobs, the first
+    picture's captured [(f, plan)])."""
     import torch
 
     import rav1d_tpu_torch as T
@@ -368,7 +379,15 @@ def slice_phase(dev):
         launches += n
         worst = max(worst, err)
         captured.append(frames)
-    return launches, worst, blobs, captured[0]
+    label = f"still superres {W}x{H}"
+    n, err, frames = stream_on_card(dev, label, [synth.still_picture(
+        W, H, 1, superres=True)], wave_check=(), time_filter=True)
+    (f, plan), = frames
+    if plan is None or f.cur.w != 1707 or f.sr_cur.w != W:
+        raise AssertionError(f"{label}: not an engine frame coded 1707 "
+                             "columns wide")
+    FILT["sr_main"] = f"{label} frame 0"
+    return launches + n, max(worst, err), blobs, captured[0]
 
 
 def wave_frames(frames):
@@ -677,7 +696,7 @@ def timing_phase(blobs):
 
 def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
                    slots=(), interintra=False, blobs=None, wave_check=None,
-                   time_wave=False, time_inter=False):
+                   time_wave=False, time_inter=False, time_filter=False):
     """One stream through the port on the card. The host path (captured:
     each frame's plan, and the MD5s; its time includes the capture) must
     give the committed digests `want` where they are given, and its
@@ -690,11 +709,13 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     launch) must equal inter_plain (inter_timing times it per frame if
     `time_inter`), and on the engine frames `wave_check` names (None: all)
     the wave program must equal wave_plain (wave_timing times it per frame
-    if `time_wave`). Then one Decoder(device="cuda") must decode the
-    stream frame by frame to the host path's MD5s, with those fallbacks
-    only, no upload of a host reference plane, one itx launch per engine
-    frame, one inter launch per engine inter frame, one wave frame launch
-    per engine frame with wave items and no level launch, and no call of
+    if `time_wave`; filter_timing times the filter program per frame if
+    `time_wave` or `time_filter`). Then one Decoder(device="cuda") must
+    decode the stream frame by frame to the host path's MD5s, with those
+    fallbacks only, no upload of a host reference plane, one itx launch per
+    engine frame, one inter launch per engine inter frame, one wave frame
+    launch per engine frame with wave items and no level launch, the
+    frames' filter launches (filter_want), and no call of
     the plain transforms, of inter_plain or of class_step. Returns (itx
     launches, max |err| of ra, the captured [(f, plan)])."""
     import torch
@@ -749,7 +770,7 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     # against their plain versions (and the allocator brought to the
     # frame's buffer sizes)
     worst = nframes = ninter = 0
-    engine_frames = []  # (hdr, layout_i) of each engine frame
+    engine_frames = []  # (hdr, layout_i, superres?) of each engine frame
     for i, (f, plan) in enumerate(frames):
         pk = None if plan is None else pack_frame(f, plan)
         if pk is None:
@@ -805,8 +826,8 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         fkw = filter_kw(f, plan, pk)
         fin = P.wave(planes, ra, d, pk.hdr, pk.waves, **kw)
         filter_check(f"{label} frame {i}", fin, d, pk.hdr, fkw)
-        engine_frames.append((pk.hdr, fkw["layout_i"]))
-        if time_wave:
+        engine_frames.append((pk.hdr, fkw["layout_i"], pk.need_sr))
+        if time_wave or time_filter:
             FILT["rows"][key] = filter_timing(key, fin, d, pk, fkw)
     log(f"  {label}: filter_ == filter_plain (planes and packed output) on "
         f"{len(engine_frames)} engine frames; the inter kernel == inter_plain "
@@ -1097,6 +1118,8 @@ FILTERS = (
      "rav1d_tpu/engine/filters.py:34"),
     ("cdef", "cdef_frame_kernel", "rav1d_cdef_frame", "cdef.cu",
      "rav1d_tpu/engine/filters.py:84"),
+    ("sr", "superres_kernel", "rav1d_superres_frame", "superres.cu",
+     "rav1d_tpu/engine/filters.py:185"),
     ("wiener", "lr_wiener_kernel", "rav1d_lr_wiener", "lr.cu",
      "rav1d_tpu/engine/filters.py:246"),
     ("sgr", "lr_sgr_kernel", "rav1d_lr_sgr", "lr.cu",
@@ -1104,7 +1127,8 @@ FILTERS = (
 )
 # the filter kernels across the run: launches in the decodes, frames whose
 # filter_ was held to filter_plain, the largest difference per kernel in
-# the kernel phase, per-frame timings by label
+# the kernel phase, per-frame timings by label (the 1080p superres still's
+# label under "sr_main")
 FILT = {"launches": {k[0]: 0 for k in FILTERS}, "compared": 0,
         "err": {k[0]: 0 for k in FILTERS}, "rows": {}, "seconds": 0.0}
 
@@ -1139,30 +1163,33 @@ def filter_counts():
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
     return dict(lf=FK.lf_launches, cdef=FK.cdef_launches,
-                wiener=FK.wiener_launches, sgr=FK.sgr_launches,
-                filter_plain=FL.calls)
+                sr=FK.sr_launches, wiener=FK.wiener_launches,
+                sgr=FK.sgr_launches, filter_plain=FL.calls)
 
 
 def reset_filter_counts():
     from rav1d_tpu_torch.engine import filters as FL
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
-    FK.lf_launches = FK.cdef_launches = 0
+    FK.lf_launches = FK.cdef_launches = FK.sr_launches = 0
     FK.wiener_launches = FK.sgr_launches = 0
     FL.calls = 0
 
 
 def filter_want(frames):
-    """The filter launches of engine frames [(hdr, layout_i)]: two deblock
-    and one CDEF launch each, one Wiener and one self-guided launch per
-    plane with such stripes; no plain filter call."""
+    """The filter launches of engine frames [(hdr, layout_i, superres?)]:
+    two deblock and one CDEF launch each, one superres launch each with
+    superres, one Wiener and one self-guided launch per plane with such
+    stripes; no plain filter call (engine/filters.py calls counts the
+    plain upscale too)."""
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
-    want = dict(lf=0, cdef=0, wiener=0, sgr=0, filter_plain=0)
-    for hdr, layout_i in frames:
+    want = dict(lf=0, cdef=0, sr=0, wiener=0, sgr=0, filter_plain=0)
+    for hdr, layout_i, sr in frames:
         w, s = FK.lr_launches(hdr, layout_i)
         want["lf"] += 2
         want["cdef"] += 1
+        want["sr"] += int(sr)
         want["wiener"] += w
         want["sgr"] += s
     return want
@@ -1224,7 +1251,7 @@ class FilterRecorder:
     @_filter_seconds
     def check(self, label):
         """filter_plain on every recorded input against what filter_ gave;
-        returns the frames' (hdr, layout_i) for filter_want."""
+        returns the frames' (hdr, layout_i, superres?) for filter_want."""
         import torch
 
         for i, (fin, d, hdr, kw, got, packed) in enumerate(self.calls):
@@ -1233,7 +1260,8 @@ class FilterRecorder:
                 raise AssertionError(f"{label}: filter call {i}: filter_ != "
                                      "filter_plain")
             FILT["compared"] += 1
-        frames = [(c[2], c[3]["layout_i"]) for c in self.calls]
+        frames = [(c[2], c[3]["layout_i"], c[3]["sr_geom"] is not None)
+                  for c in self.calls]
         self.calls = []
         return frames
 
@@ -1307,6 +1335,25 @@ _CDEF_PX_OPS = {3: 140, 1: 50, 2: 100}
 # LR per restored pixel: Wiener (7 + 7 taps, rounds and clips), one
 # self-guided filter (box sums, the A/B tables, the weighted sums), both
 _LR_OPS = {"w": 35, 0: 60, 1: 60, 2: 120}
+# superres per output pixel: 8 multiplies and 7 adds, the negation, round,
+# shift and two clamps
+_SR_OPS = 20
+
+
+def sr_planes(kw):
+    """[(h, dst_w, src_w)] of the superres upscale's planes with pixels, as
+    programs._superres derives them from filter_'s keywords."""
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    _, _, sr_w, _, srcw_y = kw["sr_geom"]
+    cur_h = kw["geom"][6]
+    ss_hor, ss_ver = FK.subsampling(kw["layout_i"])
+    out = []
+    for pl in range(3 if kw["layout_i"] else 1):
+        sh, sv = (ss_hor, ss_ver) if pl else (0, 0)
+        out.append(((cur_h + sv) >> sv, (sr_w + sh) >> sh,
+                    (srcw_y + sh) >> sh))
+    return out
 
 
 def filter_work(pk, kw):
@@ -1315,8 +1362,11 @@ def filter_work(pk, kw):
     maps and stripes: deblock, the selected edges' lines (the pixels each
     filter width reads and writes) and the maps; CDEF, the luma of each
     unit that needs a direction, each filtered unit's pixels read and
-    written, the maps; LR, each stripe's tile (its rows and columns with
-    the 3-pixel margins) read and its pixels written, its descriptor."""
+    written, the maps; superres, each plane's source rows read and the
+    whole (2, 3, s_ah, s_aw) output written, the taps of each visible
+    output pixel of both inputs; LR, each stripe's tile (its rows and
+    columns with the 3-pixel margins) read and its pixels written, its
+    descriptor."""
     import numpy as np
 
     from rav1d_tpu_torch.engine.layout import CDEF0, DB0
@@ -1361,6 +1411,12 @@ def filter_work(pk, kw):
         nb += 4 * 2 * (64 * ny + 2 * cpx * nu)
         ops += per * (64 * ny + 2 * cpx * nu)
     work["cdef"] = (nb, ops)
+    if kw["sr_geom"] is not None:
+        s_ah, s_aw = kw["sr_geom"][:2]
+        geo = sr_planes(kw)
+        work["sr"] = (2 * 4 * sum(h * sw for h, _, sw in geo)
+                      + 2 * 3 * 4 * s_ah * s_aw,
+                      2 * _SR_OPS * sum(h * dw for h, dw, _ in geo))
     for key, kinds in (("wiener", ("w",)), ("sgr", (0, 1, 2))):
         nb = ops = 0
         for p, _ in enumerate(planes):
@@ -1414,16 +1470,19 @@ def profiled_names_ms(fn, reps, names):
 
 def plain_pieces_ms(fn):
     """fn (a filter_plain call) once with CUDA events around each call of
-    the plain passes: {kernel key: ms} (host dispatch included: the plain
-    passes are launch-bound)."""
+    the plain passes (programs._superres for the upscale: its six
+    resize_plane calls, pads and stacks): {kernel key: ms} (host dispatch
+    included: the plain passes are launch-bound)."""
     import torch
 
     from rav1d_tpu_torch.engine import filters as FL
+    from rav1d_tpu_torch.engine import programs as P
 
     marks = {k[0]: [] for k in FILTERS}
-    names = {"lf_dir_pass": "lf", "cdef_pass": "cdef",
-             "lr_wiener_pass": "wiener", "lr_sgr_pass": "sgr"}
-    real = {n: getattr(FL, n) for n in names}
+    names = {(FL, "lf_dir_pass"): "lf", (FL, "cdef_pass"): "cdef",
+             (P, "_superres"): "sr", (FL, "lr_wiener_pass"): "wiener",
+             (FL, "lr_sgr_pass"): "sgr"}
+    real = {n: getattr(*n) for n in names}
 
     def timed(n):
         def call(*a):
@@ -1437,12 +1496,12 @@ def plain_pieces_ms(fn):
         return call
 
     for n in names:
-        setattr(FL, n, timed(n))
+        setattr(*n, timed(n))
     try:
         fn()
     finally:
         for n, f in real.items():
-            setattr(FL, n, f)
+            setattr(*n, f)
     torch.cuda.synchronize()
     return {k: (sum(a.elapsed_time(b) for a, b in v) if v else None)
             for k, v in marks.items()}
@@ -1474,11 +1533,63 @@ def kernel_event_ms(fin, d, pk, kw):
                            W=kw["lr_ws"][1 if p else 0], bpc=kw["bpc"])
         return run
 
-    return {"lf": cuda_ms(lf, 10),
-            "cdef": cuda_ms(lambda: FK.cdef_frame(out, pre, d, pk.hdr, **k),
-                            10),
-            "wiener": cuda_ms(lr(FK.lr_wiener, ("w",)), 10),
-            "sgr": cuda_ms(lr(FK.lr_sgr, (0, 1, 2)), 10)}
+    ms = {"lf": cuda_ms(lf, 10),
+          "cdef": cuda_ms(lambda: FK.cdef_frame(out, pre, d, pk.hdr, **k),
+                          10),
+          "wiener": cuda_ms(lr(FK.lr_wiener, ("w",)), 10),
+          "sgr": cuda_ms(lr(FK.lr_sgr, (0, 1, 2)), 10)}
+    if kw["sr_geom"] is not None:
+        ms["sr"] = cuda_ms(lambda: FK.superres_frame(
+            x, pre, pk.hdr, cur_h=vis_h, sr_geom=kw["sr_geom"],
+            layout_i=kw["layout_i"], bpc=kw["bpc"]), 10)
+    return ms
+
+
+def superres_library(fin, pk, kw):
+    """The upscale of a frame's planes and snapshot (here both `fin`)
+    through one torch.matmul per plane: the (2, h, src_w) float32 source
+    rows by the plane's banded (src_w, dst_w) resampling matrix, built on
+    the host from the same taps and clamps, in float32 with TF32 off
+    (exact: every partial sum is an integer below 4095 * 216 < 2^24), then
+    one rounding and clip pass. Returns (ms per call, CUDA events, the
+    visible outputs [(2, h, dst_w) int32 per plane])."""
+    import numpy as np
+    import torch
+
+    from rav1d_tpu_torch.engine.consts import numpy_tables
+    from rav1d_tpu_torch.engine.layout import SR0
+
+    rf = numpy_tables()["resize_filter"]
+    pxmax = (1 << kw["bpc"]) - 1
+    mats = []
+    for pl, (h, dst_w, src_w) in enumerate(sr_planes(kw)):
+        ci = 1 if pl else 0
+        dx, mx0 = int(pk.hdr[SR0 + 2 * ci]), int(pk.hdr[SR0 + 2 * ci + 1])
+        pos = mx0 + np.arange(dst_w, dtype=np.int64) * dx
+        sx = -1 + (pos >> 14) - (mx0 >> 14)
+        m = np.zeros((src_w, dst_w), np.float32)
+        for k in range(8):
+            np.add.at(m, (np.clip(sx + k - 3, 0, src_w - 1), np.arange(dst_w)),
+                      rf[(pos & 0x3FFF) >> 8, k])
+        mats.append((pl, h, src_w, torch.from_numpy(m).to(fin.device)))
+    src = torch.stack([fin, fin])  # (2, 3, ah, aw): the planes, the snapshot
+
+    def call():
+        outs = []
+        for pl, h, src_w, m in mats:
+            acc = torch.matmul(src[:, pl, :h, :src_w].float(), m)
+            outs.append(torch.clamp(torch.floor((64 - acc) * (1 / 128)), 0,
+                                    pxmax).to(torch.int32))
+        return outs
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = call()
+        ms = cuda_ms(call, 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return ms, outs
 
 
 @_filter_seconds
@@ -1487,7 +1598,11 @@ def filter_timing(label, fin, d, pk, kw):
     kernels) and filter_plain in turns (CUDA events, host calls included),
     the device time of all filter_'s kernels and of each filter kernel
     (torch.profiler), each plain pass's time (CUDA events), and each
-    kernel's bound (filter_work). Returns a dict of them."""
+    kernel's bound (filter_work); on a superres frame the library's
+    upscale (superres_library), which must equal programs._superres.
+    Returns a dict of them."""
+    import torch
+
     from rav1d_tpu_torch.engine import programs as P
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
@@ -1503,21 +1618,35 @@ def filter_timing(label, fin, d, pk, kw):
     pms = [cuda_ms(plain, 1)]
     pms.append(cuda_ms(plain, 1))
     ms.append(cuda_ms(kern, 10))
-    names = [k[1] for k in FILTERS]
-    dev_ms, per = profiled_names_ms(kern, 5, names)
+    sr = kw["sr_geom"] is not None
+    keys = [k for k in FILTERS if sr or k[0] != "sr"]
+    dev_ms, per = profiled_names_ms(kern, 5, [k[1] for k in keys])
     ev = kernel_event_ms(fin, d, pk, kw)
     pieces = plain_pieces_ms(plain)
     work = filter_work(pk, kw)
     w, s = FK.lr_launches(pk.hdr, kw["layout_i"])
-    nl = dict(lf=2, cdef=1, wiener=w, sgr=s)
+    nl = dict(lf=2, cdef=1, sr=1, wiener=w, sgr=s)
     row = dict(ms=min(ms), ms_all=ms, plain_ms=min(pms), plain_all=pms,
                dev_ms=dev_ms, kernels={})
-    for key, name, *_ in FILTERS:
+    for key, name, *_ in keys:
         b_ms, b_by = bound(*work[key])
         row["kernels"][key] = dict(dev_ms=per[name], ev_ms=ev[key],
                                    launches=nl[key],
                                    plain_ms=pieces[key], nbytes=work[key][0],
                                    ops=work[key][1], bound=b_ms, bound_by=b_by)
+    if sr:  # the library's upscale, held to the plain one
+        lib_ms, outs = superres_library(fin, pk, kw)
+        want = P._superres(fin, fin, pk.hdr, kw["geom"][6], kw["sr_geom"],
+                           *FK.subsampling(kw["layout_i"]),
+                           kw["layout_i"] != 0, kw["bpc"])
+        for pl, o in enumerate(outs):
+            h, dst_w = o.shape[1:]
+            plain_o = torch.stack([want[0][pl, :h, :dst_w],
+                                   want[1][pl, :h, :dst_w]])
+            if not torch.equal(o, plain_o):
+                raise AssertionError(f"{label}: the library's upscale of "
+                                     f"plane {pl} != programs._superres")
+        row["kernels"]["sr"]["library_ms"] = lib_ms
 
     def txt(v, f="%.4f ms"):
         return "not measured" if v is None else f % v
@@ -1530,7 +1659,9 @@ def filter_timing(label, fin, d, pk, kw):
             f" (torch.profiler), its launches alone {k['ev_ms']:.4f} ms "
             "(CUDA events), "
             f"bound {k['bound']:.5f} ms ({k['bound_by']}: {k['nbytes']} bytes, "
-            f"{k['ops']} ops), plain passes {txt(k['plain_ms'], '%.2f ms')}")
+            f"{k['ops']} ops), plain passes {txt(k['plain_ms'], '%.2f ms')}"
+            + (f", library (torch.matmul) {k['library_ms']:.4f} ms"
+               if "library_ms" in k else ""))
     return row
 
 
@@ -1565,8 +1696,13 @@ def filter_kernel_phase(dev):
     random levels with 0 and 63) against engine/filters.py lf_dir_pass
     per plane; CDEF against cdef_pass (random level maps: both strengths,
     either, neither); LR against lr_wiener_pass and lr_sgr_pass on a grid
-    of stripes with a random kind each. Bit-identical required; the
-    largest difference per kernel goes into FILT."""
+    of stripes with a random kind each; the superres upscale of random
+    planes and snapshots (runs at 0 and at the largest value among them)
+    at 8, 10 and 12 bits in 4:0:0, 4:2:0, 4:2:2 and 4:4:4 at every
+    denominator 9-16 (steps and starts as the decoder computes them; a
+    613-column upscaled width, three blocks of columns a row) against
+    programs._superres. Bit-identical required; the largest difference
+    per kernel goes into FILT."""
     import numpy as np
     import torch
 
@@ -1713,9 +1849,52 @@ def filter_kernel_phase(dev):
             check(key, got, want)
             if torch.equal(want, src):
                 raise AssertionError(f"{key}: the stripes changed nothing")
+
+    from rav1d_tpu_torch.decoder import _scale_fac
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.layout import SR0
+    from rav1d_tpu_torch.recon.superres import get_upscale_x0
+
+    sr_w, cur_h = 613, 37
+    ah, aw = 40, 624
+    s_ah, s_aw = 44, 640
+    cases = 0
+    for bpc in (8, 10, 12):
+        rng = np.random.default_rng(2000 + bpc)
+        pxmax = (1 << bpc) - 1
+        for layout_i in (0, 1, 2, 3):
+            ss_hor, ss_ver = FK.subsampling(layout_i)
+            for denom in range(9, 17):
+                coded = max((sr_w * 8 + (denom >> 1)) // denom, 16)
+                hdr = np.zeros(HDR_LEN, np.int32)
+                for ci, sh in ((0, 0), (1, ss_hor)):
+                    i, o = (coded + sh) >> sh, (sr_w + sh) >> sh
+                    hdr[SR0 + 2 * ci] = step = _scale_fac(i, o)
+                    hdr[SR0 + 2 * ci + 1] = get_upscale_x0(i, o, step)
+                pl_in = []
+                for _ in range(2):
+                    v = _rand_planes(rng, (3, ah, aw), bpc)
+                    run = rng.integers(0, 4, (3, ah, aw // 8)).repeat(8, -1)
+                    v = np.where(run == 0, 0, np.where(run == 1, pxmax, v))
+                    pl_in.append(t(v))
+                geom = (s_ah, s_aw, sr_w, cur_h, ((coded + 7) >> 3) << 3)
+                got = FK.superres_frame(*pl_in, hdr, cur_h=cur_h,
+                                        sr_geom=geom, layout_i=layout_i,
+                                        bpc=bpc)
+                want = torch.stack(P._superres(
+                    *pl_in, hdr, cur_h, geom, ss_hor, ss_ver, layout_i != 0,
+                    bpc)[:2])
+                err = max_err(got, want)
+                FILT["err"]["sr"] = max(FILT["err"]["sr"], err)
+                if err:
+                    raise AssertionError(f"sr kernel != plain at {bpc} bpc, "
+                                         f"layout {layout_i}, denominator "
+                                         f"{denom}")
+                cases += 1
     log(f"filter kernel phase: deblock, CDEF, Wiener and self-guided "
         f"kernels bit-identical to their plain versions at 8, 10 and 12 "
-        f"bits (max |err| {json.dumps(FILT['err'])})")
+        f"bits, the superres kernel to programs._superres in {cases} cases "
+        f"(max |err| {json.dumps(FILT['err'])})")
 
 
 def high_bitdepth_phase(dev):
@@ -2310,8 +2489,9 @@ def first_frames_phase(dev, d, rel, n):
     want = []
     frames = synth.capture_frames(packets, want)
     nframes = wave_frames(frames)
-    f_want = filter_want([(pack_frame(f, plan).hdr, int(f.cur.layout))
-                          for f, plan in frames if plan is not None])
+    pks = [(pack_frame(f, plan), int(f.cur.layout))
+           for f, plan in frames if plan is not None]
+    f_want = filter_want([(pk.hdr, lay, pk.need_sr) for pk, lay in pks])
     before = dict(T.engine.stats)
     TW.calls = WK.launches = WK.level_launches = 0
     IK.launches = P.inter_plain_calls = 0
@@ -2371,15 +2551,16 @@ def main():
     log(f"syntax backend: native C ({os.path.relpath(so, HERE)})")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as ex:  # one nvcc per source, together
+    with ThreadPoolExecutor(7) as ex:  # one nvcc per source, together
         for fut in [ex.submit(I.lib), ex.submit(WK.lib), ex.submit(IK.lib)] + [
-                ex.submit(FK.lib, n) for n in ("lf", "cdef", "lr")]:
+                ex.submit(FK.lib, n) for n in ("lf", "cdef", "superres",
+                                               "lr")]:
             fut.result()
-    log(f"set-up: itx, idct8x8, wave, inter, deblock, CDEF and loop "
-        f"restoration kernels built and loaded in "
+    log(f"set-up: itx, idct8x8, wave, inter, deblock, CDEF, superres and "
+        f"loop restoration kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s; the inter kernel's grid "
         f"{IK.grid()} blocks")
-    for name in ("itx", "wave", "inter", "lf", "cdef", "lr"):
+    for name in ("itx", "wave", "inter", "lf", "cdef", "superres", "lr"):
         for ln in build.LOGS.get(name, "").splitlines():  # ptxas -v
             if any(k in ln for k in ("entry function", "Function properties",
                                      "Used", "stack frame")):
@@ -2440,6 +2621,8 @@ def main():
         per = "; ".join(
             f"{k} {txt(v['dev_ms'])} device ({v['ev_ms']:.4f} ms alone), "
             f"bound {v['bound']:.5f} ms, plain {txt(v['plain_ms'])}"
+            + (f", library {txt(v['library_ms'])}" if "library_ms" in v
+               else "")
             for k, v in r["kernels"].items())
         log(f"filter per frame {label}: stage_ms.filter "
             f"{txt(r.get('stage_ms'))} (the decode), filter_ {r['ms']:.3f} ms"
@@ -2501,12 +2684,13 @@ def main():
             # transforms or intra prediction bit-exactly
             "library_ms": None,
         })
-    # the filter kernels: still seed 1's frame, each kernel's device time
-    # (its launches' CUDA-event time where the profiler shows none) against
-    # its plain passes
-    fr = FILT["rows"][lab]["kernels"]
+    # the filter kernels: still seed 1's frame (the superres kernel: the
+    # 1080p superres still's), each kernel's device time (its launches'
+    # CUDA-event time where the profiler shows none) against its plain
+    # passes
     for key, _, entry, src, replaces in FILTERS:
-        k = fr[key]
+        k = FILT["rows"][FILT["sr_main"] if key == "sr" else lab][
+            "kernels"][key]
         if not FILT["launches"][key]:
             raise AssertionError(f"{entry} was not launched in the decodes")
         kernels.append({
@@ -2517,8 +2701,9 @@ def main():
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"],
             "bound_by": k["bound_by"],
             # no single PyTorch call computes AV1's deblock, CDEF or loop
-            # restoration bit-exactly
-            "library_ms": None,
+            # restoration bit-exactly; the upscale is one banded matrix
+            # product a plane (superres_library)
+            "library_ms": k.get("library_ms"),
         })
     # the inter kernel: the 1080p 8-bit inter frame 1, its device time (its
     # launch's CUDA-event time where the profiler shows none) against

@@ -10,9 +10,8 @@ mode="drop" discards them.
 
 These are the plain versions of the hand-written filter kernels
 (ops/cuda/filters.py), which run every frame's filters on the card;
-`calls` counts the calls of the deblock, CDEF and LR passes (not the
-superres upscale, which has no kernel yet), so a run can show that the
-card's filter stage made none.
+`calls` counts the calls of the deblock, CDEF, superres and LR passes, so
+a run can show that the card's filter stage made none.
 """
 
 from __future__ import annotations
@@ -199,6 +198,8 @@ def resize_plane(src, h, dst_w, src_w, dx, mx0, bpc, out_w):
     (mc.rs resize_rust:1114): output column x reads source columns around
     (mx0 + x * dx) >> 14 with the filter of its 1/64 phase, clamped to the
     row. Returns (h, out_w) int32, zero past dst_w."""
+    global calls
+    calls += 1
     d_ = src.device
     RF = tables(d_)["resize_filter"]
     pos = mx0 + _ar(dst_w, d_) * dx

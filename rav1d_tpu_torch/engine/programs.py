@@ -555,8 +555,9 @@ def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws, sr_geom=None):
     packed output: the whole luma plane then the (ach, acw) chroma planes,
     uint8 at 8 bits, int16 at 10 and 12). On the card the hand-written
     filter kernels (filter_kernels: two deblock launches, one CDEF launch,
-    one Wiener and one self-guided launch per plane with such stripes); on
-    the CPU the plain version `filter_plain`."""
+    one superres launch with sr_geom, one Wiener and one self-guided launch
+    per plane with such stripes); on the CPU the plain version
+    `filter_plain`."""
     kw = dict(geom=geom, bpc=bpc, layout_i=layout_i, lr_ws=lr_ws,
               sr_geom=sr_geom)
     if planes.device.type == "cpu":
@@ -567,8 +568,9 @@ def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws, sr_geom=None):
 def _superres(planes, pre_cdef, hdr, cur_h, sr_geom, ss_hor, ss_ver,
               has_chroma, bpc):
     """The upscale of both the planes and the post-deblock snapshot (plain
-    torch: engine/filters.py resize_plane). Returns (planes, pre_cdef, the
-    upscaled width, the upscaled picture's rows)."""
+    torch: engine/filters.py resize_plane; filter_plain's, the plain
+    version of csrc/superres.cu). Returns (planes, pre_cdef, the upscaled
+    width, the upscaled picture's rows)."""
     d_ = planes.device
     s_ah, s_aw, sr_w, vis_h, srcw_y = sr_geom
     outs, pres = [], []
@@ -609,12 +611,13 @@ def filter_kernels(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws,
     whose wrappers launch them on the card; the CPU tests pass the
     sources' host builds): deblock in place, one launch per direction over
     every plane; the post-deblock snapshot; CDEF from the snapshot into the
-    planes, one launch; superres (plain torch); loop restoration from the
-    planes and the snapshot into a copy of the planes, one Wiener and one
-    self-guided launch per plane with such stripes; the packed output."""
+    planes, one launch; with sr_geom, the upscale of every plane of the
+    planes and the snapshot into a new tensor, one launch; loop
+    restoration from the planes and the snapshot into a copy of the
+    planes, one Wiener and one self-guided launch per plane with such
+    stripes; the packed output."""
     _, _, ach, acw, bh, bw, cur_h = geom
-    ss_hor, ss_ver = cuda_filters.subsampling(layout_i)
-    has_chroma = layout_i != 0
+    ss_ver = cuda_filters.subsampling(layout_i)[1]
     kw = dict(bh=bh, bw=bw, layout_i=layout_i, bpc=bpc)
     planes = planes.contiguous()
     k.lf_pass(planes, dev, hdr, False, **kw)
@@ -623,9 +626,9 @@ def filter_kernels(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws,
     k.cdef_frame(planes, pre_cdef, dev, hdr, **kw)
     vis_h = cur_h
     if sr_geom is not None:
-        planes, pre_cdef, _, vis_h = _superres(
-            planes, pre_cdef, hdr, cur_h, sr_geom, ss_hor, ss_ver, has_chroma,
-            bpc)
+        sr = k.superres_frame(planes, pre_cdef, hdr, cur_h=cur_h,
+                              sr_geom=sr_geom, layout_i=layout_i, bpc=bpc)
+        planes, pre_cdef, vis_h = sr[0], sr[1], sr_geom[3]
     out = None
     for pl, wiener, sgr in cuda_filters.lr_planes(hdr, layout_i):
         if out is None:  # every stripe reads the planes before any write
@@ -638,7 +641,7 @@ def filter_kernels(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws,
             k.lr_sgr(out[pl], planes[pl], pre_cdef[pl], dev, hdr, pl, **lw)
     if out is not None:
         planes = out
-    return planes, _pack_out(planes, ach, acw, bpc, has_chroma)
+    return planes, _pack_out(planes, ach, acw, bpc, layout_i != 0)
 
 
 def filter_plain(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws,

@@ -1,5 +1,5 @@
-"""The post filters' wrappers: deblock, CDEF and loop restoration on the
-card.
+"""The post filters' wrappers: deblock, CDEF, the superres upscale and
+loop restoration on the card.
 
 Each wrapper launches one hand-written kernel (built at first use from
 csrc/, one library per source) on the current stream:
@@ -10,18 +10,23 @@ csrc/, one library per source) on the current stream:
 - `cdef_frame(planes, pre, dev, hdr, ...)`: csrc/cdef.cu rav1d_cdef_frame,
   the direction search and filter of every 8x8 unit of every plane, read
   from the pre-CDEF snapshot `pre`, written to `planes`;
+- `superres_frame(planes, pre, hdr, ...)`: csrc/superres.cu
+  rav1d_superres_frame, the upscale of every plane of the post-CDEF
+  planes and of the snapshot, into a new (2, 3, s_ah, s_aw) tensor;
 - `lr_wiener(out, src, lpf, dev, hdr, pl, ...)` and `lr_sgr(...)`:
   csrc/lr.cu rav1d_lr_wiener and rav1d_lr_sgr, every Wiener stripe of
   plane `pl`, or every self-guided stripe of its three kinds, read from
   the post-CDEF plane `src` and the pre-CDEF plane `lpf`, written to `out`.
 
 Their plain versions are engine/filters.py lf_dir_pass, cdef_pass,
-lr_wiener_pass and lr_sgr_pass (engine/programs.py filter_plain). The
+resize_plane (through engine/programs.py _superres), lr_wiener_pass and
+lr_sgr_pass (engine/programs.py filter_plain). The
 wrappers take CUDA tensors only and raise on anything else and on a failed
 or refused launch; they read nothing back from the card, copy nothing to
 it, and never fall back. `*_args` build a launch's arguments for any
 device (the CPU tests hand them to the sources' host builds). Counters:
-`lf_launches`, `cdef_launches`, `wiener_launches`, `sgr_launches`.
+`lf_launches`, `cdef_launches`, `sr_launches`, `wiener_launches`,
+`sgr_launches`.
 """
 
 from __future__ import annotations
@@ -30,11 +35,12 @@ import ctypes
 
 import torch
 
-from ...engine.layout import CDEF0, DB0, LR0, LRB
+from ...engine.layout import CDEF0, DB0, LR0, LRB, SR0
 from . import build
 
 lf_launches = 0
 cdef_launches = 0
+sr_launches = 0
 wiener_launches = 0
 sgr_launches = 0
 
@@ -64,6 +70,15 @@ class CdefFrame(ctypes.Structure):
                 ("bpc", _I), ("ss_hor", _I), ("ss_ver", _I), ("uv422", _I)]
 
 
+class SrFrame(ctypes.Structure):
+    """csrc/superres.cu struct SrFrame, field for field."""
+
+    _fields_ = [("out", _P), ("planes", _P), ("pre", _P), ("ah", _I),
+                ("aw", _I), ("s_ah", _I), ("s_aw", _I), ("bpc", _I),
+                ("nplanes", _I), ("h", _I * 3), ("dst_w", _I * 3),
+                ("src_w", _I * 3), ("dx", _I * 3), ("mx0", _I * 3)]
+
+
 class LrPass(ctypes.Structure):
     """csrc/lr.cu struct LrPass, field for field."""
 
@@ -74,12 +89,14 @@ class LrPass(ctypes.Structure):
 
 _ENTRIES = {"lf": ("lf.cu", ("rav1d_lf_pass",)),
             "cdef": ("cdef.cu", ("rav1d_cdef_frame",)),
+            "superres": ("superres.cu", ("rav1d_superres_frame",)),
             "lr": ("lr.cu", ("rav1d_lr_wiener", "rav1d_lr_sgr"))}
 
 
 def lib(name):
-    """Build (at first use) and load the library of csrc/lf.cu, cdef.cu or
-    lr.cu (`name` "lf", "cdef" or "lr"), its entries' signatures set."""
+    """Build (at first use) and load the library of csrc/lf.cu, cdef.cu,
+    superres.cu or lr.cu (`name` "lf", "cdef", "superres" or "lr"), its
+    entries' signatures set."""
     if name not in _LIBS:
         src, entries = _ENTRIES[name]
         so = build.build(name, src)
@@ -165,6 +182,44 @@ def cdef_args(planes, pre, dev, hdr, *, bh, bw, layout_i, bpc):
     return a
 
 
+def superres_args(out, planes, pre, hdr, *, cur_h, sr_geom, layout_i, bpc):
+    """The SrFrame of a frame's upscale: `planes` (post-CDEF) and `pre`
+    (the post-deblock snapshot), each (3, ah, aw), into `out` (2, 3, s_ah,
+    s_aw); cur_h the coded picture's rows, sr_geom = (s_ah, s_aw, sr_w,
+    sr_h, srcw_y) as programs.filter_ takes it, each plane's step and
+    start from the header (SR0: luma, then chroma), as _superres reads
+    them."""
+    _check(out, planes, pre)
+    s_ah, s_aw, sr_w, _, srcw_y = sr_geom
+    if planes.dim() != 3 or planes.shape[0] != 3 or pre.shape != planes.shape:
+        raise ValueError("superres kernel: planes and pre must be (3, ah, aw)")
+    if tuple(out.shape) != (2, 3, s_ah, s_aw):
+        raise ValueError(f"superres kernel: out {tuple(out.shape)}, not "
+                         f"(2, 3, {s_ah}, {s_aw})")
+    _, ah, aw = planes.shape
+    ss_hor, ss_ver = subsampling(layout_i)
+    a = SrFrame(out.data_ptr(), planes.data_ptr(), pre.data_ptr(), ah, aw,
+                s_ah, s_aw, bpc, 1 if layout_i == 0 else 3)
+    for pl in range(a.nplanes):
+        sh, sv, ci = (ss_hor, ss_ver, 1) if pl else (0, 0, 0)
+        a.h[pl] = (cur_h + sv) >> sv
+        a.dst_w[pl] = (sr_w + sh) >> sh
+        a.src_w[pl] = (srcw_y + sh) >> sh
+        a.dx[pl] = int(hdr[SR0 + 2 * ci])
+        a.mx0[pl] = int(hdr[SR0 + 2 * ci + 1])
+        if not (0 <= a.h[pl] <= min(ah, s_ah) and 0 <= a.dst_w[pl] <= s_aw
+                and 1 <= a.src_w[pl] <= aw and 1 <= a.dx[pl] <= 1 << 15
+                and 0 <= a.mx0[pl] < 1 << 14
+                and a.dst_w[pl] * a.dx[pl] < 1 << 30):
+            raise ValueError(
+                f"superres kernel: plane {pl}: {a.h[pl]} rows, {a.src_w[pl]} "
+                f"to {a.dst_w[pl]} columns, step {a.dx[pl]}, start "
+                f"{a.mx0[pl]} in ({ah}, {aw}) planes to ({s_ah}, {s_aw})")
+    if bpc not in (8, 10, 12) or s_ah > 65535:
+        raise ValueError(f"superres kernel: bpc {bpc}, {s_ah} rows")
+    return a
+
+
 def lr_chunks(hdr, pl):
     """{kind: (descriptor base, chunks)} of plane pl's LR slots."""
     return {k: (int(hdr[LR0 + 2 * (4 * pl + i)]),
@@ -242,6 +297,20 @@ def cdef_frame(planes, pre, dev, hdr, *, bh, bw, layout_i, bpc):
                   bpc=bpc)
     _launch("cdef", "rav1d_cdef_frame", a, planes)
     cdef_launches += 1
+
+
+def superres_frame(planes, pre, hdr, *, cur_h, sr_geom, layout_i, bpc):
+    """The upscale of every plane of `planes` and of the snapshot `pre`:
+    one launch. Returns the (2, 3, s_ah, s_aw) output (the launch writes
+    every cell): [0] the upscaled planes, [1] the upscaled snapshot."""
+    global sr_launches
+    out = torch.empty((2, 3) + tuple(sr_geom[:2]), dtype=I32,
+                      device=planes.device)
+    a = superres_args(out, planes, pre, hdr, cur_h=cur_h, sr_geom=sr_geom,
+                      layout_i=layout_i, bpc=bpc)
+    _launch("superres", "rav1d_superres_frame", a, out)
+    sr_launches += 1
+    return out
 
 
 def lr_wiener(out, src, lpf, dev, hdr, pl, *, ph, W, bpc):

@@ -29,7 +29,8 @@ card, where chip_smoke.py holds them to their plain versions. Checked:
   frame, with S_W < W, S_W = W and S_W > W and S_H < 64, lpf rows from
   the pre-CDEF plane; 66 narrow stripes in two descriptor chunks;
 - the kernels' constant tables against engine/consts.py and ops/cdef.py;
-- engine/programs.py filter_kernels through the host entries against
+- engine/programs.py filter_kernels through the host entries (and
+  csrc/superres.cu's, tests/test_torch_superres_kernel.py) against
   filter_plain on frames the other test files pack: the (136, 96) stills
   of tests/test_torch_programs.py, the 10-bit 4:2:2 deblock-tools frame of
   tests/test_torch_formats_programs.py, a 12-bit 4:4:4 and a 12-bit 4:0:0
@@ -74,25 +75,30 @@ BPC_LAYOUT = {8: PL.I420, 10: PL.I422, 12: PL.I444}
 _VOID = ctypes.c_void_p
 
 
-@pytest.fixture(scope="module")
-def host(tmp_path_factory):
-    """The three sources compiled for the host with g++ and loaded, as a
-    filter_kernels `k` that runs their host entries."""
-    d = str(tmp_path_factory.mktemp("filters"))
+def host_kernels(d):
+    """The four sources compiled for the host with g++ into directory `d`
+    and loaded, as a filter_kernels `k` that runs their host entries."""
     libs = {}
-    for name in ("lf", "cdef", "lr"):
+    for name in ("lf", "cdef", "superres", "lr"):
         so = os.path.join(d, f"lib{name}_host.so")
         subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
                         "-fPIC", "-o", so, os.path.join(CSRC, name + ".cu")],
                        check=True)
         libs[name] = ctypes.CDLL(so)
     for fn in (libs["lf"].rav1d_lf_pass_host, libs["cdef"].rav1d_cdef_frame_host,
+               libs["superres"].rav1d_superres_frame_host,
                libs["lr"].rav1d_lr_wiener_host, libs["lr"].rav1d_lr_sgr_host,
                libs["cdef"].rav1d_cdef_tables_host,
+               libs["superres"].rav1d_superres_table_host,
                libs["lr"].rav1d_lr_table_host):
         fn.argtypes = [_VOID]
         fn.restype = ctypes.c_int
     return HostKernels(libs)
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    return host_kernels(str(tmp_path_factory.mktemp("filters")))
 
 
 class HostKernels:
@@ -101,7 +107,7 @@ class HostKernels:
 
     def __init__(self, libs):
         self.libs = libs
-        self.n = dict.fromkeys(("lf", "cdef", "wiener", "sgr"), 0)
+        self.n = dict.fromkeys(("lf", "cdef", "sr", "wiener", "sgr"), 0)
 
     def _run(self, lib, entry, a, key):
         assert getattr(self.libs[lib], entry)(ctypes.byref(a)) == 0
@@ -114,6 +120,15 @@ class HostKernels:
     def cdef_frame(self, planes, pre, dev, hdr, **kw):
         self._run("cdef", "rav1d_cdef_frame_host",
                   FK.cdef_args(planes, pre, dev, hdr, **kw), "cdef")
+
+    def superres_frame(self, planes, pre, hdr, **kw):
+        """superres_frame's output, allocated as it allocates it and filled
+        with a pattern first (the entry must write every cell)."""
+        s_ah, s_aw = kw["sr_geom"][:2]
+        out = torch.full((2, 3, s_ah, s_aw), 0x5A5A5A5A, dtype=torch.int32)
+        self._run("superres", "rav1d_superres_frame_host",
+                  FK.superres_args(out, planes, pre, hdr, **kw), "sr")
+        return out
 
     def lr_wiener(self, out, src, lpf, dev, hdr, pl, **kw):
         self._run("lr", "rav1d_lr_wiener_host",
@@ -481,12 +496,12 @@ FRAMES = {
 
 
 class Frame:
-    """A frame's blob and its filter program's input (the port's plain
-    resid, inter and wave programs), and the program's statics."""
+    """Frame i of `packets`: its blob and its filter program's input (the
+    port's plain resid, inter and wave programs), and the program's
+    statics."""
 
-    def __init__(self, name):
-        packets, i = FRAMES[name]
-        f, plan = synth.capture_frames(packets())[i]
+    def __init__(self, packets, i):
+        f, plan = synth.capture_frames(packets)[i]
         pk = self.pk = pack_frame(f, plan)
         ah, aw, bpc = plan.ah, plan.aw, f.cur.bpc
         self.dev, _ = Uploader("cpu").upload(pk, ah * aw, bpc)
@@ -517,7 +532,8 @@ class Frame:
 
 @functools.lru_cache(maxsize=None)
 def frame_of(name):
-    return Frame(name)
+    packets, i = FRAMES[name]
+    return Frame(packets(), i)
 
 
 @pytest.mark.parametrize("name", sorted(FRAMES))
@@ -530,8 +546,10 @@ def test_filter_program_matches_plain(host, name):
     np.testing.assert_array_equal(got.numpy(), planes.numpy())
     np.testing.assert_array_equal(got_packed.numpy(), packed.numpy())
     w, s = FK.lr_launches(frame.pk.hdr, frame.layout)
-    assert {k: host.n[k] - n0[k] for k in n0} == dict(lf=2, cdef=1, wiener=w,
-                                                      sgr=s)
+    sr = int(frame.kw["sr_geom"] is not None)
+    assert sr == (name == "8bit-420-superres")
+    assert {k: host.n[k] - n0[k] for k in n0} == dict(lf=2, cdef=1, sr=sr,
+                                                      wiener=w, sgr=s)
     assert FL.calls == c0
     assert w + s > 0 or name == "10bit-422-lf-tools"
 
