@@ -21,7 +21,8 @@ Phases (any failure exits non-zero before the last line):
    including extreme values; and each filter kernel, through its wrapper
    (ops/cuda/filters.py), against its plain pass (engine/filters.py) on
    random planes, maps and stripes in hand-built blobs at 8, 10 and 12
-   bits, and the superres kernel against programs._superres (resize_plane)
+   bits (deblock and CDEF through both their forms, and in 4:0:0 too),
+   and the superres kernel against programs._superres (resize_plane)
    on random planes at 8, 10 and 12 bits in every layout at denominators
    9-16 (filter_kernel_phase); bit-identical required;
 Each stream of phases 3-7 runs through stream_on_card: the port's host
@@ -63,7 +64,13 @@ filter_ and filter_plain in turns (CUDA events), the device time of each
 filter kernel (torch.profiler) and of its launches alone (CUDA events),
 each plain pass's time, and each kernel's bound (filter_work); on a
 superres frame also the upscale through one torch.matmul per plane by its
-banded resampling matrix (the library time).
+banded resampling matrix (the library time); and deblock by direction and
+CDEF through the decoder path's kernels (rav1d_deblock, rav1d_cdef) and
+their earlier forms (rav1d_lf_pass, rav1d_cdef_frame), each stage's input
+from filter_plain: new == earlier == the plain stage, and each form's
+device time (torch.profiler, each direction's launches alone in their own
+windows) and its launches alone (CUDA events), in turns, beside the
+stage's bound (filter_forms).
 3. slice: seeded 1920x1080 synthetic AV1 still pictures
    (rav1d_tpu_torch/synth.py), after a small picture's decode, and a
    1920x1080 superres still (coded 1707 columns wide), whose filter
@@ -140,8 +147,10 @@ banded resampling matrix (the library time).
 Every decode must make no class_step and no inter_plain call, and each,
 but for the whole conformance streams of the vector phase, one wave frame
 launch per frame with wave items and no level launch, one inter launch
-per engine inter frame, and its frames' filter launches with no plain
-filter call.
+per engine inter frame, and its frames' filter launches with no launch of
+the earlier deblock and CDEF forms and no plain filter call. The earlier
+forms then run once on their own over still seed 1's filter input, their
+launch counts reset before and read after (their JSON entries' launches).
 Then neither JAX nor any module of rav1d_tpu may have been imported.
 
 Prints the card's name and power limit, the syntax backend, per-frame
@@ -829,6 +838,9 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         engine_frames.append((pk.hdr, fkw["layout_i"], pk.need_sr))
         if time_wave or time_filter:
             FILT["rows"][key] = filter_timing(key, fin, d, pk, fkw)
+            FILT["forms"][key] = filter_forms(key, fin, d, pk, fkw)
+            if key == f"still seed 1 {W}x{H} frame 0":
+                FILT["still1"] = fin, d, pk, fkw
     log(f"  {label}: filter_ == filter_plain (planes and packed output) on "
         f"{len(engine_frames)} engine frames; the inter kernel == inter_plain "
         f"on {ninter} engine inter frames")
@@ -1111,26 +1123,37 @@ def wave_trace(pk, clk):
 
 # ------------------------------ post filters ------------------------------
 
-# the filter kernels: (counter key, kernel name in the profiler, entry,
-# source, the TPU kernel it replaces)
+# the filter kernels: (counter key, kernel names in the profiler, entry,
+# source, the TPU kernel it replaces); the deblock entry's two kernels are
+# its two directions
 FILTERS = (
-    ("lf", "lf_pass_kernel", "rav1d_lf_pass", "lf.cu",
+    ("lf", ("lf_rows_kernel", "lf_cols_kernel"), "rav1d_deblock", "lf.cu",
      "rav1d_tpu/engine/filters.py:34"),
-    ("cdef", "cdef_frame_kernel", "rav1d_cdef_frame", "cdef.cu",
+    ("cdef", ("cdef_area_kernel",), "rav1d_cdef", "cdef.cu",
      "rav1d_tpu/engine/filters.py:84"),
-    ("sr", "superres_kernel", "rav1d_superres_frame", "superres.cu",
+    ("sr", ("superres_kernel",), "rav1d_superres_frame", "superres.cu",
      "rav1d_tpu/engine/filters.py:185"),
-    ("wiener", "lr_wiener_kernel", "rav1d_lr_wiener", "lr.cu",
+    ("wiener", ("lr_wiener_kernel",), "rav1d_lr_wiener", "lr.cu",
      "rav1d_tpu/engine/filters.py:246"),
-    ("sgr", "lr_sgr_kernel", "rav1d_lr_sgr", "lr.cu",
+    ("sgr", ("lr_sgr_kernel",), "rav1d_lr_sgr", "lr.cu",
      "rav1d_tpu/engine/filters.py:253"),
 )
-# the filter kernels across the run: launches in the decodes, frames whose
-# filter_ was held to filter_plain, the largest difference per kernel in
-# the kernel phase, per-frame timings by label (the 1080p superres still's
-# label under "sr_main")
-FILT = {"launches": {k[0]: 0 for k in FILTERS}, "compared": 0,
-        "err": {k[0]: 0 for k in FILTERS}, "rows": {}, "seconds": 0.0}
+# the earlier forms of deblock and CDEF (on no decoder path), likewise
+EARLIER = (
+    ("lf_lines", ("lf_pass_kernel",), "rav1d_lf_pass", "lf.cu",
+     "rav1d_tpu/engine/filters.py:34"),
+    ("cdef_global", ("cdef_frame_kernel",), "rav1d_cdef_frame", "cdef.cu",
+     "rav1d_tpu/engine/filters.py:84"),
+)
+# the filter kernels across the run: launches in the decodes (the earlier
+# forms' must stay 0) and in the earlier forms' own run ("own"), frames
+# whose filter_ was held to filter_plain, the largest difference per
+# kernel in the kernel phase and the forms' comparisons, per-frame
+# timings by label (the 1080p superres still's label under "sr_main"),
+# the forms' per-frame comparisons by label
+FILT = {"launches": {k[0]: 0 for k in FILTERS + EARLIER}, "own": {},
+        "compared": 0, "err": {k[0]: 0 for k in FILTERS + EARLIER},
+        "rows": {}, "forms": {}, "seconds": 0.0}
 
 
 def _filter_seconds(fn):
@@ -1164,7 +1187,8 @@ def filter_counts():
 
     return dict(lf=FK.lf_launches, cdef=FK.cdef_launches,
                 sr=FK.sr_launches, wiener=FK.wiener_launches,
-                sgr=FK.sgr_launches, filter_plain=FL.calls)
+                sgr=FK.sgr_launches, lf_lines=FK.lf_lines_launches,
+                cdef_global=FK.cdef_global_launches, filter_plain=FL.calls)
 
 
 def reset_filter_counts():
@@ -1173,6 +1197,7 @@ def reset_filter_counts():
 
     FK.lf_launches = FK.cdef_launches = FK.sr_launches = 0
     FK.wiener_launches = FK.sgr_launches = 0
+    FK.lf_lines_launches = FK.cdef_global_launches = 0
     FL.calls = 0
 
 
@@ -1180,11 +1205,12 @@ def filter_want(frames):
     """The filter launches of engine frames [(hdr, layout_i, superres?)]:
     two deblock and one CDEF launch each, one superres launch each with
     superres, one Wiener and one self-guided launch per plane with such
-    stripes; no plain filter call (engine/filters.py calls counts the
-    plain upscale too)."""
+    stripes; no launch of the earlier deblock and CDEF forms and no plain
+    filter call (engine/filters.py calls counts the plain upscale too)."""
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
-    want = dict(lf=0, cdef=0, sr=0, wiener=0, sgr=0, filter_plain=0)
+    want = dict(lf=0, cdef=0, sr=0, wiener=0, sgr=0, lf_lines=0,
+                cdef_global=0, filter_plain=0)
     for hdr, layout_i, sr in frames:
         w, s = FK.lr_launches(hdr, layout_i)
         want["lf"] += 2
@@ -1359,8 +1385,9 @@ def sr_planes(kw):
 def filter_work(pk, kw):
     """{kernel: (bytes, operations)} of a frame's filters, each input read
     once and each output written once, at int32 pixels, from the frame's
-    maps and stripes: deblock, the selected edges' lines (the pixels each
-    filter width reads and writes) and the maps; CDEF, the luma of each
+    maps and stripes: deblock ("lf", and each direction alone, "lf_v" and
+    "lf_h"), the selected edges' lines (the pixels each filter width reads
+    and writes) and the maps; CDEF, the luma of each
     unit that needs a direction, each filtered unit's pixels read and
     written, the maps; superres, each plane's source rows read and the
     whole (2, 3, s_ah, s_aw) output written, the taps of each visible
@@ -1385,8 +1412,8 @@ def filter_work(pk, kw):
     ch4, cw4 = (bh + ss_ver) >> ss_ver, (bw + ss_hor) >> ss_hor
     planes = [(bh, bw)] + ([(ch4, cw4)] * 2 if lay else [])
     work = {}
-    nb = ops = 512
-    for hor in (0, 1):
+    for hor in (0, 1):  # lf_v, lf_h: each direction reads the luts
+        nb = ops = 512
         for p, (nh, nw) in enumerate(planes):
             b = u8(int(hdr[DB0 + 1 + 3 * hor + p]), nh * nw)
             cls, lvl = b >> 6, b & 63
@@ -1396,7 +1423,9 @@ def filter_work(pk, kw):
                 wd = (4 << (c - 1)) if p == 0 else 4 + 2 * (c - 1)
                 nb += 4 * n * 4 * (_LF_READ[wd] + _LF_WRITE[wd])
                 ops += 4 * n * _LF_OPS[wd]
-    work["lf"] = (nb, ops)
+        work["lf_h" if hor else "lf_v"] = (nb, ops)
+    work["lf"] = (work["lf_v"][0] + work["lf_h"][0] - 512,
+                  work["lf_v"][1] + work["lf_h"][1] - 512)
     nby, nbx = (bh + 1) >> 1, (bw + 1) >> 1
     yl = u8(int(hdr[CDEF0]), nby * nbx)
     ul = u8(int(hdr[CDEF0 + 1]), nby * nbx)
@@ -1436,11 +1465,14 @@ def filter_work(pk, kw):
     return work
 
 
-def profiled_names_ms(fn, reps, names):
+def profiled_names_ms(fn, reps, names, per_call=None):
     """(device time per call of every kernel fn launches, {name: device
     time per call of the kernels whose name contains it}) in a
     torch.profiler window over `reps` calls; None for a time the profiler
-    does not show in any of five windows."""
+    does not show in any of five windows. With `per_call` ({name: launches
+    per call}), a name's time is its launches' mean times that count (the
+    same where the window kept every launch; a window that drops some
+    launches' records does not shrink it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1454,6 +1486,7 @@ def profiled_names_ms(fn, reps, names):
                 fn()
             torch.cuda.synchronize()
         us, per = 0.0, dict.fromkeys(names, 0.0)
+        count = dict.fromkeys(names, 0)
         for e in prof.key_averages():
             if getattr(e, "device_type", None) == DeviceType.CUDA:
                 t = getattr(e, "device_time_total", None)
@@ -1462,23 +1495,28 @@ def profiled_names_ms(fn, reps, names):
                 for n in names:
                     if n in e.key:
                         per[n] += t
+                        count[n] += e.count
         if us and all(per.values()):
             break
     return (us / reps / 1e3 if us else None,
-            {n: (v / reps / 1e3 if v else None) for n, v in per.items()})
+            {n: (None if not v else v / reps / 1e3 if per_call is None
+                 else v / count[n] * per_call[n] / 1e3)
+             for n, v in per.items()})
 
 
 def plain_pieces_ms(fn):
     """fn (a filter_plain call) once with CUDA events around each call of
     the plain passes (programs._superres for the upscale: its six
-    resize_plane calls, pads and stacks): {kernel key: ms} (host dispatch
-    included: the plain passes are launch-bound)."""
+    resize_plane calls, pads and stacks): {kernel key: ms}, the deblock
+    passes also by direction ("lf_v", "lf_h") (host dispatch included: the
+    plain passes are launch-bound)."""
     import torch
 
     from rav1d_tpu_torch.engine import filters as FL
     from rav1d_tpu_torch.engine import programs as P
 
     marks = {k[0]: [] for k in FILTERS}
+    marks.update(lf_v=[], lf_h=[])
     names = {(FL, "lf_dir_pass"): "lf", (FL, "cdef_pass"): "cdef",
              (P, "_superres"): "sr", (FL, "lr_wiener_pass"): "wiener",
              (FL, "lr_sgr_pass"): "sgr"}
@@ -1492,6 +1530,8 @@ def plain_pieces_ms(fn):
             out = real[n](*a)
             e1.record()
             marks[names[n]].append((e0, e1))
+            if names[n] == "lf":  # lf_dir_pass(plane, ..., luma, hor, bpc)
+                marks["lf_h" if a[5] else "lf_v"].append((e0, e1))
             return out
         return call
 
@@ -1620,17 +1660,21 @@ def filter_timing(label, fin, d, pk, kw):
     ms.append(cuda_ms(kern, 10))
     sr = kw["sr_geom"] is not None
     keys = [k for k in FILTERS if sr or k[0] != "sr"]
-    dev_ms, per = profiled_names_ms(kern, 5, [k[1] for k in keys])
+    w, s = FK.lr_launches(pk.hdr, kw["layout_i"])
+    nl = dict(lf=2, cdef=1, sr=1, wiener=w, sgr=s)
+    dev_ms, per = profiled_names_ms(
+        kern, 5, [n for k in keys for n in k[1]],
+        {n: nl[k[0]] // len(k[1]) for k in keys for n in k[1]})
     ev = kernel_event_ms(fin, d, pk, kw)
     pieces = plain_pieces_ms(plain)
     work = filter_work(pk, kw)
-    w, s = FK.lr_launches(pk.hdr, kw["layout_i"])
-    nl = dict(lf=2, cdef=1, sr=1, wiener=w, sgr=s)
     row = dict(ms=min(ms), ms_all=ms, plain_ms=min(pms), plain_all=pms,
                dev_ms=dev_ms, kernels={})
-    for key, name, *_ in keys:
+    for key, names, *_ in keys:
         b_ms, b_by = bound(*work[key])
-        row["kernels"][key] = dict(dev_ms=per[name], ev_ms=ev[key],
+        ms_k = [per[n] for n in names]
+        row["kernels"][key] = dict(dev_ms=None if None in ms_k else sum(ms_k),
+                                   ev_ms=ev[key],
                                    launches=nl[key],
                                    plain_ms=pieces[key], nbytes=work[key][0],
                                    ops=work[key][1], bound=b_ms, bound_by=b_by)
@@ -1665,6 +1709,125 @@ def filter_timing(label, fin, d, pk, kw):
     return row
 
 
+def plain_stages(fin, d, pk, kw):
+    """filter_plain on a frame's filter input `fin`, its planes kept after
+    the vertical-edge deblock passes ("lf_v"), after both directions
+    ("lf_h": CDEF's input) and after CDEF ("cdef": cdef_pass writes its
+    planes in place)."""
+    from rav1d_tpu_torch.engine import filters as FL
+    from rav1d_tpu_torch.engine import programs as P
+
+    out = {"lf_v": fin.clone()}
+    real_lf, real_cdef = FL.lf_dir_pass, FL.cdef_pass
+    vert = []  # the vertical passes' planes, in filter_plain's order 0, 1, 2
+
+    def lf_dir_pass(plane, cmap, lmap, eih, luma, hor, bpc):
+        res = real_lf(plane, cmap, lmap, eih, luma, hor, bpc)
+        if not hor:
+            out["lf_v"][len(vert)] = res
+            vert.append(res)
+        return res
+
+    def cdef_pass(planes, *a):
+        out["lf_h"] = planes.clone()
+        out["cdef"] = real_cdef(planes, *a).clone()
+        return planes
+
+    FL.lf_dir_pass, FL.cdef_pass = lf_dir_pass, cdef_pass
+    try:
+        P.filter_plain(fin.clone(), d, pk.hdr, **kw)
+    finally:
+        FL.lf_dir_pass, FL.cdef_pass = real_lf, real_cdef
+    return out
+
+
+def form_ms(row, form):
+    """A stage's device time through a form (filter_forms): the smaller of
+    its profiler readings, None where the profiler showed none."""
+    got = [v for v in row["dev"][form] if v is not None]
+    return min(got) if got else None
+
+
+@_filter_seconds
+def filter_forms(label, fin, d, pk, kw):
+    """Deblock by direction and CDEF on a frame's filter input through the
+    new kernels (the decoder path's) and the earlier forms (lf_pass_lines,
+    cdef_frame_global), each stage's input taken from filter_plain
+    (plain_stages): every form's output must equal the plain stage's; then
+    each stage's device time per form (torch.profiler, each direction's
+    launches alone in their own windows) and its launches alone with
+    their host calls (CUDA events), the forms in turns (new, earlier,
+    earlier, new), every launch on a fresh copy of the stage's input,
+    beside the stage's bound (filter_work) and its plain passes' time.
+    Returns {stage: {...}}."""
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    _, _, _, _, bh, bw, _ = kw["geom"]
+    k = dict(bh=bh, bw=bw, layout_i=kw["layout_i"], bpc=kw["bpc"])
+    st = plain_stages(fin, d, pk, kw)
+    src = {"lf_v": fin, "lf_h": st["lf_v"], "cdef": st["lf_h"]}
+    kern = {"lf_v": lambda f: lambda x: f(x, d, pk.hdr, False, **k),
+            "lf_h": lambda f: lambda x: f(x, d, pk.hdr, True, **k),
+            "cdef": lambda f: lambda x: f(x, src["cdef"], d, pk.hdr, **k)}
+    forms = {"lf_v": (FK.lf_pass, FK.lf_pass_lines, "lf_rows_kernel",
+                      "lf_pass_kernel", "lf", "lf_lines"),
+             "lf_h": (FK.lf_pass, FK.lf_pass_lines, "lf_cols_kernel",
+                      "lf_pass_kernel", "lf", "lf_lines"),
+             "cdef": (FK.cdef_frame, FK.cdef_frame_global, "cdef_area_kernel",
+                      "cdef_frame_kernel", "cdef", "cdef_global")}
+    work = filter_work(pk, kw)
+    pieces = plain_pieces_ms(
+        lambda: P.filter_plain(fin.clone(), d, pk.hdr, **kw))
+    rows = {}
+    for stage, (f_new, f_old, n_new, n_old, key_new, key_old) in forms.items():
+        runs = {"new": kern[stage](f_new), "earlier": kern[stage](f_old)}
+        for form, run in runs.items():
+            x = src[stage].clone()
+            run(x)
+            err = max_err(x, st[stage])
+            key = key_new if form == "new" else key_old
+            FILT["err"][key] = max(FILT["err"][key], err)
+            if err:
+                raise AssertionError(f"{label}: {stage} through the {form} "
+                                     f"kernel != the plain stage")
+        # every timed launch on its own copy of the stage's input, made
+        # before the window (a deblock pass filters its input in place)
+        name = {"new": n_new, "earlier": n_old}
+        dev = {f: [] for f in runs}
+        ev = {f: [] for f in runs}
+
+        def fresh(form, n):
+            bufs = iter([src[stage].clone() for _ in range(n)])
+            return lambda: runs[form](next(bufs))
+
+        for form in ("new", "earlier", "earlier", "new"):
+            # profiled_names_ms: a warm-up call and up to five windows of 5
+            dev[form].append(profiled_names_ms(
+                fresh(form, 26), 5, [name[form]], {name[form]: 1})[1][
+                    name[form]])
+            ev[form].append(cuda_ms(fresh(form, 11), 10))
+        b_ms, b_by = bound(*work[stage])
+        rows[stage] = dict(dev=dev, ev=ev, bound=b_ms, bound_by=b_by,
+                           nbytes=work[stage][0], ops=work[stage][1],
+                           plain_ms=pieces[stage])
+
+    def txt(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    for stage, r in rows.items():
+        log(f"  forms {label} {stage}: new device "
+            + "/".join(txt(v) for v in r["dev"]["new"]) + " ms, earlier "
+            + "/".join(txt(v) for v in r["dev"]["earlier"]) + " ms "
+            "(torch.profiler, in turns); launches alone new "
+            + "/".join(f"{v:.4f}" for v in r["ev"]["new"]) + " ms, earlier "
+            + "/".join(f"{v:.4f}" for v in r["ev"]["earlier"]) + " ms (CUDA "
+            f"events); bound {r['bound']:.5f} ms ({r['bound_by']}: "
+            f"{r['nbytes']} bytes, {r['ops']} ops); plain "
+            f"{txt(r['plain_ms'])} ms; new == earlier == plain")
+    return rows
+
+
 def _rand_planes(rng, shape, bpc):
     """Pixels in range: a level per 16x16 region, a step of up to 4 << bd
     per 4x4 block, noise of +-1 << bd on half of the blocks, and sparse
@@ -1691,12 +1854,14 @@ def _rand_planes(rng, shape, bpc):
 @_filter_seconds
 def filter_kernel_phase(dev):
     """Each filter kernel against its plain version on the card, on random
-    inputs at 8, 10 and 12 bits (4:2:0, 4:2:2, 4:4:4), in hand-built
-    blobs: both deblock directions over all planes (every width class,
-    random levels with 0 and 63) against engine/filters.py lf_dir_pass
-    per plane; CDEF against cdef_pass (random level maps: both strengths,
-    either, neither); LR against lr_wiener_pass and lr_sgr_pass on a grid
-    of stripes with a random kind each; the superres upscale of random
+    inputs at 8, 10 and 12 bits (4:2:0, 4:2:2, 4:4:4; and 8-bit 4:0:0 for
+    deblock and CDEF), in hand-built blobs: both deblock directions over
+    all planes (every width class, random levels with 0 and 63) through
+    the new kernel and the earlier form against engine/filters.py
+    lf_dir_pass per plane; CDEF through both forms against cdef_pass
+    (random level maps: both strengths, either, neither); LR against
+    lr_wiener_pass and lr_sgr_pass on a grid of stripes with a random kind
+    each; the superres upscale of random
     planes and snapshots (runs at 0 and at the largest value among them)
     at 8, 10 and 12 bits in 4:0:0, 4:2:0, 4:2:2 and 4:4:4 at every
     denominator 9-16 (steps and starts as the decoder computes them; a
@@ -1721,8 +1886,8 @@ def filter_kernel_phase(dev):
         if err:
             raise AssertionError(f"{key} kernel != plain at {bpc} bpc")
 
-    for bpc, layout_i in ((8, 1), (10, 2), (12, 3)):
-        rng = np.random.default_rng(1000 + bpc)
+    for bpc, layout_i in ((8, 1), (10, 2), (12, 3), (8, 0)):
+        rng = np.random.default_rng((1000 if layout_i else 3000) + bpc)
         bd = bpc - 8
         ss_hor, ss_ver = FK.subsampling(layout_i)
         bh, bw = 34, 50
@@ -1806,24 +1971,31 @@ def filter_kernel_phase(dev):
         blob = t(blob)
         kw = dict(bh=bh, bw=bw, layout_i=layout_i, bpc=bpc)
 
-        got, want = t(planes), t(planes)
+        nplanes = 1 if layout_i == 0 else 3
+        got, old, want = t(planes), t(planes), t(planes)
         for hor in (0, 1):
             FK.lf_pass(got, blob, hdr, bool(hor), **kw)
-            for p in range(3):
+            FK.lf_pass_lines(old, blob, hdr, bool(hor), **kw)
+            for p in range(nplanes):
                 cls, lvl = maps[hor, p]
                 want[p] = FL.lf_dir_pass(want[p], t(cls), t(lvl), t(eih),
                                          p == 0, bool(hor), bpc)
         check("lf", got, want)
+        check("lf_lines", old, want)
 
         sec = np.where((ylvl & 3) == 3, 4, ylvl & 3) << bd
         usec = np.where((uvlvl & 3) == 3, 4, uvlvl & 3) << bd
         cmaps = t(np.stack([(ylvl >> 2) << bd, sec, uvlvl,
                             (uvlvl >> 2) << bd, usec]))
-        got, want = t(planes), t(planes)
+        got, old, want = t(planes), t(planes), t(planes)
         FK.cdef_frame(got, t(planes), blob, hdr, **kw)
+        FK.cdef_frame_global(old, t(planes), blob, hdr, **kw)
         FL.cdef_pass(want, cmaps, damping, nby, nbx, bh, bw, ss_hor, ss_ver,
-                     1 if layout_i == 2 else 0, bpc)
+                     -1 if nplanes == 1 else (1 if layout_i == 2 else 0), bpc)
         check("cdef", got, want)
+        check("cdef_global", old, want)
+        if nplanes == 1:  # 4:0:0: no loop restoration case
+            continue
 
         src, lpf = t(planes), t(_rand_planes(rng, (3, ah, aw), bpc))
         for key, kinds in (("wiener", ("w",)), ("sgr", (0, 1, 2))):
@@ -1891,9 +2063,10 @@ def filter_kernel_phase(dev):
                                          f"layout {layout_i}, denominator "
                                          f"{denom}")
                 cases += 1
-    log(f"filter kernel phase: deblock, CDEF, Wiener and self-guided "
-        f"kernels bit-identical to their plain versions at 8, 10 and 12 "
-        f"bits, the superres kernel to programs._superres in {cases} cases "
+    log(f"filter kernel phase: deblock and CDEF (both forms each), Wiener "
+        f"and self-guided kernels bit-identical to their plain versions at "
+        f"8, 10 and 12 bits (deblock and CDEF in 4:0:0 too), the superres "
+        f"kernel to programs._superres in {cases} cases "
         f"(max |err| {json.dumps(FILT['err'])})")
 
 
@@ -2628,6 +2801,15 @@ def main():
             f"{txt(r.get('stage_ms'))} (the decode), filter_ {r['ms']:.3f} ms"
             f", filter_plain {r['plain_ms']:.1f} ms (CUDA events), device "
             f"{txt(r['dev_ms'])}; {per}")
+    def txt5(v):
+        return "not measured" if v is None else f"{v:.5f} ms"
+
+    for label, rows in FILT["forms"].items():
+        log(f"filter forms per frame {label}: " + "; ".join(
+            f"{stage} new {txt5(form_ms(r, 'new'))} device, earlier "
+            f"{txt5(form_ms(r, 'earlier'))} (the smaller of two readings), "
+            f"bound {r['bound']:.5f} ms"
+            for stage, r in rows.items()))
     log(f"filter kernels: launches in the decodes {json.dumps(FILT['launches'])}"
         f", {FILT['compared']} frames' filter_ equal to filter_plain; kernel "
         f"phase max |err| {json.dumps(FILT['err'])}; the filter checks and "
@@ -2658,6 +2840,24 @@ def main():
     if level_launches != WAVE["rows"][lab]["levels"]:
         raise AssertionError("the level kernel's own run: not one launch "
                              "per level")
+    # the earlier deblock and CDEF forms' own run: their entries over still
+    # seed 1's filter input, the counts reset before and read after (they
+    # are on no decoder path), the result held to the plain stages
+    fin1, fd1, fpk1, fkw1 = FILT["still1"]
+    _, _, _, _, bh1, bw1, _ = fkw1["geom"]
+    k1 = dict(bh=bh1, bw=bw1, layout_i=fkw1["layout_i"], bpc=fkw1["bpc"])
+    FK.lf_lines_launches = FK.cdef_global_launches = 0
+    x1 = fin1.clone()
+    FK.lf_pass_lines(x1, fd1, fpk1.hdr, False, **k1)
+    FK.lf_pass_lines(x1, fd1, fpk1.hdr, True, **k1)
+    FK.cdef_frame_global(x1, x1.clone(), fd1, fpk1.hdr, **k1)
+    torch.cuda.synchronize()
+    FILT["own"] = dict(lf_lines=FK.lf_lines_launches,
+                       cdef_global=FK.cdef_global_launches)
+    if FILT["own"] != dict(lf_lines=2, cdef_global=1) or not torch.equal(
+            x1, plain_stages(fin1, fd1, fpk1, fkw1)["cdef"]):
+        raise AssertionError("the earlier deblock and CDEF forms' own run: "
+                             f"launches {FILT['own']}, or != the plain stages")
     kernels = []
     # the itx entry's times and bound: the 8-bit intra pictures' means;
     # the wave entries': still seed 1's wave program through each kernel
@@ -2704,6 +2904,23 @@ def main():
             # restoration bit-exactly; the upscale is one banded matrix
             # product a plane (superres_library)
             "library_ms": k.get("library_ms"),
+        })
+    # the earlier forms: still seed 1's frame, the stages' device times in
+    # filter_forms (their launches' CUDA-event time where the profiler
+    # shows none), their own run's launches
+    forms = FILT["forms"][lab]
+    for key, _, entry, src, replaces in EARLIER:
+        stages = ("lf_v", "lf_h") if key == "lf_lines" else ("cdef",)
+        k = FILT["rows"][lab]["kernels"]["lf" if key == "lf_lines" else "cdef"]
+        ms = [form_ms(forms[st], "earlier") for st in stages]
+        kernels.append({
+            "name": entry, "route": "cuda",
+            "source": "rav1d_tpu_torch/csrc/" + src, "replaces": replaces,
+            "launches": FILT["own"][key], "max_abs_err": FILT["err"][key],
+            "ms": sum(ms) if None not in ms else sum(
+                min(forms[st]["ev"]["earlier"]) for st in stages),
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound"],
+            "bound_by": k["bound_by"], "library_ms": None,
         })
     # the inter kernel: the 1080p 8-bit inter frame 1, its device time (its
     # launch's CUDA-event time where the profiler shows none) against

@@ -4,12 +4,13 @@ loop restoration on the card.
 Each wrapper launches one hand-written kernel (built at first use from
 csrc/, one library per source) on the current stream:
 
-- `lf_pass(planes, dev, hdr, hor, ...)`: csrc/lf.cu rav1d_lf_pass, the
+- `lf_pass(planes, dev, hdr, hor, ...)`: csrc/lf.cu rav1d_deblock, the
   deblocking filter of every plane in one direction (vertical edges, then
-  `hor` for horizontal ones), in place;
-- `cdef_frame(planes, pre, dev, hdr, ...)`: csrc/cdef.cu rav1d_cdef_frame,
-  the direction search and filter of every 8x8 unit of every plane, read
-  from the pre-CDEF snapshot `pre`, written to `planes`;
+  `hor` for horizontal ones), in place, a group of lines per block;
+- `cdef_frame(planes, pre, dev, hdr, ...)`: csrc/cdef.cu rav1d_cdef, the
+  direction search and filter of every 8x8 unit of every plane, read
+  from the pre-CDEF snapshot `pre` (staged in shared memory by area),
+  written to `planes`;
 - `superres_frame(planes, pre, hdr, ...)`: csrc/superres.cu
   rav1d_superres_frame, the upscale of every plane of the post-CDEF
   planes and of the snapshot, into a new (2, 3, s_ah, s_aw) tensor;
@@ -17,6 +18,11 @@ csrc/, one library per source) on the current stream:
   csrc/lr.cu rav1d_lr_wiener and rav1d_lr_sgr, every Wiener stripe of
   plane `pl`, or every self-guided stripe of its three kinds, read from
   the post-CDEF plane `src` and the pre-CDEF plane `lpf`, written to `out`.
+
+`lf_pass_lines` (csrc/lf.cu rav1d_lf_pass, a line per block) and
+`cdef_frame_global` (csrc/cdef.cu rav1d_cdef_frame, taps read from global
+memory) are the earlier forms of the first two, on no decoder path: they
+stay for comparison on the card.
 
 Their plain versions are engine/filters.py lf_dir_pass, cdef_pass,
 resize_plane (through engine/programs.py _superres), lr_wiener_pass and
@@ -26,7 +32,8 @@ or refused launch; they read nothing back from the card, copy nothing to
 it, and never fall back. `*_args` build a launch's arguments for any
 device (the CPU tests hand them to the sources' host builds). Counters:
 `lf_launches`, `cdef_launches`, `sr_launches`, `wiener_launches`,
-`sgr_launches`.
+`sgr_launches`; the earlier forms' `lf_lines_launches` and
+`cdef_global_launches`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from . import build
 
 lf_launches = 0
 cdef_launches = 0
+lf_lines_launches = 0
+cdef_global_launches = 0
 sr_launches = 0
 wiener_launches = 0
 sgr_launches = 0
@@ -59,6 +68,16 @@ class LfPass(ctypes.Structure):
                 ("hor", _I), ("bpc", _I), ("eih", _I), ("nplanes", _I),
                 ("map", _I * 3), ("nh4", _I * 3), ("nw4", _I * 3),
                 ("first", _I * 4), ("maxnw", _I)]
+
+
+class LfGroups(ctypes.Structure):
+    """csrc/lf.cu struct LfGroups, field for field."""
+
+    _fields_ = [("planes", _P), ("blob", _P), ("ah", _I), ("aw", _I),
+                ("hor", _I), ("bpc", _I), ("eih", _I), ("nplanes", _I),
+                ("map", _I * 3), ("nh4", _I * 3), ("nw4", _I * 3),
+                ("nlines", _I * 3), ("ext", _I * 3), ("first", _I * 4),
+                ("group", _I), ("pitch", _I), ("maxnw", _I)]
 
 
 class CdefFrame(ctypes.Structure):
@@ -87,8 +106,8 @@ class LrPass(ctypes.Structure):
                 ("nreg", _I), ("base", _I * 3), ("first", _I * 4)]
 
 
-_ENTRIES = {"lf": ("lf.cu", ("rav1d_lf_pass",)),
-            "cdef": ("cdef.cu", ("rav1d_cdef_frame",)),
+_ENTRIES = {"lf": ("lf.cu", ("rav1d_deblock", "rav1d_lf_pass")),
+            "cdef": ("cdef.cu", ("rav1d_cdef", "rav1d_cdef_frame")),
             "superres": ("superres.cu", ("rav1d_superres_frame",)),
             "lr": ("lr.cu", ("rav1d_lr_wiener", "rav1d_lr_sgr"))}
 
@@ -127,10 +146,11 @@ def _fits(dev, base, words, what):
                          f"does not fit a blob of {dev.numel()} words")
 
 
-def lf_args(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc):
-    """The LfPass of one direction's pass over the frame's planes (3, ah,
-    aw): the maps of passes 0-2 (vertical edges) or 3-5 (`hor`), stored
-    post-transpose for horizontal edges, as filter_plain reads them."""
+def _lf_maps(planes, dev, hdr, hor, bh, bw, layout_i):
+    """[(plane, nh4, nw4, map base)] of one direction's pass: the maps of
+    passes 0-2 (vertical edges) or 3-5 (`hor`), stored post-transpose for
+    horizontal edges, as filter_plain reads them; and (line length, lines
+    of a plane)."""
     _check(planes, dev)
     _, ah, aw = planes.shape
     ss_hor, ss_ver = subsampling(layout_i)
@@ -140,20 +160,66 @@ def lf_args(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc):
         shapes = [(w, h) for h, w in shapes]
     ln, lines = (ah, aw) if hor else (aw, ah)
     wp = (ln + 24) - (ln + 24) % 4
-    a = LfPass(planes.data_ptr(), dev.data_ptr(), ah, aw, int(hor), bpc,
-               int(hdr[DB0]), len(shapes))
-    _fits(dev, a.eih, 128, "the E/I luts")
-    first = 0
+    _fits(dev, int(hdr[DB0]), 128, "the E/I luts")
+    out = []
     for p, (nh4, nw4) in enumerate(shapes):
         if 4 * nw4 + 12 > wp or 4 * nh4 > lines + 8:
             raise ValueError(f"deblock kernel: a ({nh4}, {nw4}) map does not "
                              f"fit lines of {ln} pixels")
-        a.map[p] = int(hdr[DB0 + 1 + 3 * int(hor) + p])
-        _fits(dev, a.map[p], (nh4 * nw4 + 3) // 4, "a deblock map")
-        a.nh4[p], a.nw4[p], a.first[p] = nh4, nw4, first
+        base = int(hdr[DB0 + 1 + 3 * int(hor) + p])
+        _fits(dev, base, (nh4 * nw4 + 3) // 4, "a deblock map")
+        out.append((p, nh4, nw4, base))
+    return out, ln, lines
+
+
+def deblock_args(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc, group=None):
+    """The LfGroups of one direction's pass over the frame's planes (3, ah,
+    aw) for rav1d_deblock: blocks of `group` adjacent lines of a plane (by
+    default 4 rows, one map row, or for horizontal edges 8 columns, one
+    32-byte sector of a row; 2 or 1 where lines that long do not fit a
+    block's shared memory twice), only the lines with cells inside the
+    plane."""
+    maps, ln, lines = _lf_maps(planes, dev, hdr, hor, bh, bw, layout_i)
+    _, ah, aw = planes.shape
+    a = LfGroups(planes.data_ptr(), dev.data_ptr(), ah, aw, int(hor), bpc,
+                 int(hdr[DB0]), len(maps))
+    a.maxnw = max(nw4 for _, _, nw4, _ in maps)
+    a.pitch = 4 * a.maxnw + 12 + (8 - (4 * a.maxnw + 12)) % 64
+
+    def words(g):  # csrc/lf.cu lfg_smem_words
+        cells = max(g // 4, 1) * a.maxnw
+        return g * a.pitch + 12 + 128 + (cells + 3) // 4 + 3 * ((cells + 1) // 2)
+
+    g = group or next((g for g in ((8 if hor else 4), 2, 1)
+                       if words(g) * 4 <= SMEM_MAX), 0)
+    if g not in (1, 2, 4, 8) or words(g) * 4 > SMEM_MAX or bpc not in (8, 10, 12):
+        raise ValueError(f"deblock kernel: lines of {ln} pixels in groups of "
+                         f"{g}, bpc {bpc}")
+    first = 0
+    for p, nh4, nw4, base in maps:
+        a.map[p], a.nh4[p], a.nw4[p] = base, nh4, nw4
+        a.nlines[p] = min(4 * nh4, lines)
+        a.ext[p] = min(ln, 4 * nw4 + 4)
+        a.first[p] = first
+        first += -(-a.nlines[p] // g)
+    a.first[len(maps)] = first
+    a.group = g
+    return a
+
+
+def lf_args(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc):
+    """The LfPass of one direction's pass over the frame's planes (3, ah,
+    aw) for the earlier form rav1d_lf_pass: a block per line."""
+    maps, ln, _ = _lf_maps(planes, dev, hdr, hor, bh, bw, layout_i)
+    _, ah, aw = planes.shape
+    a = LfPass(planes.data_ptr(), dev.data_ptr(), ah, aw, int(hor), bpc,
+               int(hdr[DB0]), len(maps))
+    first = 0
+    for p, nh4, nw4, base in maps:
+        a.map[p], a.nh4[p], a.nw4[p], a.first[p] = base, nh4, nw4, first
         first += 4 * nh4
-    a.first[len(shapes)] = first
-    a.maxnw = max(w for _, w in shapes)
+    a.first[len(maps)] = first
+    a.maxnw = max(nw4 for _, _, nw4, _ in maps)
     if (2 * (ln + 24) + a.maxnw + 4) * 4 > SMEM_MAX:
         raise ValueError(f"deblock kernel: lines of {ln} pixels do not fit "
                          "a block's shared memory")
@@ -164,7 +230,8 @@ def lf_args(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc):
 
 def cdef_args(planes, pre, dev, hdr, *, bh, bw, layout_i, bpc):
     """The CdefFrame of the frame: `pre` the pre-CDEF snapshot of
-    `planes` (3, ah, aw), the byte maps and damping from the header."""
+    `planes` (3, ah, aw), which cover its 8x8 units (as the plain pass
+    needs them to), the byte maps and damping from the header."""
     _check(planes, pre, dev)
     if pre.shape != planes.shape:
         raise ValueError("cdef kernel: the snapshot's shape differs")
@@ -177,8 +244,9 @@ def cdef_args(planes, pre, dev, hdr, *, bh, bw, layout_i, bpc):
                   int(hdr[CDEF0 + 2]), bpc, ss_hor, ss_ver, uv422)
     for base in (a.ylvl, a.uvlvl):
         _fits(dev, base, (nby * nbx + 3) // 4, "a cdef level map")
-    if bpc not in (8, 10, 12):
-        raise ValueError(f"cdef kernel: bpc {bpc}")
+    if bpc not in (8, 10, 12) or ah < 8 * nby or aw < 8 * nbx:
+        raise ValueError(f"cdef kernel: bpc {bpc}, ({ah}, {aw}) planes for "
+                         f"({nby}, {nbx}) units")
     return a
 
 
@@ -281,22 +349,43 @@ def _launch(name, entry, a, t):
 
 def lf_pass(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc):
     """One direction's deblocking of every plane of `planes` (3, ah, aw),
-    in place: one launch."""
+    in place: one launch of rav1d_deblock (exact where the pixels fit
+    int16, as the decoder's always do: it stages the lines as int16)."""
     global lf_launches
+    a = deblock_args(planes, dev, hdr, hor, bh=bh, bw=bw, layout_i=layout_i,
+                     bpc=bpc)
+    _launch("lf", "rav1d_deblock", a, planes)
+    lf_launches += 1
+
+
+def lf_pass_lines(planes, dev, hdr, hor, *, bh, bw, layout_i, bpc):
+    """lf_pass through the earlier form, rav1d_lf_pass (a block per line):
+    one launch."""
+    global lf_lines_launches
     a = lf_args(planes, dev, hdr, hor, bh=bh, bw=bw, layout_i=layout_i,
                 bpc=bpc)
     _launch("lf", "rav1d_lf_pass", a, planes)
-    lf_launches += 1
+    lf_lines_launches += 1
 
 
 def cdef_frame(planes, pre, dev, hdr, *, bh, bw, layout_i, bpc):
     """CDEF of every plane: reads `pre`, writes the filtered units of
-    `planes`: one launch."""
+    `planes`: one launch of rav1d_cdef."""
     global cdef_launches
     a = cdef_args(planes, pre, dev, hdr, bh=bh, bw=bw, layout_i=layout_i,
                   bpc=bpc)
-    _launch("cdef", "rav1d_cdef_frame", a, planes)
+    _launch("cdef", "rav1d_cdef", a, planes)
     cdef_launches += 1
+
+
+def cdef_frame_global(planes, pre, dev, hdr, *, bh, bw, layout_i, bpc):
+    """cdef_frame through the earlier form, rav1d_cdef_frame (taps read
+    from global memory): one launch."""
+    global cdef_global_launches
+    a = cdef_args(planes, pre, dev, hdr, bh=bh, bw=bw, layout_i=layout_i,
+                  bpc=bpc)
+    _launch("cdef", "rav1d_cdef_frame", a, planes)
+    cdef_global_launches += 1
 
 
 def superres_frame(planes, pre, hdr, *, cur_h, sr_geom, layout_i, bpc):

@@ -2,33 +2,48 @@
 engine's, exactly.
 
 csrc/lf.cu, csrc/cdef.cu and csrc/lr.cu compiled for the host with g++:
-their host entries (rav1d_lf_pass_host, rav1d_cdef_frame_host,
+their host entries (rav1d_deblock_host and the earlier form's
+rav1d_lf_pass_host, rav1d_cdef_host and the earlier rav1d_cdef_frame_host,
 rav1d_lr_wiener_host, rav1d_lr_sgr_host) walk the thread blocks of a
 launch with the kernels' own step functions, thread by thread, each
-barrier a loop boundary, on the arguments ops/cuda/filters.py builds for
-the launch (`*_args`). The kernels themselves build and run only on the
-card, where chip_smoke.py holds them to their plain versions. Checked:
+barrier a loop boundary (a thread's registers kept across it), shared
+words and registers pre-filled with a pattern, on the arguments
+ops/cuda/filters.py builds for the launch (`*_args`). The kernels
+themselves build and run only on the card, where chip_smoke.py holds them
+to their plain versions. Checked, the deblock and CDEF cases for both
+forms ("new": the decoder path's entries; "earlier"):
 
-- deblock (`lf_args` over a hand-built blob): one direction's pass over
-  all three planes against engine/filters.py lf_dir_pass per plane and
-  rav1d_tpu's lf_dir_pass_raw (over ops/tpu/lf.py filter_lines_batch),
-  both directions at 8, 10 and 12 bits (4:2:0, 4:2:2, 4:4:4): every
-  width class, levels 0 and 63, cells whose windows cross the plane's
-  left and right borders, flat and rough edges;
+- deblock (`deblock_args`, `lf_args` over a hand-built blob): one
+  direction's pass over all three planes against engine/filters.py
+  lf_dir_pass per plane and rav1d_tpu's lf_dir_pass_raw (over
+  ops/tpu/lf.py filter_lines_batch), both directions at 8, 10 and 12 bits
+  (4:2:0, 4:2:2, 4:4:4): every width class, levels 0 and 63, cells whose
+  windows cross the plane's left and right borders, flat and rough edges;
+  and against lf_dir_pass alone: planes whose rows and columns are not a
+  multiple of 4 or of the band (a plane edge inside a band, lines past
+  the plane), bands of 4 and 8 columns, groups of 2 and 1 lines, 4:0:0
+  (with chroma maps in the blob to ignore), runs of adjacent selected
+  cells of one class (last-k-wins), a map with no selected cell, a
+  class-2 write past the plane that a class-3 window reads;
 - CDEF (`cdef_args`): the frame against cdef_pass and rav1d_tpu's
   cdef_pass_raw (find_dir_batch, cdef_filter_batch) in 4:2:0, 4:2:2 and
   4:4:4 at 8, 10 and 12 bits, damping 3-6 (and one below the packer's
   range, where the secondary shift is negative): all eight directions,
   units with the primary strength only, the secondary only, both and
   neither, a variance of 0, MISSING taps across each frame edge and the
-  plane's, speckles whose filtered value the taps' range clamps;
+  plane's, speckles whose filtered value the taps' range clamps; and
+  against cdef_pass alone: several areas with odd bh and bw and a plane
+  larger than the unit grid (the bottom and right frame edges inside the
+  plane), 4:0:0, strength in chroma only, no strength at all, luma far
+  past 8 bits (the direction costs wrap past 2^31);
 - loop restoration (`lr_args`): Wiener and the self-guided kinds 0, 1
   and 2 against lr_wiener_pass / lr_sgr_pass and rav1d_tpu's
   lr_wiener_pass_raw / lr_sgr_pass_raw (wiener_batch, sgr_batch) at 8,
   10 and 12 bits, on stripes at the top, bottom, left and right of the
   frame, with S_W < W, S_W = W and S_W > W and S_H < 64, lpf rows from
   the pre-CDEF plane; 66 narrow stripes in two descriptor chunks;
-- the kernels' constant tables against engine/consts.py and ops/cdef.py;
+- the kernels' constant tables and rav1d_cdef's packed direction tables
+  against engine/consts.py and ops/cdef.py;
 - engine/programs.py filter_kernels through the host entries (and
   csrc/superres.cu's, tests/test_torch_superres_kernel.py) against
   filter_plain on frames the other test files pack: the (136, 96) stills
@@ -36,7 +51,8 @@ card, where chip_smoke.py holds them to their plain versions. Checked:
   tests/test_torch_formats_programs.py, a 12-bit 4:4:4 and a 12-bit 4:0:0
   still and a superres still, with the launches the program makes;
   the 4:0:0 still against rav1d_tpu's mega.filter_prog;
-- the wrappers' rules: a CPU tensor raises and counts nothing;
+- the wrappers' rules (the earlier forms' too): a CPU tensor raises and
+  counts nothing; rav1d_deblock's block geometry;
   programs.filter_ on CPU tensors is filter_plain (engine/filters.py
   calls, no wrapper launch).
 
@@ -85,10 +101,12 @@ def host_kernels(d):
                         "-fPIC", "-o", so, os.path.join(CSRC, name + ".cu")],
                        check=True)
         libs[name] = ctypes.CDLL(so)
-    for fn in (libs["lf"].rav1d_lf_pass_host, libs["cdef"].rav1d_cdef_frame_host,
+    for fn in (libs["lf"].rav1d_deblock_host, libs["lf"].rav1d_lf_pass_host,
+               libs["cdef"].rav1d_cdef_host, libs["cdef"].rav1d_cdef_frame_host,
                libs["superres"].rav1d_superres_frame_host,
                libs["lr"].rav1d_lr_wiener_host, libs["lr"].rav1d_lr_sgr_host,
                libs["cdef"].rav1d_cdef_tables_host,
+               libs["cdef"].rav1d_cdef_area_tables_host,
                libs["superres"].rav1d_superres_table_host,
                libs["lr"].rav1d_lr_table_host):
         fn.argtypes = [_VOID]
@@ -101,25 +119,41 @@ def host(tmp_path_factory):
     return host_kernels(str(tmp_path_factory.mktemp("filters")))
 
 
+FORMS = ["new", "earlier"]
+
+
 class HostKernels:
     """ops/cuda/filters.py's launch wrappers with the host entries in place
-    of the launches; `n` counts the calls per kernel."""
+    of the launches; `n` counts the calls per kernel. `form` "earlier"
+    runs the earlier forms' entries for deblock and CDEF (lf_pass_lines,
+    cdef_frame_global); `group` sets the deblock band."""
 
-    def __init__(self, libs):
-        self.libs = libs
+    def __init__(self, libs, form="new", group=None):
+        self.libs, self.form, self.group = libs, form, group
         self.n = dict.fromkeys(("lf", "cdef", "sr", "wiener", "sgr"), 0)
+
+    def of(self, form, group=None):
+        """The same libraries through another form."""
+        return HostKernels(self.libs, form, group)
 
     def _run(self, lib, entry, a, key):
         assert getattr(self.libs[lib], entry)(ctypes.byref(a)) == 0
         self.n[key] += 1
 
     def lf_pass(self, planes, dev, hdr, hor, **kw):
-        self._run("lf", "rav1d_lf_pass_host",
-                  FK.lf_args(planes, dev, hdr, hor, **kw), "lf")
+        if self.form == "new":
+            self._run("lf", "rav1d_deblock_host",
+                      FK.deblock_args(planes, dev, hdr, hor, group=self.group,
+                                      **kw), "lf")
+        else:
+            self._run("lf", "rav1d_lf_pass_host",
+                      FK.lf_args(planes, dev, hdr, hor, **kw), "lf")
 
     def cdef_frame(self, planes, pre, dev, hdr, **kw):
-        self._run("cdef", "rav1d_cdef_frame_host",
-                  FK.cdef_args(planes, pre, dev, hdr, **kw), "cdef")
+        entry = ("rav1d_cdef_host" if self.form == "new"
+                 else "rav1d_cdef_frame_host")
+        self._run("cdef", entry, FK.cdef_args(planes, pre, dev, hdr, **kw),
+                  "cdef")
 
     def superres_frame(self, planes, pre, hdr, **kw):
         """superres_frame's output, allocated as it allocates it and filled
@@ -217,45 +251,128 @@ def _db_maps(rng, nh4, nw4):
     return cls.astype(np.int32), lvl.astype(np.int32)
 
 
-@pytest.mark.parametrize("hor", [False, True], ids=["vertical", "horizontal"])
-@pytest.mark.parametrize("bpc", [8, 10, 12])
-def test_deblock_pass(host, bpc, hor):
-    layout = BPC_LAYOUT[bpc]
-    ss_hor, ss_ver = _ss(layout)
-    rng = np.random.default_rng(100 * bpc + hor)
-    bh, bw = 10, 14
-    ah, aw = 4 * bh, 4 * bw  # the luma edges reach the plane's borders
-    planes = _smooth(rng, (3, ah, aw), bpc)
+def _deblock_blob(bpc, hor, maps):
+    """A blob with the E/I luts of a filter level and one direction's
+    `maps` [(class, level)] at their header slots."""
     e, i = calc_eih(bpc % 5)
     eih = np.array([e, i], np.int32)
     blob = Blob()
     blob.hdr[DB0] = blob.add(eih)
-    shapes = [(bh, bw)] + [((bh + ss_ver) >> ss_ver, (bw + ss_hor) >> ss_hor)] * 2
-    if hor:
-        shapes = [(w, h) for h, w in shapes]
-    maps = []
-    for p, (nh4, nw4) in enumerate(shapes):
-        cls, lvl = _db_maps(rng, nh4, nw4)
-        maps.append((cls, lvl))
+    for p, (cls, lvl) in enumerate(maps):
         blob.hdr[DB0 + 1 + 3 * hor + p] = blob.add_u8((cls << 6) | lvl)
+    return blob, eih
+
+
+def _deblock_shapes(layout, bh, bw, hor):
+    """Each plane's (nh4, nw4) of one direction, as lf_args derives them."""
+    ss_hor, ss_ver = _ss(layout)
+    shapes = [(bh, bw), ((bh + ss_ver) >> ss_ver, (bw + ss_hor) >> ss_hor)]
+    shapes = shapes[:1] if layout == PL.I400 else shapes + shapes[1:]
+    return [(w, h) for h, w in shapes] if hor else shapes
+
+
+def _deblock_plain(planes, maps, eih, hor, bpc):
+    """One direction's plain passes (engine/filters.py lf_dir_pass)."""
+    want = _t(planes)
+    for p, (cls, lvl) in enumerate(maps):
+        want[p] = FL.lf_dir_pass(want[p], _t(cls), _t(lvl), _t(eih), p == 0,
+                                 hor, bpc)
+    return want
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("hor", [False, True], ids=["vertical", "horizontal"])
+@pytest.mark.parametrize("bpc", [8, 10, 12])
+def test_deblock_pass(host, bpc, hor, form):
+    layout = BPC_LAYOUT[bpc]
+    rng = np.random.default_rng(100 * bpc + hor)
+    bh, bw = 10, 14
+    ah, aw = 4 * bh, 4 * bw  # the luma edges reach the plane's borders
+    planes = _smooth(rng, (3, ah, aw), bpc)
+    maps = [_db_maps(rng, nh4, nw4)
+            for nh4, nw4 in _deblock_shapes(layout, bh, bw, hor)]
+    blob, eih = _deblock_blob(bpc, hor, maps)
     sel = np.concatenate([(c * (lv != 0)).ravel() for c, lv in maps])
     assert set(np.unique(sel)) == {0, 1, 2, 3}
     lv_sel = np.concatenate([lv[c != 0] for c, lv in maps])
     assert 63 in lv_sel and 0 in lv_sel
 
-    want = _t(planes)
-    jax_out = []
-    for p, (cls, lvl) in enumerate(maps):
-        want[p] = FL.lf_dir_pass(want[p], _t(cls), _t(lvl), _t(eih), p == 0,
-                                 hor, bpc)
-        jax_out.append(np.asarray(_JLF(jnp.asarray(planes[p]), cls, lvl, eih,
-                                       p == 0, hor, bpc)))
+    want = _deblock_plain(planes, maps, eih, hor, bpc)
+    jax_out = [np.asarray(_JLF(jnp.asarray(planes[p]), cls, lvl, eih, p == 0,
+                               hor, bpc)) for p, (cls, lvl) in enumerate(maps)]
     np.testing.assert_array_equal(want.numpy(), np.stack(jax_out))
     got = _t(planes)
-    host.lf_pass(got, blob.dev(), blob.hdr, hor, bh=bh, bw=bw,
-                 layout_i=int(layout), bpc=bpc)
+    host.of(form).lf_pass(got, blob.dev(), blob.hdr, hor, bh=bh, bw=bw,
+                          layout_i=int(layout), bpc=bpc)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert (want.numpy() != planes).sum() > 50
+
+
+# (bpc, layout, bh, bw, (ah, aw) less (4 bh, 4 bw), lines per block of
+# rav1d_deblock (None: its default), maps): "ragged" planes whose rows and
+# columns are not a multiple of 4 or of the band (the last band crosses
+# the plane's edge, the last map row's lines run past the plane), "runs"
+# of adjacent selected cells of one class (each cell's left neighbours
+# selected: last-k-wins on every pixel), groups of 4, 2 and 1 lines (a map
+# row across blocks), 4:0:0, a map with no selected cell, and "pad": on a
+# line 2 or 3 pixels short of its cells, the last cell's class-2 filter
+# writes pixels past the plane that the class-3 cell before it reads
+DEBLOCK_CASES = {
+    "ragged": (8, PL.I420, 9, 13, (3, 2), None, "random"),
+    "ragged-band4": (10, PL.I420, 9, 13, (3, 2), 4, "random"),
+    "ragged-group2": (8, PL.I420, 9, 13, (3, 2), 2, "random"),
+    "runs": (10, PL.I422, 10, 14, (0, 0), None, "runs"),
+    "runs-group1": (12, PL.I422, 10, 14, (0, 0), 1, "runs"),
+    "400": (12, PL.I400, 10, 14, (1, 6), None, "random"),
+    "empty": (8, PL.I444, 6, 10, (0, 0), None, "empty"),
+    "pad": (12, PL.I420, 9, 13, (3, 2), None, "pad"),
+}
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("hor", [False, True], ids=["vertical", "horizontal"])
+@pytest.mark.parametrize("case", sorted(DEBLOCK_CASES))
+def test_deblock_edges(host, case, hor, form):
+    bpc, layout, bh, bw, (dh, dw), group, kind = DEBLOCK_CASES[case]
+    rng = np.random.default_rng(sorted(DEBLOCK_CASES).index(case) * 2 + hor)
+    ah, aw = 4 * bh - dh, 4 * bw - dw
+    planes = _smooth(rng, (3, ah, aw), bpc)
+    if kind == "pad":  # 12-bit luma of 0-16: every filter takes its flat
+        # path, the windows that reach into the zero padding too
+        planes[0] = rng.integers(0, 17, (ah, aw))
+    maps = []
+    for nh4, nw4 in _deblock_shapes(layout, bh, bw, hor):
+        cls, lvl = _db_maps(rng, nh4, nw4)
+        if kind == "runs":  # class 3 in runs of 3-6 cells, class 1 between
+            run = (np.arange(nw4) % 7 < 5)[None, :]
+            cls = np.where(run, 3, 1).repeat(nh4, 0).astype(np.int32)
+            lvl = rng.integers(20, 63, (nh4, nw4)).astype(np.int32)
+        elif kind == "empty":
+            lvl[:] = 0
+        elif kind == "pad":  # the last cell class 2, the one before class 3
+            cls[:, -2:] = (3, 2)
+            lvl[:, -2:] = 63
+        maps.append((cls, lvl))
+    blob, eih = _deblock_blob(bpc, hor, maps)
+    if layout == PL.I400:  # chroma maps in the blob, which 4:0:0 ignores
+        for p in (1, 2):
+            cls, lvl = _db_maps(rng, *maps[0][0].shape)
+            blob.hdr[DB0 + 1 + 3 * hor + p] = blob.add_u8((cls << 6) | lvl)
+    want = _deblock_plain(planes, maps, eih, hor, bpc)
+    got = _t(planes)
+    host.of(form, group).lf_pass(got, blob.dev(), blob.hdr, hor, bh=bh,
+                                 bw=bw, layout_i=int(layout), bpc=bpc)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    changed = (want.numpy() != planes).sum(axis=(1, 2))
+    if kind == "empty":
+        assert not changed.any()
+    else:
+        assert changed[0] > 20
+        assert (changed[1:] > 0).all() == (layout != PL.I400)
+    if case == "ragged" and hor:  # the last band is cut by the plane's edge
+        a = FK.deblock_args(got, blob.dev(), blob.hdr, hor, bh=bh, bw=bw,
+                            layout_i=int(layout), bpc=bpc)
+        assert a.group == 8 and a.nlines[0] == aw and aw % 8
 
 
 # --------------------------------- CDEF ----------------------------------
@@ -296,11 +413,39 @@ def _cdef_luma(rng, nby, nbx, ah, aw, bpc):
     return np.clip(y, 0, (1 << bpc) - 1).astype(np.int32)
 
 
+def _cdef_maps(lvl, bd):
+    """(pri, sec) of level bytes, as the plain pass takes them."""
+    s = lvl & 3
+    return (lvl >> 2) << bd, np.where(s == 3, 4, s) << bd
+
+
+def _cdef_run(host, form, planes, ylvl, uvlvl, damping, bh, bw, layout, bpc):
+    """The frame through the host entry of `form` and through cdef_pass:
+    (got, want, the plain pass's arguments and maps)."""
+    bd = bpc - 8
+    nby, nbx = ylvl.shape
+    ss_hor, ss_ver = _ss(layout)
+    blob = Blob()
+    blob.hdr[CDEF0] = blob.add_u8(ylvl)
+    blob.hdr[CDEF0 + 1] = blob.add_u8(uvlvl)
+    blob.hdr[CDEF0 + 2] = damping
+    maps = np.stack([*_cdef_maps(ylvl, bd), uvlvl,
+                     *_cdef_maps(uvlvl, bd)]).astype(np.int32)
+    uv422 = -1 if layout == PL.I400 else (1 if layout == PL.I422 else 0)
+    args = (damping, nby, nbx, bh, bw, ss_hor, ss_ver, uv422, bpc)
+    want = _t(planes)
+    FL.cdef_pass(want, _t(maps), *args)
+    got = _t(planes)
+    host.of(form).cdef_frame(got, _t(planes), blob.dev(), blob.hdr, bh=bh,
+                             bw=bw, layout_i=int(layout), bpc=bpc)
+    return got, want, args, maps
+
+
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("layout", [PL.I420, PL.I422, PL.I444],
                          ids=lambda v: v.name)
 @pytest.mark.parametrize("bpc", [8, 10, 12])
-def test_cdef_frame(host, bpc, layout):
-    ss_hor, ss_ver = _ss(layout)
+def test_cdef_frame(host, bpc, layout, form):
     rng = np.random.default_rng(7 * bpc + int(layout))
     bd = bpc - 8
     bh, bw = 11, 15  # the last unit row and column have no bottom / right
@@ -324,10 +469,6 @@ def test_cdef_frame(host, bpc, layout):
     damping = 3 + (bpc + int(layout)) % 4 + bd
     if (bpc, layout) == (12, PL.I444):
         damping = 3
-    blob = Blob()
-    blob.hdr[CDEF0] = blob.add_u8(ylvl)
-    blob.hdr[CDEF0 + 1] = blob.add_u8(uvlvl)
-    blob.hdr[CDEF0 + 2] = damping
 
     blocks = _t(planes[0].reshape(nby, 8, nbx, 8).transpose(0, 2, 1, 3)
                 .reshape(-1, 8, 8))
@@ -335,24 +476,69 @@ def test_cdef_frame(host, bpc, layout):
     assert set(dirs.tolist()) == set(range(8)) and (var == 0).any()
     assert set(kind.ravel()) == {0, 1, 2, 3} == set(ukind.ravel())
 
-    def sec_of(lvl):
-        s = lvl & 3
-        return np.where(s == 3, 4, s) << bd
-
-    maps = np.stack([(ylvl >> 2) << bd, sec_of(ylvl), uvlvl, (uvlvl >> 2) << bd,
-                     sec_of(uvlvl)]).astype(np.int32)
-    uv422 = 1 if layout == PL.I422 else 0
-    args = (damping, nby, nbx, bh, bw, ss_hor, ss_ver, uv422, bpc)
-    want = _t(planes)
-    FL.cdef_pass(want, _t(maps), *args)
+    got, want, args, maps = _cdef_run(host, form, planes, ylvl, uvlvl,
+                                      damping, bh, bw, layout, bpc)
     np.testing.assert_array_equal(
         want.numpy(), np.asarray(_JCDEF(jnp.asarray(planes), maps, *args)))
-    got = _t(planes)
-    host.cdef_frame(got, _t(planes), blob.dev(), blob.hdr, bh=bh, bw=bw,
-                    layout_i=int(layout), bpc=bpc)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     for p in range(3):
         assert (want.numpy()[p] != planes[p]).sum() > 20
+
+
+# (bpc, layout, bh, bw, plane rows and columns past the unit grid,
+# strengths): "areas", several 64x64 areas at odd bh and bw with the
+# frame's bottom and right edges inside the plane (the last unit row's and
+# column's taps past them are MISSING though the plane has pixels there);
+# 4:0:0; strength in chroma only (the direction still searched); no
+# strength anywhere; "wide" luma values far past 8 bits, where the
+# direction costs wrap in int32 and compare unsigned
+CDEF_CASES = {
+    "areas": (8, PL.I420, 35, 37, (5, 3), "both"),
+    "400": (12, PL.I400, 19, 21, (8, 0), "both"),
+    "chroma-only": (10, PL.I422, 19, 21, (0, 0), "chroma"),
+    "none": (8, PL.I444, 11, 15, (0, 0), "none"),
+    "wide": (8, PL.I420, 11, 15, (0, 0), "wide"),
+}
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("case", sorted(CDEF_CASES))
+def test_cdef_cases(host, case, form):
+    bpc, layout, bh, bw, (dh, dw), which = CDEF_CASES[case]
+    rng = np.random.default_rng(40 + sorted(CDEF_CASES).index(case))
+    bd = bpc - 8
+    nby, nbx = (bh + 1) >> 1, (bw + 1) >> 1
+    ah, aw = 8 * nby + dh, 8 * nbx + dw
+    planes = np.stack([_smooth(rng, (ah, aw), bpc) for _ in range(3)])
+    planes[0, : 8 * nby, : 8 * nbx] = _cdef_luma(rng, nby, nbx, 8 * nby,
+                                                 8 * nbx, bpc)
+    lv = rng.integers(0, 64, (2, nby, nbx)) * (rng.random((2, nby, nbx)) < .8)
+    ylvl, uvlvl = lv[0] * (which != "chroma"), lv[1]
+    if which == "none":
+        ylvl, uvlvl = ylvl * 0, uvlvl * 0
+    if which == "wide":  # luma far past 8 bits: the costs wrap past 2^31;
+        # the directions steer chroma
+        planes[0] = rng.integers(0, 1 << 22, planes[0].shape)
+    if layout == PL.I400:
+        planes[1:] = 0
+    damping = 3 + bpc % 4 + bd
+    got, want, *_ = _cdef_run(host, form, planes, ylvl, uvlvl, damping, bh,
+                              bw, layout, bpc)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    changed = (want.numpy() != planes).sum(axis=(1, 2))
+    assert (changed[0] > 0) == (which == "both")  # wide: every tap too far
+    assert (changed[1:] > 0).all() == (which != "none" and layout != PL.I400)
+    if which == "wide":  # some units' costs compare otherwise signed
+        blocks = _t(planes[0].reshape(nby, 8, nbx, 8).transpose(0, 2, 1, 3)
+                    .reshape(-1, 8, 8))
+        px = (blocks.numpy().astype(np.int64) - 128).reshape(-1, 8, 8)
+        rows = (px.sum(2) ** 2).sum(1) * 105  # cost 2 before the wrap
+        assert ((rows & 0xFFFFFFFF) >= 1 << 31).any()
+    if case == "areas":  # a unit row and column of the last areas filter
+        assert (want.numpy()[0, 8 * (nby - 1) :] != planes[0, 8 * (nby - 1) :]
+                ).any()
+        assert (want.numpy()[0, :, 8 * (nbx - 1) :]
+                != planes[0, :, 8 * (nbx - 1) :]).any()
 
 
 # ---------------------------------- LR -----------------------------------
@@ -467,6 +653,10 @@ def test_constant_tables(host):
     offs = np.array([OC._PRI_OFF, OC._SEC1_OFF, OC._SEC2_OFF]).ravel()
     np.testing.assert_array_equal(t[:96], offs)
     np.testing.assert_array_equal(t[96:], numpy_tables()["uv_dirs"].ravel())
+    # rav1d_cdef's offsets (from packed literals) and 4:2:2 chroma directions
+    a = np.zeros(112, np.int32)
+    assert host.libs["cdef"].rav1d_cdef_area_tables_host(a.ctypes.data) == 112
+    np.testing.assert_array_equal(a, t)
     x = np.zeros(256, np.int32)
     assert host.libs["lr"].rav1d_lr_table_host(x.ctypes.data) == 256
     np.testing.assert_array_equal(x, numpy_tables()["sgr_x_by_x"])
@@ -591,20 +781,28 @@ def test_cpu_filter_runs_the_plain_version():
 
 
 def test_wrappers_take_cuda_tensors_only():
-    """Each wrapper raises on CPU tensors before any launch, and counts
-    nothing; its arguments are built as for the card."""
+    """Each wrapper, the earlier forms' too, raises on CPU tensors before
+    any launch, and counts nothing; its arguments are built as for the
+    card."""
     frame = frame_of("8bit-420-s10")
     hdr, dev, kw = frame.pk.hdr, frame.dev, frame.kw
     _, _, _, _, bh, bw, vis_h = kw["geom"]
     planes = frame.planes.clone()
     k = dict(bh=bh, bw=bw, layout_i=frame.layout, bpc=8)
     lw = dict(ph=vis_h, W=kw["lr_ws"][0], bpc=8)
-    before = (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
-              FK.sgr_launches)
+
+    def counts():
+        return (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
+                FK.sgr_launches, FK.lf_lines_launches,
+                FK.cdef_global_launches)
+
+    before = counts()
     calls = [
         lambda: FK.lf_pass(planes, dev, hdr, False, **k),
         lambda: FK.lf_pass(planes, dev, hdr, True, **k),
+        lambda: FK.lf_pass_lines(planes, dev, hdr, True, **k),
         lambda: FK.cdef_frame(planes, planes.clone(), dev, hdr, **k),
+        lambda: FK.cdef_frame_global(planes, planes.clone(), dev, hdr, **k),
         lambda: FK.lr_wiener(planes[0], planes[0], planes[0], dev, hdr, 0,
                              **lw),
         lambda: FK.lr_sgr(planes[0], planes[0], planes[0], dev, hdr, 0, **lw),
@@ -612,11 +810,27 @@ def test_wrappers_take_cuda_tensors_only():
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
-            FK.sgr_launches) == before
+    assert counts() == before
     a = FK.lf_args(planes, dev, hdr, True, **k)
     # the horizontal pass's lines: the luma plane's 4 * bw columns, then
     # each 4:2:0 chroma plane's
     assert (a.nplanes, a.hor, a.first[3]) == (3, 1, 4 * bw + 8 * ((bw + 1) >> 1))
+    # rav1d_deblock: bands of 8 columns (4:2:0 chroma planes have half the
+    # lines), each block's threads covering its cells; rows: one map row a
+    # block
+    _, ah, aw = planes.shape
+    for hor, g, lines in ((True, 8, aw), (False, 4, ah)):
+        a = FK.deblock_args(planes, dev, hdr, hor, **k)
+        nl = [min(4 * bw, lines), min(4 * ((bw + 1) >> 1), lines)] if hor else [
+            min(4 * bh, lines), min(4 * ((bh + 1) >> 1), lines)]
+        assert (a.group, list(a.nlines)) == (g, nl[:1] + nl[1:] * 2)
+        assert list(a.first) == [0, -(-nl[0] // g), -(-nl[0] // g) + -(-nl[1] // g),
+                                 -(-nl[0] // g) + 2 * -(-nl[1] // g)]
+        assert a.pitch % 64 == 8 and a.pitch >= 4 * a.maxnw + 12
     with pytest.raises(ValueError, match="int32"):
         FK.cdef_args(planes.to(torch.int64), planes, dev, hdr, **k)
+    with pytest.raises(ValueError, match="units"):  # planes short of the grid
+        FK.cdef_args(planes[:, :8].contiguous(), planes[:, :8].contiguous(), dev,
+                     hdr, **k)
+    with pytest.raises(ValueError, match="groups of 6"):
+        FK.deblock_args(planes, dev, hdr, True, group=6, **k)
