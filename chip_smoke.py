@@ -7,9 +7,10 @@ Phases (any failure exits non-zero before the last line):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
    kernel and the 8x8 DCT_DCT kernel; csrc/wave.cu: the intra wavefront's
    frame kernel, its barrier-only twin and the level kernel; csrc/inter.cu:
-   the inter program's frame kernel; csrc/lf.cu, cdef.cu, superres.cu and
-   lr.cu: the post filters' deblock, CDEF, superres upscale, Wiener and
-   self-guided kernels; nvcc,
+   the inter program's batched kernel, its earlier per-tile form and both
+   traced builds; csrc/lf.cu, cdef.cu, superres.cu and lr.cu: the post
+   filters' deblock, CDEF, superres upscale, Wiener and self-guided
+   kernels (one launch a frame, and the earlier one a plane); nvcc,
    sm_90a, one process per source, all started together) and print
    ptxas's registers, stack frames and spills. The port's native syntax library
    (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
@@ -21,7 +22,8 @@ Phases (any failure exits non-zero before the last line):
    including extreme values; and each filter kernel, through its wrapper
    (ops/cuda/filters.py), against its plain pass (engine/filters.py) on
    random planes, maps and stripes in hand-built blobs at 8, 10 and 12
-   bits (deblock and CDEF through both their forms, and in 4:0:0 too),
+   bits and in 4:0:0 (deblock, CDEF and the self-guided filter through
+   both their forms),
    and the superres kernel against programs._superres (resize_plane)
    on random planes at 8, 10 and 12 bits in every layout at denominators
    9-16 (filter_kernel_phase); bit-identical required;
@@ -37,15 +39,17 @@ wave_plain on the same input (zero planes, or the inter program's on an
 inter frame; at 1080p only on still
 seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain wavefront
 takes 10-30 s each), and on every engine frame filter_ (the filter
-kernels: two deblock launches, one CDEF launch, one Wiener and one
-self-guided launch per plane with such stripes, one superres launch on a
-superres frame) must equal filter_plain on the wave program's output,
+kernels: two deblock launches, one CDEF launch, one Wiener launch per
+plane with such stripes, one self-guided launch where any plane has such
+stripes, one superres launch on a superres frame) must equal filter_plain
+on the wave program's output,
 planes and packed output; then one
 rav1d_tpu_torch.Decoder(device="cuda") at
 frame delay 1 decodes the stream frame by frame to the host path's MD5s
 with no fallback but the planner's own, no upload of a host reference
 plane (every reference is the engine's own device output), exactly one itx
-launch per engine frame, one inter launch per engine inter frame, one wave
+launch per engine frame, one inter launch per engine inter frame (and none
+of the earlier inter form), one wave
 frame launch per engine frame with wave items and no level launch, exactly
 those filter launches per engine frame, and no call of the plain
 transforms (engine/kernels.py itx_any_core, wht_core), of inter_plain
@@ -65,12 +69,20 @@ filter kernel (torch.profiler) and of its launches alone (CUDA events),
 each plain pass's time, and each kernel's bound (filter_work); on a
 superres frame also the upscale through one torch.matmul per plane by its
 banded resampling matrix (the library time); and deblock by direction and
-CDEF through the decoder path's kernels (rav1d_deblock, rav1d_cdef) and
-their earlier forms (rav1d_lf_pass, rav1d_cdef_frame), each stage's input
-from filter_plain: new == earlier == the plain stage, and each form's
-device time (torch.profiler, each direction's launches alone in their own
-windows) and its launches alone (CUDA events), in turns, beside the
-stage's bound (filter_forms).
+CDEF and the self-guided filter through the decoder path's kernels
+(rav1d_deblock, rav1d_cdef, rav1d_lr_sgr_frame) and their earlier forms
+(rav1d_lf_pass, rav1d_cdef_frame, rav1d_lr_sgr a plane), each stage's
+input from filter_plain (the self-guided launch's from filter_kernels,
+its outcome filter_plain's): new == earlier == the plain stage, and each
+form's device time (torch.profiler, each direction's launches alone in
+their own windows) and its launches alone (CUDA events), in turns, beside
+the stage's bound (filter_forms). On each 1080p inter frame the inter
+program through the new kernel (rav1d_inter_batches) and the earlier one
+(rav1d_inter_frame): new == earlier == inter_plain, each form's program
+with its host call (CUDA events) and its device time (torch.profiler,
+every timed call on fresh zero planes), in turns, the bound (inter_work),
+the host side of programs.inter part by part (inter_host_split) and both
+forms' traced phases in clock cycles (inter_trace).
 3. slice: seeded 1920x1080 synthetic AV1 still pictures
    (rav1d_tpu_torch/synth.py), after a small picture's decode, and a
    1920x1080 superres still (coded 1707 columns wide), whose filter
@@ -79,10 +91,11 @@ stage's bound (filter_forms).
    inter_sequence: a key frame and two inter frames with every inter tool
    of 4:2:0); every inter slot but segy00/segy10 (4:2:2 and 4:4:4 only)
    must carry tiles, and interintra wave items must be present; then the
-   inter program alone on each inter frame's blob through the inter kernel
-   and through inter_plain in turns (CUDA events; torch.profiler's device
-   time of the kernel and of inter_plain), beside its bound (inter_work);
-   the 10-bit inter frames of phase 5 likewise;
+   inter program alone on each inter frame's blob through both forms of
+   the inter kernel in turns and through inter_plain (CUDA events;
+   torch.profiler's device times), beside its bound (inter_work), with the
+   host side's parts and both forms' traced phases (inter_timing); the
+   10-bit inter frames of phase 5 likewise;
 5. high bit depth: the committed 1080p streams of smoke_digests.json
    "formats": a 10-bit 4:2:0 key + two inter frames and a 12-bit 4:4:4
    picture, whose blobs hold word coefficients (the itx kernel's 10/12-bit
@@ -147,10 +160,12 @@ stage's bound (filter_forms).
 Every decode must make no class_step and no inter_plain call, and each,
 but for the whole conformance streams of the vector phase, one wave frame
 launch per frame with wave items and no level launch, one inter launch
-per engine inter frame, and its frames' filter launches with no launch of
-the earlier deblock and CDEF forms and no plain filter call. The earlier
-forms then run once on their own over still seed 1's filter input, their
-launch counts reset before and read after (their JSON entries' launches).
+per engine inter frame and none of its earlier form, and its frames'
+filter launches with no launch of the earlier deblock, CDEF and
+self-guided forms and no plain filter call. The earlier filter forms then
+run once on their own over still seed 1's filter input, and the earlier
+inter form over the 1080p inter frame 1, their launch counts reset
+before and read after (their JSON entries' launches).
 Then neither JAX nor any module of rav1d_tpu may have been imported.
 
 Prints the card's name and power limit, the syntax backend, per-frame
@@ -547,58 +562,210 @@ def inter_work(pk, g):
     return nbytes, ops
 
 
+def fresh(make, n):
+    """A call that hands each of its n calls a new copy of make()'s tensor,
+    all made before the first (a timed launch then never reads what an
+    earlier one wrote)."""
+    bufs = iter([make() for _ in range(n)])
+    return lambda fn: fn(next(bufs))
+
+
 def inter_timing(label, f, plan, pk, d, ra):
-    """The inter program alone on a frame's blob through the inter kernel
-    (programs.inter, in place on one planes buffer) and through
-    inter_plain, in turns (kernel, plain, plain, kernel): CUDA events per
-    call (host calls included), the device time of all its kernels and of
-    the inter kernel (torch.profiler), inter_plain's device time, the
-    bound (inter_work), and what the kernel's zero phase stands in for: a
-    zero fill of the pools at the packer's limit (CUDA events). Returns a
-    dict of them."""
+    """The inter program alone on a frame's blob, through the new form
+    (programs.inter: ops/cuda/inter.py inter_frame), the earlier form
+    (inter_kernels over inter_frame_earlier) and inter_plain: new ==
+    earlier == plain on zero planes; then the forms in turns (new,
+    earlier, earlier, new, twice): each program with its host call (CUDA
+    events) and its kernel's device time (torch.profiler: the mean per
+    launch; the median of the four readings, as a window now and then
+    reads low), every timed call on a fresh copy of the zero planes; inter_plain's
+    time and device time; the bound (inter_work); what the zero phase
+    stands in for (a zero fill of the pools at the packer's limit); the
+    new form's host side part by part (inter_host_split); and each form's
+    traced phases (inter_trace). Returns a dict of them."""
+    import types
+
     import torch
 
     from rav1d_tpu_torch.engine import programs as P
     from rav1d_tpu_torch.ops.cuda import inter as IK
 
     (sY, sC), g = inter_inputs(f, plan, pk, d)
-    zeros = torch.zeros((3, plan.ah, plan.aw), dtype=torch.int32,
-                        device=d.device)
-    buf = zeros.clone()
+
+    def zeros():
+        return torch.zeros((3, plan.ah, plan.aw), dtype=torch.int32,
+                           device=d.device)
+
     args = (ra, d, pk.hdr, pk.inter_runs, sY, sC)
-
-    def kern():
-        P.inter(buf, *args, **g)
-
-    def plain():
-        P.inter_plain(zeros, *args, **g)
-
-    ms = [cuda_ms(kern, 20)]
-    pms = [cuda_ms(plain, 2)]
-    pms.append(cuda_ms(plain, 2))
-    ms.append(cuda_ms(kern, 20))
-    dev_ms, k_ms = profiled_device_ms(kern, 10, "inter_frame_kernel")
-    p_dev = profiled_device_ms(plain, 2)[0]
+    earlier = types.SimpleNamespace(inter_frame=IK.inter_frame_earlier)
+    forms = {"new": lambda x: P.inter(x, *args, **g),
+             "earlier": lambda x: P.inter_kernels(x, *args, k=earlier, **g)}
+    names = {"new": "inter_batch_kernel", "earlier": "inter_frame_kernel"}
+    want = P.inter_plain(zeros(), *args, **g)
+    n0 = (IK.launches, IK.earlier_launches)
+    for form, run in forms.items():
+        err = max_err(run(zeros()), want)
+        INTER["err_" + form] = max(INTER.get("err_" + form, 0), err)
+        if err:
+            raise AssertionError(f"inter {label}: the {form} form != "
+                                 f"inter_plain (max |err| {err})")
+    ms = {form: [] for form in forms}
+    dev = {form: [] for form in forms}
+    for form in ("new", "earlier", "earlier", "new") * 2:
+        call = fresh(zeros, 11)
+        ms[form].append(cuda_ms(lambda: call(forms[form]), 10))
+        call = fresh(zeros, 26)
+        dev[form].append(profiled_names_ms(
+            lambda: call(forms[form]), 5, [names[form]],
+            {names[form]: 1})[1][names[form]])
+    call = fresh(zeros, 3)
+    pms = [cuda_ms(lambda: call(lambda x: P.inter_plain(x, *args, **g)), 2)]
+    call = fresh(zeros, 3)
+    p_dev = profiled_device_ms(
+        lambda: call(lambda x: P.inter_plain(x, *args, **g)), 2)[0]
     words = 2 * IK.pool_rows(plan.ah, plan.aw) * 64 + plan.ah * plan.aw
     fill_ms = cuda_ms(lambda: torch.zeros(words, dtype=torch.int32,
                                           device=d.device), 10)
     nbytes, ops = inter_work(pk, g)
     b_ms, b_by = bound(nbytes, ops)
     tiles = {k: sum(r.n for r in v) for k, v in pk.inter_runs.items()}
+    host = inter_host_split(f, plan, pk, d, ra)
+    traces = {}
+    for form, which in (("earlier", IK.EARLIER_TRACE), ("new", IK.NEW_TRACE)):
+        rows = IK.pool_rows(plan.ah, plan.aw)
+        sc = [torch.empty(rows * 64, dtype=torch.int32, device=d.device)
+              for _ in range(2)]
+        sc.append(torch.empty(plan.ah * plan.aw, dtype=torch.int32,
+                              device=d.device))
+        clk = IK.trace_frame(zeros(), *args, *sc, form=form, **g)
+        traces[form] = inter_trace(pk, clk, 8 * IK.grid(which),
+                                   3 * plan.ah * plan.aw)
+    # the launches here are outside the decodes, whose counts are reset
+    IK.launches, IK.earlier_launches = n0
 
     def txt(v, fmt="%.4f ms"):
         return "not measured" if v is None else fmt % v
 
-    log(f"  inter {label}: {sum(tiles.values())} tiles; programs.inter "
-        f"(inter kernel) {ms[0]:.4f}/{ms[1]:.4f} ms (CUDA events), device "
-        f"{txt(dev_ms)} (all kernels) of which inter_frame_kernel "
-        f"{txt(k_ms)} (torch.profiler); inter_plain {pms[0]:.3f}/"
-        f"{pms[1]:.3f} ms, device {txt(p_dev, '%.3f ms')}; bound "
+    def pair(v):
+        return "/".join(txt(x, "%.4f") for x in v) + " ms"
+
+    log(f"  inter {label}: {sum(tiles.values())} tiles; new == earlier == "
+        f"inter_plain; programs.inter with its host call (CUDA events, in "
+        f"turns) new {pair(ms['new'])}, earlier {pair(ms['earlier'])}; "
+        f"device (torch.profiler) inter_batch_kernel {pair(dev['new'])}, "
+        f"inter_frame_kernel {pair(dev['earlier'])}; inter_plain "
+        f"{pms[0]:.3f} ms, device {txt(p_dev, '%.3f ms')}; bound "
         f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes, {ops} ops); a zero fill "
         f"of the pools ({4 * words} bytes) {fill_ms:.4f} ms")
-    return dict(ms=min(ms), dev_ms=dev_ms, k_ms=k_ms, plain_ms=min(pms),
-                plain_dev=p_dev, nbytes=nbytes, ops=ops, bound=b_ms,
-                bound_by=b_by, tiles=sum(tiles.values()), fill_ms=fill_ms)
+    log(f"  inter {label} host side of programs.inter (perf_counter, ms a "
+        f"call): {json.dumps(host)}")
+    for form, tr in traces.items():
+        log(f"  inter {label} trace, {form} form (clock64 cycles per block): "
+            + json.dumps(tr))
+
+    def median(v):
+        got = sorted(x for x in v if x is not None)
+        n = len(got)
+        return None if not n else (got[(n - 1) // 2] + got[n // 2]) / 2
+
+    return dict(ms=median(ms["new"]), ms_earlier=median(ms["earlier"]),
+                k_ms=median(dev["new"]), k_earlier=median(dev["earlier"]),
+                dev=dev, plain_ms=min(pms), plain_dev=p_dev, nbytes=nbytes,
+                ops=ops, bound=b_ms, bound_by=b_by,
+                tiles=sum(tiles.values()), fill_ms=fill_ms, host=host,
+                trace=traces)
+
+
+INTER_PHASES = ("ZERO", "PRED", "COMB", "SEGUV", "TOP", "LEFT", "RESID")
+
+
+def inter_trace(pk, clk, nw, cells):
+    """The traced inter kernel's stamps (grid, phases, 2: the phase's
+    start, the block's part done; zero where a phase does not run) summed
+    up per phase that runs: its tiles by slot (the packer's runs; RESID:
+    its `cells`), the tiles a warp takes at most (`nw` warps), the blocks'
+    work in clock64 cycles (mean and the slowest block), and the wait at
+    the barrier after it (the next phase's start less this one's done,
+    mean and longest over the blocks)."""
+    import numpy as np
+
+    from rav1d_tpu_torch.ops.cuda import inter as IK
+
+    c = clk.cpu().numpy().astype(np.int64)
+    ph = IK.phases(pk.inter_runs)
+    tiles = [{} for _ in INTER_PHASES]
+    for i, slots in enumerate(ph):
+        for name, run in slots:
+            tiles[i + 1][name] = tiles[i + 1].get(name, 0) + run.n
+    for i in (2, 3, 4, 5):  # the zero phase covers COMB..LEFT
+        for name, n in tiles[i].items():
+            tiles[0][name] = tiles[0].get(name, 0) + n
+    ran = [i for i in range(len(INTER_PHASES)) if c[:, i, 0].any()]
+    out = {}
+    for j, i in enumerate(ran):
+        work = c[:, i, 1] - c[:, i, 0]
+        n = sum(tiles[i].values())
+        row = dict(tiles=tiles[i], per_warp=-(-n // nw),
+                   work_mean=round(float(work.mean()), 1),
+                   work_max=int(work.max()))
+        if j + 1 < len(ran):
+            wait = c[:, ran[j + 1], 0] - c[:, i, 1]
+            row.update(wait_mean=round(float(wait.mean()), 1),
+                       wait_max=int(wait.max()))
+        out[INTER_PHASES[i]] = row
+    if "RESID" in out:
+        out["RESID"].update(tiles={"cells": cells}, per_warp=None)
+    return out
+
+
+def inter_host_split(f, plan, pk, d, ra, reps=50):
+    """programs.inter's host side, part by part (perf_counter, ms per call,
+    mean of `reps`): the reference-plane lists (engine/run.py dev_plane,
+    cached on the pictures), inter_args, the scratch (pools and mask), the
+    launch's own call (ops/cuda/inter.py inter_frame without its
+    arguments: the barrier word and the C entry, which zeroes it and
+    launches), and the whole call of programs.inter."""
+    import torch
+
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.run import dev_plane
+    from rav1d_tpu_torch.ops.cuda import inter as IK
+
+    (sY, sC), g = inter_inputs(f, plan, pk, d)
+    ah, aw = plan.ah, plan.aw
+    planes = torch.zeros((3, ah, aw), dtype=torch.int32, device=d.device)
+    rows = IK.pool_rows(ah, aw)
+    refs = tuple([dev_plane(pic, pl, d.device) for pic, pl in srcs]
+                 for srcs in pk.srcs)
+    scratch = (torch.empty(rows * 64, dtype=torch.int32, device=d.device),
+               torch.empty(rows * 64, dtype=torch.int32, device=d.device),
+               torch.empty(ah * aw, dtype=torch.int32, device=d.device))
+    args = (planes, ra, d, pk.hdr, pk.inter_runs) + refs + scratch
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return t
+
+    a = IK.inter_args(*args, **g)
+    out = dict(
+        refs=ms(lambda: tuple([dev_plane(pic, pl, d.device)
+                               for pic, pl in srcs] for srcs in pk.srcs)),
+        args=ms(lambda: IK.inter_args(*args, **g)),
+        scratch=ms(lambda: (
+            torch.empty(rows * 64, dtype=torch.int32, device=d.device),
+            torch.empty(rows * 64, dtype=torch.int32, device=d.device),
+            torch.empty(ah * aw, dtype=torch.int32, device=d.device))),
+        launch=ms(lambda: IK._launch("rav1d_inter_batches", IK.NEW, a,
+                                     planes)),
+        call=ms(lambda: P.inter(planes, ra, d, pk.hdr, pk.inter_runs, *refs,
+                                **g)))
+    return {k: round(v, 4) for k, v in out.items()}
 
 
 def profiled_device_ms(fn, reps, name=None):
@@ -802,6 +969,8 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
             ninter += 1
             if time_inter:
                 INTER["rows"][key] = inter_timing(key, f, plan, pk, d, ra)
+                if key == INTER.get("main"):
+                    INTER["main_inputs"] = f, plan, pk, d, ra
         nframes += bool(WK.levels(pk.waves))
         p_ms = None
         if wave_check is None or i in wave_check:
@@ -850,7 +1019,7 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     kernels.calls = 0
     WK.launches = WK.level_launches = 0
     TW.calls = 0
-    IK.launches = P.inter_plain_calls = 0
+    IK.launches = IK.earlier_launches = P.inter_plain_calls = 0
     reset_filter_counts()
     # delay 1: the frame ring off, so that stage_ms stays per frame
     dec = T.Decoder(T.Settings(apply_grain=False, max_frame_delay=1),
@@ -883,12 +1052,14 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     stats = dict(T.engine.stats)
     w_launches, w_level, w_calls = WK.launches, WK.level_launches, TW.calls
     i_launches, i_plain = IK.launches, P.inter_plain_calls
+    i_earlier = IK.earlier_launches
     f_counts = filter_counts()
     WAVE["launches"] += w_launches
     INTER["launches"] += i_launches
     log(f"  {label}: engine stats {stats}  itx launches {launches}  plain "
         f"transform calls {plain_calls}  inter launches {i_launches} for "
-        f"{ninter} inter frames  inter_plain calls {i_plain}  wave frame "
+        f"{ninter} inter frames (earlier form {i_earlier})  inter_plain "
+        f"calls {i_plain}  wave frame "
         f"launches {w_launches} for {nframes} frames with wave items  level "
         f"launches {w_level}  class_step calls {w_calls}")
     if got != host:
@@ -910,10 +1081,11 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         raise AssertionError(f"{label}: {w_launches} wave frame launches for "
                              f"{nframes} frames, {w_level} level launches, "
                              f"{w_calls} class_step calls")
-    if i_launches != ninter or i_plain:
+    if i_launches != ninter or i_plain or i_earlier:
         raise AssertionError(f"{label}: {i_launches} inter launches for "
                              f"{ninter} engine inter frames, {i_plain} "
-                             "inter_plain calls")
+                             f"inter_plain calls, {i_earlier} launches of "
+                             "the earlier inter form")
     check_filter_counts(label, f_counts, filter_want(engine_frames))
     return launches, worst, frames
 
@@ -1135,16 +1307,23 @@ FILTERS = (
      "rav1d_tpu/engine/filters.py:185"),
     ("wiener", ("lr_wiener_kernel",), "rav1d_lr_wiener", "lr.cu",
      "rav1d_tpu/engine/filters.py:246"),
-    ("sgr", ("lr_sgr_kernel",), "rav1d_lr_sgr", "lr.cu",
+    ("sgr", ("lr_sgr_frame_kernel",), "rav1d_lr_sgr_frame", "lr.cu",
      "rav1d_tpu/engine/filters.py:253"),
 )
-# the earlier forms of deblock and CDEF (on no decoder path), likewise
+# the earlier forms of deblock, CDEF and the self-guided filter (on no
+# decoder path), likewise
 EARLIER = (
     ("lf_lines", ("lf_pass_kernel",), "rav1d_lf_pass", "lf.cu",
      "rav1d_tpu/engine/filters.py:34"),
     ("cdef_global", ("cdef_frame_kernel",), "rav1d_cdef_frame", "cdef.cu",
      "rav1d_tpu/engine/filters.py:84"),
+    ("sgr_plane", ("lr_sgr_kernel",), "rav1d_lr_sgr", "lr.cu",
+     "rav1d_tpu/engine/filters.py:253"),
 )
+# each earlier form: the filter_forms stages it runs, the new kernel's key
+EARLIER_STAGES = {"lf_lines": (("lf_v", "lf_h"), "lf"),
+                  "cdef_global": (("cdef",), "cdef"),
+                  "sgr_plane": (("sgr",), "sgr")}
 # the filter kernels across the run: launches in the decodes (the earlier
 # forms' must stay 0) and in the earlier forms' own run ("own"), frames
 # whose filter_ was held to filter_plain, the largest difference per
@@ -1188,7 +1367,8 @@ def filter_counts():
     return dict(lf=FK.lf_launches, cdef=FK.cdef_launches,
                 sr=FK.sr_launches, wiener=FK.wiener_launches,
                 sgr=FK.sgr_launches, lf_lines=FK.lf_lines_launches,
-                cdef_global=FK.cdef_global_launches, filter_plain=FL.calls)
+                cdef_global=FK.cdef_global_launches,
+                sgr_plane=FK.sgr_plane_launches, filter_plain=FL.calls)
 
 
 def reset_filter_counts():
@@ -1198,19 +1378,21 @@ def reset_filter_counts():
     FK.lf_launches = FK.cdef_launches = FK.sr_launches = 0
     FK.wiener_launches = FK.sgr_launches = 0
     FK.lf_lines_launches = FK.cdef_global_launches = 0
+    FK.sgr_plane_launches = 0
     FL.calls = 0
 
 
 def filter_want(frames):
     """The filter launches of engine frames [(hdr, layout_i, superres?)]:
     two deblock and one CDEF launch each, one superres launch each with
-    superres, one Wiener and one self-guided launch per plane with such
-    stripes; no launch of the earlier deblock and CDEF forms and no plain
-    filter call (engine/filters.py calls counts the plain upscale too)."""
+    superres, one Wiener launch per plane with such stripes, one
+    self-guided launch each with such stripes in any plane; no launch of
+    the earlier deblock, CDEF and self-guided forms and no plain filter
+    call (engine/filters.py calls counts the plain upscale too)."""
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
     want = dict(lf=0, cdef=0, sr=0, wiener=0, sgr=0, lf_lines=0,
-                cdef_global=0, filter_plain=0)
+                cdef_global=0, sgr_plane=0, filter_plain=0)
     for hdr, layout_i, sr in frames:
         w, s = FK.lr_launches(hdr, layout_i)
         want["lf"] += 2
@@ -1551,7 +1733,8 @@ def kernel_event_ms(fin, d, pk, kw):
     """{kernel: ms} of each filter kernel's launches for one frame, through
     its wrapper alone on the frame's filter input (CUDA events over 10
     frames' launches, host calls included; the launches are counted but
-    happen outside the decodes, whose counts are reset before them)."""
+    happen outside the decodes, whose counts are reset before them); the
+    earlier self-guided form's per-plane launches too ("sgr_plane")."""
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
     _, _, _, _, bh, bw, vis_h = kw["geom"]
@@ -1573,11 +1756,16 @@ def kernel_event_ms(fin, d, pk, kw):
                            W=kw["lr_ws"][1 if p else 0], bpc=kw["bpc"])
         return run
 
+    phs = tuple((vis_h + sv) >> sv for sv in (0, ss_ver, ss_ver))
+    Ws = (kw["lr_ws"][0],) + (kw["lr_ws"][1],) * 2
     ms = {"lf": cuda_ms(lf, 10),
           "cdef": cuda_ms(lambda: FK.cdef_frame(out, pre, d, pk.hdr, **k),
                           10),
           "wiener": cuda_ms(lr(FK.lr_wiener, ("w",)), 10),
-          "sgr": cuda_ms(lr(FK.lr_sgr, (0, 1, 2)), 10)}
+          "sgr": cuda_ms(lambda: FK.lr_sgr_frame(
+              out, x, pre, d, pk.hdr, layout_i=kw["layout_i"], phs=phs,
+              Ws=Ws, bpc=kw["bpc"]), 10),
+          "sgr_plane": cuda_ms(lr(FK.lr_sgr_plane, (0, 1, 2)), 10)}
     if kw["sr_geom"] is not None:
         ms["sr"] = cuda_ms(lambda: FK.superres_frame(
             x, pre, pk.hdr, cur_h=vis_h, sr_geom=kw["sr_geom"],
@@ -1749,11 +1937,51 @@ def form_ms(row, form):
 
 
 @_filter_seconds
+def lr_inputs(fin, d, pk, kw):
+    """The self-guided launch's inputs in filter_kernels on a frame's
+    filter input: (a copy of its output buffer as the launch finds it, the
+    Wiener stripes written; the planes and the snapshot it reads; its
+    keywords), or None where the frame has no self-guided stripe; and
+    filter_plain's planes, the launch's plain outcome."""
+    import types
+
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    rec = []
+
+    def lr_sgr_frame(out, src, lpf, dev, hdr, **k):
+        rec.append((out.clone(), src, lpf, k))
+        FK.lr_sgr_frame(out, src, lpf, dev, hdr, **k)
+
+    k = types.SimpleNamespace(lf_pass=FK.lf_pass, cdef_frame=FK.cdef_frame,
+                              superres_frame=FK.superres_frame,
+                              lr_wiener=FK.lr_wiener,
+                              lr_sgr_frame=lr_sgr_frame)
+    P.filter_kernels(fin.clone(), d, pk.hdr, k=k, **kw)
+    return (rec[0] if rec else None,
+            P.filter_plain(fin.clone(), d, pk.hdr, **kw)[0])
+
+
+def lr_sgr_planes(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
+    """lr_sgr_frame through the earlier form: ops/cuda/filters.py
+    lr_sgr_plane on each plane with self-guided stripes."""
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    for pl, _, sgr in FK.lr_planes(hdr, layout_i):
+        if sgr:
+            FK.lr_sgr_plane(out[pl], src[pl], lpf[pl], dev, hdr, pl,
+                            ph=phs[pl], W=Ws[pl], bpc=bpc)
+
+
 def filter_forms(label, fin, d, pk, kw):
-    """Deblock by direction and CDEF on a frame's filter input through the
-    new kernels (the decoder path's) and the earlier forms (lf_pass_lines,
-    cdef_frame_global), each stage's input taken from filter_plain
-    (plain_stages): every form's output must equal the plain stage's; then
+    """Deblock by direction, CDEF and the self-guided filter on a frame's
+    filter input through the new kernels (the decoder path's) and the
+    earlier forms (lf_pass_lines, cdef_frame_global, lr_sgr_plane on each
+    plane), each stage's input taken from filter_plain (plain_stages; the
+    self-guided launch's from filter_kernels, lr_inputs, held to
+    filter_plain's planes): every form's output must equal the plain
+    stage's; then
     each stage's device time per form (torch.profiler, each direction's
     launches alone in their own windows) and its launches alone with
     their host calls (CUDA events), the forms in turns (new, earlier,
@@ -1776,6 +2004,13 @@ def filter_forms(label, fin, d, pk, kw):
                       "lf_pass_kernel", "lf", "lf_lines"),
              "cdef": (FK.cdef_frame, FK.cdef_frame_global, "cdef_area_kernel",
                       "cdef_frame_kernel", "cdef", "cdef_global")}
+    lr, st["sgr"] = lr_inputs(fin, d, pk, kw)
+    if lr is not None:
+        src["sgr"], lr_src, lr_lpf, lr_kw = lr
+        kern["sgr"] = lambda f: lambda x: f(x, lr_src, lr_lpf, d, pk.hdr,
+                                            **lr_kw)
+        forms["sgr"] = (FK.lr_sgr_frame, lr_sgr_planes, "lr_sgr_frame_kernel",
+                        "lr_sgr_kernel", "sgr", "sgr_plane")
     work = filter_work(pk, kw)
     pieces = plain_pieces_ms(
         lambda: P.filter_plain(fin.clone(), d, pk.hdr, **kw))
@@ -1801,10 +2036,13 @@ def filter_forms(label, fin, d, pk, kw):
             bufs = iter([src[stage].clone() for _ in range(n)])
             return lambda: runs[form](next(bufs))
 
+        # launches a call: the earlier self-guided form's one per plane
+        per = {"new": 1, "earlier": 1 if stage != "sgr" else sum(
+            sgr for _, _, sgr in FK.lr_planes(pk.hdr, kw["layout_i"]))}
         for form in ("new", "earlier", "earlier", "new"):
             # profiled_names_ms: a warm-up call and up to five windows of 5
             dev[form].append(profiled_names_ms(
-                fresh(form, 26), 5, [name[form]], {name[form]: 1})[1][
+                fresh(form, 26), 5, [name[form]], {name[form]: per[form]})[1][
                     name[form]])
             ev[form].append(cuda_ms(fresh(form, 11), 10))
         b_ms, b_by = bound(*work[stage])
@@ -1854,14 +2092,15 @@ def _rand_planes(rng, shape, bpc):
 @_filter_seconds
 def filter_kernel_phase(dev):
     """Each filter kernel against its plain version on the card, on random
-    inputs at 8, 10 and 12 bits (4:2:0, 4:2:2, 4:4:4; and 8-bit 4:0:0 for
-    deblock and CDEF), in hand-built blobs: both deblock directions over
-    all planes (every width class, random levels with 0 and 63) through
-    the new kernel and the earlier form against engine/filters.py
-    lf_dir_pass per plane; CDEF through both forms against cdef_pass
-    (random level maps: both strengths, either, neither); LR against
-    lr_wiener_pass and lr_sgr_pass on a grid of stripes with a random kind
-    each; the superres upscale of random
+    inputs at 8, 10 and 12 bits (4:2:0, 4:2:2, 4:4:4; and 8-bit 4:0:0),
+    in hand-built blobs: both deblock directions over all planes (every
+    width class, random levels with 0 and 63) through the new kernel and
+    the earlier form against engine/filters.py lf_dir_pass per plane;
+    CDEF through both forms against cdef_pass (random level maps: both
+    strengths, either, neither); LR against lr_wiener_pass and
+    lr_sgr_pass on a grid of stripes with a random kind each, the
+    self-guided stripes through the one-launch frame kernel and the
+    earlier per-plane form; the superres upscale of random
     planes and snapshots (runs at 0 and at the largest value among them)
     at 8, 10 and 12 bits in 4:0:0, 4:2:0, 4:2:2 and 4:4:4 at every
     denominator 9-16 (steps and starts as the decoder computes them; a
@@ -1994,22 +2233,24 @@ def filter_kernel_phase(dev):
                      -1 if nplanes == 1 else (1 if layout_i == 2 else 0), bpc)
         check("cdef", got, want)
         check("cdef_global", old, want)
-        if nplanes == 1:  # 4:0:0: no loop restoration case
-            continue
 
+        # loop restoration (4:0:0: the luma plane's stripes only)
         src, lpf = t(planes), t(_rand_planes(rng, (3, ah, aw), bpc))
+        phs = tuple(ph if p == 0 else (ph + ss_ver) >> ss_ver
+                    for p in range(3))
+        lw = dict(layout_i=layout_i, phs=phs, Ws=(W,) * 3, bpc=bpc)
         for key, kinds in (("wiener", ("w",)), ("sgr", (0, 1, 2))):
-            got = src.clone()
+            got, old = src.clone(), src.clone()
             want = torch.cat([src.reshape(3, -1), torch.zeros(
                 (3, 1), dtype=torch.int32, device=dev)], 1)
-            for p in range(3):
+            for p in range(nplanes):
                 if not any((p, k) in slots for k in kinds):
                     continue
-                vh = ph if p == 0 else (ph + ss_ver) >> ss_ver
+                vh = phs[p]
                 cat = torch.cat([src[p, :vh], lpf[p, :vh]])
-                launch = FK.lr_wiener if key == "wiener" else FK.lr_sgr
-                launch(got[p], src[p], lpf[p], blob, hdr, p, ph=vh, W=W,
-                       bpc=bpc)
+                if key == "wiener":
+                    FK.lr_wiener(got[p], src[p], lpf[p], blob, hdr, p, ph=vh,
+                                 W=W, bpc=bpc)
                 pf = want[p].clone()
                 for k in kinds:
                     if k == "w" and (p, k) in slots:
@@ -2018,6 +2259,10 @@ def filter_kernel_phase(dev):
                         FL.lr_sgr_pass(pf, cat, slots[p, k], W, k, bpc, aw)
                 want[p] = pf
             want = want[:, :-1].reshape(3, ah, aw)
+            if key == "sgr":  # every plane in one launch; and per plane
+                FK.lr_sgr_frame(got, src, lpf, blob, hdr, **lw)
+                lr_sgr_planes(old, src, lpf, blob, hdr, **lw)
+                check("sgr_plane", old, want)
             check(key, got, want)
             if torch.equal(want, src):
                 raise AssertionError(f"{key}: the stripes changed nothing")
@@ -2063,9 +2308,9 @@ def filter_kernel_phase(dev):
                                          f"layout {layout_i}, denominator "
                                          f"{denom}")
                 cases += 1
-    log(f"filter kernel phase: deblock and CDEF (both forms each), Wiener "
-        f"and self-guided kernels bit-identical to their plain versions at "
-        f"8, 10 and 12 bits (deblock and CDEF in 4:0:0 too), the superres "
+    log(f"filter kernel phase: deblock, CDEF and the self-guided filter "
+        f"(both forms each) and Wiener bit-identical to their plain versions "
+        f"at 8, 10 and 12 bits (and in 4:0:0), the superres "
         f"kernel to programs._superres in {cases} cases "
         f"(max |err| {json.dumps(FILT['err'])})")
 
@@ -2253,7 +2498,7 @@ def cli_phase(dev, tmp):
     times = os.path.join(tmp, "frametimes.txt")
     fb = T.engine.stats["fallback"]
     I.launches = WK.launches = WK.level_launches = TW.calls = 0
-    IK.launches = P.inter_plain_calls = 0
+    IK.launches = IK.earlier_launches = P.inter_plain_calls = 0
     reset_filter_counts()
     with FilterRecorder() as rec, InterRecorder() as irec:
         t0 = time.perf_counter()
@@ -2262,6 +2507,7 @@ def cli_phase(dev, tmp):
     launches = I.launches
     w_launches, w_level, w_calls = WK.launches, WK.level_launches, TW.calls
     i_launches, i_plain = IK.launches, P.inter_plain_calls
+    i_earlier = IK.earlier_launches
     check_filter_counts("cli", filter_counts(), filter_want(rec.check("cli")))
     i_checked = irec.check("cli")
     WAVE["launches"] += w_launches
@@ -2281,9 +2527,10 @@ def cli_phase(dev, tmp):
     if w_launches != nframes or w_level or w_calls:
         raise AssertionError("cli: not one wave frame launch per frame, or "
                              "a level launch or a class_step call")
-    if i_launches != ninter or i_plain or i_checked != ninter:
+    if i_launches != ninter or i_plain or i_checked != ninter or i_earlier:
         raise AssertionError("cli: not one inter launch per inter frame, or "
-                             "an inter_plain call")
+                             "an inter_plain call or a launch of the earlier "
+                             "inter form")
     return launches
 
 
@@ -2343,6 +2590,7 @@ def ring_decode(dev, packets, d, times=None):
         return dict(T.engine.stats, itx=I.launches, wave=WK.launches,
                     level=WK.level_launches, class_step=TW.calls,
                     plain=kernels.calls, inter=IK.launches,
+                    inter_earlier=IK.earlier_launches,
                     inter_plain=P.inter_plain_calls, **filter_counts())
 
     before = counts()
@@ -2481,9 +2729,10 @@ def pipeline_phase(dev):
             raise AssertionError(f"pipeline {label}: not one itx launch per "
                                  "engine frame, or a level launch or a "
                                  "plain call")
-        if c1["inter_plain"] or not c1["inter"]:
+        if c1["inter_plain"] or not c1["inter"] or c1["inter_earlier"]:
             raise AssertionError(f"pipeline {label}: no inter launch, or an "
-                                 "inter_plain call")
+                                 "inter_plain call or a launch of the "
+                                 "earlier inter form")
 
     packets = inter * 3
     want = digests["inter"]["md5"] * 3
@@ -2667,7 +2916,7 @@ def first_frames_phase(dev, d, rel, n):
     f_want = filter_want([(pk.hdr, lay, pk.need_sr) for pk, lay in pks])
     before = dict(T.engine.stats)
     TW.calls = WK.launches = WK.level_launches = 0
-    IK.launches = P.inter_plain_calls = 0
+    IK.launches = IK.earlier_launches = P.inter_plain_calls = 0
     reset_filter_counts()
     got = synth.decode_md5s(
         T.Decoder(T.Settings(apply_grain=False), device=dev), packets)
@@ -2682,7 +2931,7 @@ def first_frames_phase(dev, d, rel, n):
         f"{inter_frames(frames)} inter frames, inter_plain calls "
         f"{P.inter_plain_calls}")
     if (got != want or fb or TW.calls or WK.launches != nframes
-            or WK.level_launches or P.inter_plain_calls
+            or WK.level_launches or P.inter_plain_calls or IK.earlier_launches
             or IK.launches != inter_frames(frames)):
         raise AssertionError(f"{rel}: differs from the host path or fell "
                              f"back ({fb})")
@@ -2732,7 +2981,7 @@ def main():
     log(f"set-up: itx, idct8x8, wave, inter, deblock, CDEF, superres and "
         f"loop restoration kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s; the inter kernel's grid "
-        f"{IK.grid()} blocks")
+        f"{IK.grid()} blocks (the earlier form's {IK.grid(IK.EARLIER)})")
     for name in ("itx", "wave", "inter", "lf", "cdef", "superres", "lr"):
         for ln in build.LOGS.get(name, "").splitlines():  # ptxas -v
             if any(k in ln for k in ("entry function", "Function properties",
@@ -2820,13 +3069,17 @@ def main():
     for label, r in INTER["rows"].items():
         log(f"inter per frame {label} ({r['tiles']} tiles): stage_ms.inter "
             f"{txt(r.get('stage_ms'))} (the decode), programs.inter "
-            f"{r['ms']:.4f} ms (CUDA events), device {txt(r['dev_ms'])} (all "
-            f"kernels), inter_frame_kernel {txt(r['k_ms'])}; inter_plain "
-            f"{r['plain_ms']:.3f} ms, device {txt(r['plain_dev'])}; bound "
-            f"{r['bound']:.5f} ms ({r['bound_by']})")
+            f"{r['ms']:.4f} ms (CUDA events; the earlier form "
+            f"{r['ms_earlier']:.4f} ms), device inter_batch_kernel "
+            f"{txt5(r['k_ms'])}, the earlier inter_frame_kernel "
+            f"{txt5(r['k_earlier'])} (the median of four readings); "
+            f"inter_plain {r['plain_ms']:.3f} ms, device "
+            f"{txt(r['plain_dev'])}; bound {r['bound']:.5f} ms "
+            f"({r['bound_by']}); host side {json.dumps(r['host'])}")
     log(f"inter kernel: {INTER['launches']} launches in the decodes, "
         f"{INTER['compared']} engine inter frames equal to inter_plain, max "
-        f"|err| {INTER['err']}")
+        f"|err| {INTER['err']}; on the timed frames new max |err| "
+        f"{INTER.get('err_new')}, earlier {INTER.get('err_earlier')}")
     if not INTER["launches"] or not INTER["compared"]:
         raise AssertionError("the inter kernel was not launched in the "
                              "decodes or not compared")
@@ -2846,18 +3099,46 @@ def main():
     fin1, fd1, fpk1, fkw1 = FILT["still1"]
     _, _, _, _, bh1, bw1, _ = fkw1["geom"]
     k1 = dict(bh=bh1, bw=bw1, layout_i=fkw1["layout_i"], bpc=fkw1["bpc"])
+    (lr_out, lr_src, lr_lpf, lr_kw), lr_want = lr_inputs(fin1, fd1, fpk1,
+                                                          fkw1)
+    n_sgr = sum(s for _, _, s in FK.lr_planes(fpk1.hdr, fkw1["layout_i"]))
     FK.lf_lines_launches = FK.cdef_global_launches = 0
+    FK.sgr_plane_launches = 0
     x1 = fin1.clone()
     FK.lf_pass_lines(x1, fd1, fpk1.hdr, False, **k1)
     FK.lf_pass_lines(x1, fd1, fpk1.hdr, True, **k1)
     FK.cdef_frame_global(x1, x1.clone(), fd1, fpk1.hdr, **k1)
+    lr_sgr_planes(lr_out, lr_src, lr_lpf, fd1, fpk1.hdr, **lr_kw)
     torch.cuda.synchronize()
     FILT["own"] = dict(lf_lines=FK.lf_lines_launches,
-                       cdef_global=FK.cdef_global_launches)
-    if FILT["own"] != dict(lf_lines=2, cdef_global=1) or not torch.equal(
-            x1, plain_stages(fin1, fd1, fpk1, fkw1)["cdef"]):
-        raise AssertionError("the earlier deblock and CDEF forms' own run: "
-                             f"launches {FILT['own']}, or != the plain stages")
+                       cdef_global=FK.cdef_global_launches,
+                       sgr_plane=FK.sgr_plane_launches)
+    if FILT["own"] != dict(lf_lines=2, cdef_global=1, sgr_plane=n_sgr) or not (
+            torch.equal(x1, plain_stages(fin1, fd1, fpk1, fkw1)["cdef"])
+            and torch.equal(lr_out, lr_want)):
+        raise AssertionError("the earlier deblock, CDEF and self-guided "
+                             f"forms' own run: launches {FILT['own']}, or != "
+                             "the plain stages")
+    # the earlier inter form's own run: its entry over the 1080p 8-bit
+    # inter frame 1, the count reset before and read after, held to
+    # inter_plain
+    import types
+
+    from rav1d_tpu_torch.engine import programs as P
+
+    f_, plan_, pk_, d_, ra_ = INTER["main_inputs"]
+    stacks_, g_ = inter_inputs(f_, plan_, pk_, d_)
+    args_ = (ra_, d_, pk_.hdr, pk_.inter_runs) + stacks_
+    z_ = torch.zeros((3, plan_.ah, plan_.aw), dtype=torch.int32, device=dev)
+    IK.earlier_launches = 0
+    got_ = P.inter_kernels(z_.clone(), *args_, **g_, k=types.SimpleNamespace(
+        inter_frame=IK.inter_frame_earlier))
+    torch.cuda.synchronize()
+    INTER["own"] = IK.earlier_launches
+    if INTER["own"] != 1 or not torch.equal(got_,
+                                            P.inter_plain(z_, *args_, **g_)):
+        raise AssertionError("the earlier inter form's own run: "
+                             f"{INTER['own']} launches, or != inter_plain")
     kernels = []
     # the itx entry's times and bound: the 8-bit intra pictures' means;
     # the wave entries': still seed 1's wave program through each kernel
@@ -2910,8 +3191,8 @@ def main():
     # shows none), their own run's launches
     forms = FILT["forms"][lab]
     for key, _, entry, src, replaces in EARLIER:
-        stages = ("lf_v", "lf_h") if key == "lf_lines" else ("cdef",)
-        k = FILT["rows"][lab]["kernels"]["lf" if key == "lf_lines" else "cdef"]
+        stages, new_key = EARLIER_STAGES[key]
+        k = FILT["rows"][lab]["kernels"][new_key]
         ms = [form_ms(forms[st], "earlier") for st in stages]
         kernels.append({
             "name": entry, "route": "cuda",
@@ -2922,22 +3203,27 @@ def main():
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"],
             "bound_by": k["bound_by"], "library_ms": None,
         })
-    # the inter kernel: the 1080p 8-bit inter frame 1, its device time (its
-    # launch's CUDA-event time where the profiler shows none) against
-    # inter_plain
+    # the inter kernel and its earlier form: the 1080p 8-bit inter frame
+    # 1, each form's device time there (its program's CUDA-event time where
+    # the profiler shows none) against inter_plain; the new form's launches
+    # in the decodes, the earlier form's in its own run
     r = INTER["rows"][INTER["main"]]
-    kernels.append({
-        "name": "rav1d_inter_frame", "route": "cuda",
-        "source": "rav1d_tpu_torch/csrc/inter.cu",
-        "replaces": "rav1d_tpu/engine/mega.py:466",
-        "launches": INTER["launches"], "max_abs_err": INTER["err"],
-        "ms": r["ms"] if r["k_ms"] is None else r["k_ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
-        "bound_by": r["bound_by"],
-        # no single PyTorch call computes AV1's motion-compensated
-        # prediction bit-exactly
-        "library_ms": None,
-    })
+    for name, n_launch, err, ms in (
+            ("rav1d_inter_batches", INTER["launches"], INTER["err"],
+             r["ms"] if r["k_ms"] is None else r["k_ms"]),
+            ("rav1d_inter_frame", INTER["own"], INTER["err_earlier"],
+             r["ms_earlier"] if r["k_earlier"] is None else r["k_earlier"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "rav1d_tpu_torch/csrc/inter.cu",
+            "replaces": "rav1d_tpu/engine/mega.py:466",
+            "launches": n_launch, "max_abs_err": err, "ms": ms,
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+            "bound_by": r["bound_by"],
+            # no single PyTorch call computes AV1's motion-compensated
+            # prediction bit-exactly
+            "library_ms": None,
+        })
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())  # again here, where the end of a long log keeps it
     log(json.dumps({"kernels": kernels}))

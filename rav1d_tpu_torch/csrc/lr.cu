@@ -1,6 +1,7 @@
-// Loop restoration of a plane, CUDA C++ for sm_90a: every Wiener stripe in
-// one launch (rav1d_lr_wiener), every self-guided stripe of all three
-// kinds in another (rav1d_lr_sgr).
+// Loop restoration, CUDA C++ for sm_90a: every Wiener stripe of a plane in
+// one launch (rav1d_lr_wiener), every self-guided stripe of all three kinds
+// of every plane in one launch a frame (rav1d_lr_sgr_frame; the earlier
+// form, rav1d_lr_sgr, takes a plane a launch and stays for comparison).
 //
 // Replaces the XLA device kernels the JAX engine runs per (kind, plane)
 // slot: rav1d_tpu/engine/filters.py _gather_stripes (:212), _lr_scatter
@@ -45,23 +46,30 @@
 // self-guided: the A and B tables of its filters (5x5: 33 rows, 3x3: 66
 // rows, 34 columns) into shared memory, then each pixel and the store. A
 // self-guided launch takes the three kinds' regions of the plane, the
-// kind of a stripe given by its region. The output is a separate plane
+// kind of a stripe given by its region; the frame entry takes every
+// plane's, 384 threads a block, with separable box sums (below, at
+// LrFrame). The output is a separate plane
 // (the program's copy of the planes), so no stripe reads a pixel another
 // wrote. The kernel covers the stripe's own width, not the padded bucket
 // W (a TPU compile-key artifact): the columns it leaves are ones the
 // plain version drops.
 //
-// Bound on this card: bytes. A plane's stripes read their rows once plus
-// 6 rows of context and write them once: about 2.1 planes' words moved,
-// 17.5 MB for 1080p luma if every unit restores, 5 us at 3.35 TB/s; the
-// 5x5 and 3x3 box sums over the tile and the table steps (about 150
-// int32 operations per pixel for the mixed kind, 60 for Wiener) stay
-// below it at 16.7 T/s for Wiener and come close for the mixed kind.
+// Bound on this card: bytes for Wiener, operations for the self-guided
+// filter. A plane's stripes read their rows once plus 6 rows of context
+// and write them once: about 2.1 planes' words moved, 17.5 MB for 1080p
+// luma if every unit restores, 5 us at 3.35 TB/s; the self-guided box sums
+// and table steps (about 60 int32 operations per pixel for one filter,
+// 120 for the mixed kind) take 0.0005-0.018 ms of the card's 16.7 T/s on
+// the 1080p test frames (chip_smoke.py filter_work). On an H100 80GB
+// HBM3 the frame entry took 0.013-0.060 ms of device time there, the
+// earlier form's three launches 0.025-0.065 ms (PERF.md): the gather and
+// the A/B step's arithmetic and weighted sums hold it, not the box sums.
 //
 // The same source compiles for the host with g++ (the #else branch at the
-// end): rav1d_lr_wiener_host and rav1d_lr_sgr_host walk the same blocks
-// with the same step functions, thread by thread, each barrier a loop
-// boundary, for the CPU tests.
+// end): rav1d_lr_wiener_host, rav1d_lr_sgr_host and
+// rav1d_lr_sgr_frame_host walk the same blocks with the same step
+// functions, thread by thread, each barrier a loop boundary, for the CPU
+// tests.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -77,6 +85,7 @@
 
 enum {
     LR_THREADS = 256,
+    LR_FRAME_THREADS = 384,  // the one-launch self-guided kernel's: 12 warps a block
     LR_LRB = 64,      // stripes per descriptor chunk (engine/layout.py LRB)
     LR_ROWS = 70,     // tile rows: 64 + 6
     LR_CW = 32,       // output columns per block
@@ -187,20 +196,29 @@ LR_HD int lr_row(const LrStripe& b, int i) {
     return i == 3 + h ? b.d[S_BOT0] : b.d[S_BOT1];
 }
 
-// step 1: the tile (and the table)
-LR_HD void lr_load(const LrPass& p, const LrStripe& b, int t) {
-    for (int i = t; i < LR_ROWS * LR_TC; i += LR_THREADS) {
+// step 1: the tile (and the table); nt: the block's threads
+// the source row of tile row r: cat row lr_row, clamped to cat; a row >= ph
+// is the pre-CDEF plane's
+LR_HD const int* lr_src_row(const LrPass& p, const LrStripe& b, int r) {
+    const int rr = lr_clamp(lr_row(b, r), 0, 2 * p.ph - 1);
+    return rr < p.ph ? p.src + (size_t)rr * p.aw : p.lpf + (size_t)(rr - p.ph) * p.aw;
+}
+
+// the source column of tile column c: clamped to [XLO, XHI], then to the plane
+LR_HD int lr_src_col(const LrPass& p, const LrStripe& b, int c) {
+    int cc = b.d[S_X0] - 3 + b.c0 + c;
+    cc = cc > b.d[S_XLO] ? cc : b.d[S_XLO];
+    cc = cc < b.d[S_XHI] ? cc : b.d[S_XHI];
+    return lr_clamp(cc, 0, p.aw - 1);
+}
+
+LR_HD void lr_load(const LrPass& p, const LrStripe& b, int t, int nt = LR_THREADS) {
+    for (int i = t; i < LR_ROWS * LR_TC; i += nt) {
         const int r = i / LR_TC, c = i % LR_TC;
-        const int rr = lr_clamp(lr_row(b, r), 0, 2 * p.ph - 1);
-        int cc = b.d[S_X0] - 3 + b.c0 + c;
-        cc = cc > b.d[S_XLO] ? cc : b.d[S_XLO];
-        cc = cc < b.d[S_XHI] ? cc : b.d[S_XHI];
-        cc = lr_clamp(cc, 0, p.aw - 1);
-        const int* pl = rr < p.ph ? p.src + (size_t)rr * p.aw : p.lpf + (size_t)(rr - p.ph) * p.aw;
-        b.tile[i] = lr_ld(pl + cc);
+        b.tile[i] = lr_ld(lr_src_row(p, b, r) + lr_src_col(p, b, c));
     }
     if (b.kind >= 0)
-        for (int i = t; i < 256; i += LR_THREADS) b.xbx[i] = LR_X_BY_X[i];
+        for (int i = t; i < 256; i += nt) b.xbx[i] = LR_X_BY_X[i];
 }
 
 LR_HD void lr_store(const LrPass& p, const LrStripe& b, int r, int c, int v) {
@@ -265,20 +283,10 @@ LR_HD int lr_mul_shift(int p, int s, int sh) {
     return wadd(wmul(hi, s), t1) >> (sh - 13);
 }
 
-// A and B of the box at cat row R, tile column C (global to the stripe):
-// 5x5 sums rows R-1..R+3, columns C-2..C+2; 3x3 rows R..R+2, C-1..C+1
-// (ops/lr.py _boxsum's anchoring)
-LR_HD void lr_ab(const LrPass& p, const LrStripe& b, int five, int R, int Cl, int* A, int* B) {
+// A and B of a box from its sum and sum of squares (ops/lr.py _selfguided)
+LR_HD void lr_ab_of(const LrPass& p, const LrStripe& b, int five, int sum, int sq, int* A,
+                    int* B) {
     const int n = five ? 25 : 9, obx = five ? 164 : 455;
-    const int r0 = five ? R - 1 : R, nr = five ? 5 : 3;
-    const int cl0 = five ? Cl - 2 : Cl - 1;  // local tile columns
-    int sum = 0, sq = 0;
-    for (int y = 0; y < nr; y++)
-        for (int x = 0; x < nr; x++) {
-            const int v = b.tile[(r0 + y) * LR_TC + cl0 + x];
-            sum = wadd(sum, v);
-            sq = wadd(sq, wmul(v, v));
-        }
     const int bd = p.bpc - 8;
     const int a = wadd(sq, (1 << (2 * bd)) >> 1) >> (2 * bd);
     const int bb = wadd(sum, (1 << bd) >> 1) >> bd;
@@ -291,6 +299,23 @@ LR_HD void lr_ab(const LrPass& p, const LrStripe& b, int five, int R, int Cl, in
     const int m = wmul(x, sum);
     *A = wadd(wmul(m >> 12, obx), wadd(wmul(m & 4095, obx), 1 << 11) >> 12);
     *B = x;
+}
+
+// A and B of the box at cat row R, tile column C (global to the stripe):
+// 5x5 sums rows R-1..R+3, columns C-2..C+2; 3x3 rows R..R+2, C-1..C+1
+// (ops/lr.py _boxsum's anchoring), each sum straight from the tile (the
+// earlier form)
+LR_HD void lr_ab(const LrPass& p, const LrStripe& b, int five, int R, int Cl, int* A, int* B) {
+    const int r0 = five ? R - 1 : R, nr = five ? 5 : 3;
+    const int cl0 = five ? Cl - 2 : Cl - 1;  // local tile columns
+    int sum = 0, sq = 0;
+    for (int y = 0; y < nr; y++)
+        for (int x = 0; x < nr; x++) {
+            const int v = b.tile[(r0 + y) * LR_TC + cl0 + x];
+            sum = wadd(sum, v);
+            sq = wadd(sq, wmul(v, v));
+        }
+    lr_ab_of(p, b, five, sum, sq, A, B);
 }
 
 // step 2: the tables. 5x5 at rows R = 1, 3, .., 65 (index (R - 1) / 2),
@@ -348,9 +373,9 @@ LR_HD int lr_out3(const LrStripe& b, int j, int a, int src) {
 }
 
 // step 3: each pixel and the store (ops/lr.py sgr_batch)
-LR_HD void lr_sgr_out(const LrPass& p, const LrStripe& b, int t) {
+LR_HD void lr_sgr_out(const LrPass& p, const LrStripe& b, int t, int nt = LR_THREADS) {
     const int w0 = b.d[S_P0 + 2], w1 = b.d[S_P0 + 3];
-    for (int i = t; i < b.hh * LR_CW; i += LR_THREADS) {
+    for (int i = t; i < b.hh * LR_CW; i += nt) {
         const int j = i / LR_CW, c = i % LR_CW;
         if (b.c0 + c >= b.ww) continue;
         const int src = b.tile[(j + 3) * LR_TC + c + 3];
@@ -361,6 +386,153 @@ LR_HD void lr_sgr_out(const LrPass& p, const LrStripe& b, int t) {
         lr_store(p, b, j, b.c0 + c,
                  lr_clamp(wadd(src, wadd(v, 1 << 10) >> 11), 0, (1 << p.bpc) - 1));
     }
+}
+
+// ------------------- self-guided, every plane in one launch -------------------
+//
+// The frame entry (rav1d_lr_sgr_frame): each plane's pass, and the launch's
+// work items, a (stripe, column block) each, plane by plane, a block of 384
+// threads each; an item with no output (a padding stripe slot, a column
+// block past the stripe's width) exits after its descriptor, before any
+// load. (A persistent grid walking the items measured slower on the card:
+// its blocks ran their items one after another, where the hardware
+// overlaps one item's blocks with another's.) The tile is gathered through
+// a row map and a column map made first (each source row and column
+// computed once, not once a pixel: the per-pixel gather was half of the
+// launch), a thread a column with its rows' loads in flight together. The
+// box sums are separable: each tile pixel squared once (into the table
+// area, free until the tables), the 3-row sums of values and squares per
+// column (rows R..R+2, R = 1..66), the 5-row sums of the 5x5's rows (R
+// odd) from them and the rows R-1 and R+3, then each table entry from 5 or
+// 3 of those along its row. int32 addition wraps mod 2^32 and is
+// associative, so the sums are the same words as the plain version's in
+// any order.
+
+struct LrFrame {
+    LrPass pl[3];   // each plane's pass (nreg 3: the self-guided kinds)
+    int nplanes;
+    int ncb[3];     // column blocks of a stripe of the plane: ceil(W / LR_CW)
+    int item0[4];   // the first item of each plane: item0[p] + stripe * ncb + block
+};
+
+enum { LR_V3 = 66, LR_V5 = 33 };  // rows of the 3-row and the 5-row sums
+
+// shared words of the frame kernel: lr_smem_words(), then the 3-row sums of
+// values and of squares and the 5-row sums of each (LR_TC columns a row)
+LR_HD int lr_frame_smem_words() { return lr_smem_words() + 2 * (LR_V3 + LR_V5) * LR_TC; }
+
+LR_HD int* lr_v3s(const LrStripe& b) { return b.xbx + 256; }
+LR_HD int* lr_v3q(const LrStripe& b) { return lr_v3s(b) + LR_V3 * LR_TC; }
+LR_HD int* lr_v5s(const LrStripe& b) { return lr_v3q(b) + LR_V3 * LR_TC; }
+LR_HD int* lr_v5q(const LrStripe& b) { return lr_v5s(b) + LR_V5 * LR_TC; }
+
+// arguments the frame kernel takes: 0, or -1
+LR_HD int lr_frame_check(const LrFrame& f) {
+    if (f.nplanes < 1 || f.nplanes > 3 || f.item0[0] != 0) return -1;
+    for (int i = 0; i < f.nplanes; i++) {
+        const LrPass& p = f.pl[i];
+        if (p.nreg != 3 || p.W < 1 || p.bpc < 8 || p.bpc > 12 || lr_blocks(p) < 0) return -1;
+        if (f.ncb[i] != (p.W + LR_CW - 1) / LR_CW) return -1;
+        if (f.item0[i + 1] - f.item0[i] != (p.ph > 0 ? lr_blocks(p) * f.ncb[i] : 0)) return -1;
+    }
+    return 0;
+}
+
+// the plane, stripe and column block of an item
+LR_HD int lr_item(const LrFrame& f, int item, int* s, int* cb) {
+    int pl = 0;
+    while (item >= f.item0[pl + 1]) pl++;
+    const int j = item - f.item0[pl];
+    *s = j / f.ncb[pl];
+    *cb = j % f.ncb[pl];
+    return pl;
+}
+
+// The gather's maps, in the 3-row sums' area (free until step 2): each tile
+// row's source row, then each tile column's source column.
+LR_HD const int** lr_rowmap(const LrStripe& b) { return (const int**)lr_v3s(b); }
+LR_HD int* lr_colmap(const LrStripe& b) { return lr_v3s(b) + 2 * LR_ROWS; }
+
+// step 1a: the maps (a thread a row, then a thread a column), and the table
+LR_HD void lr_maps(const LrPass& p, const LrStripe& b, int t) {
+    if (t < LR_ROWS) lr_rowmap(b)[t] = lr_src_row(p, b, t);
+    else if (t < LR_ROWS + LR_TC) lr_colmap(b)[t - LR_ROWS] = lr_src_col(p, b, t - LR_ROWS);
+    for (int i = t; i < 256; i += LR_FRAME_THREADS) b.xbx[i] = LR_X_BY_X[i];
+}
+
+// step 1b: the tile through the maps, a thread a column and every
+// LR_GROUPS-th row, its loads issued together; each pixel squared once,
+// into the table area (free until step 3)
+enum { LR_GROUPS = LR_FRAME_THREADS / LR_TC, LR_RPT = (LR_ROWS + LR_GROUPS - 1) / LR_GROUPS };
+
+LR_HD void lr_gather_sq(const LrStripe& b, int t) {
+    if (t >= LR_GROUPS * LR_TC) return;
+    const int c = t % LR_TC, r0 = t / LR_TC, x = lr_colmap(b)[c];
+    const int* const* rows = lr_rowmap(b);
+    int v[LR_RPT];
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int k = 0; k < LR_RPT; k++) {
+        const int r = r0 + k * LR_GROUPS;
+        v[k] = r < LR_ROWS ? lr_ld(rows[r] + x) : 0;
+    }
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int k = 0; k < LR_RPT; k++) {
+        const int i = (r0 + k * LR_GROUPS) * LR_TC + c;
+        if (i < LR_ROWS * LR_TC) {
+            b.tile[i] = v[k];
+            b.tmp[i] = wmul(v[k], v[k]);
+        }
+    }
+}
+
+// step 2: the 3-row sums at R = 1..66 (the 5x5 alone needs the odd R) and
+// from them the 5-row sums at R odd (kinds 0 and 2)
+LR_HD void lr_vsums(const LrStripe& b, int t) {
+    const int* v = b.tile;
+    const int* q = b.tmp;
+    for (int i = t; i < LR_V3 * LR_TC; i += LR_FRAME_THREADS) {
+        const int R = i / LR_TC + 1, c = i % LR_TC;
+        if (b.kind == 0 && !(R & 1)) continue;
+        const int o = R * LR_TC + c;
+        const int vs = wadd(wadd(v[o], v[o + LR_TC]), v[o + 2 * LR_TC]);
+        const int vq = wadd(wadd(q[o], q[o + LR_TC]), q[o + 2 * LR_TC]);
+        lr_v3s(b)[i] = vs;
+        lr_v3q(b)[i] = vq;
+        if ((R & 1) && b.kind != 1) {
+            const int k = (R >> 1) * LR_TC + c;
+            lr_v5s(b)[k] = wadd(wadd(vs, v[o - LR_TC]), v[o + 3 * LR_TC]);
+            lr_v5q(b)[k] = wadd(wadd(vq, q[o - LR_TC]), q[o + 3 * LR_TC]);
+        }
+    }
+}
+
+// step 3: the tables (lr_sgr_tables' entries), each sum along its row
+LR_HD void lr_sgr_tables_sep(const LrPass& p, const LrStripe& b, int t) {
+    int* A5 = b.tmp;
+    int* B5 = A5 + LR_R5 * LR_AC;
+    int* A3 = B5 + LR_R5 * LR_AC;
+    int* B3 = A3 + LR_R3 * LR_AC;
+    if (b.kind != 1)
+        for (int i = t; i < LR_R5 * LR_AC; i += LR_FRAME_THREADS) {
+            const int ri = i / LR_AC, a = i % LR_AC;
+            const int* s5 = lr_v5s(b) + ri * LR_TC + a;  // rows 2 ri .. 2 ri + 4
+            const int* q5 = lr_v5q(b) + ri * LR_TC + a;  // columns a .. a + 4
+            const int sum = wadd(wadd(wadd(s5[0], s5[1]), wadd(s5[2], s5[3])), s5[4]);
+            const int sq = wadd(wadd(wadd(q5[0], q5[1]), wadd(q5[2], q5[3])), q5[4]);
+            lr_ab_of(p, b, 1, sum, sq, A5 + i, B5 + i);
+        }
+    if (b.kind != 0)
+        for (int i = t; i < LR_R3 * LR_AC; i += LR_FRAME_THREADS) {
+            const int ri = i / LR_AC, a = i % LR_AC;
+            const int* s3 = lr_v3s(b) + ri * LR_TC + a + 1;  // rows ri + 1 .. ri + 3
+            const int* q3 = lr_v3q(b) + ri * LR_TC + a + 1;  // columns a + 1 .. a + 3
+            lr_ab_of(p, b, 0, wadd(wadd(s3[0], s3[1]), s3[2]), wadd(wadd(q3[0], q3[1]), q3[2]),
+                     A3 + i, B3 + i);
+        }
 }
 
 #ifdef __CUDACC__
@@ -387,6 +559,24 @@ __global__ void __launch_bounds__(LR_THREADS) lr_sgr_kernel(const __grid_constan
     lr_sgr_out(p, b, threadIdx.x);
 }
 
+__global__ void __launch_bounds__(LR_FRAME_THREADS)
+    lr_sgr_frame_kernel(const __grid_constant__ LrFrame f) {
+    extern __shared__ int lr_sm[];
+    int s, cb;
+    const LrPass& p = f.pl[lr_item(f, blockIdx.x, &s, &cb)];
+    const LrStripe b = lr_stripe(p, s, cb, lr_sm);
+    if (!lr_active(b)) return;  // the same for every thread of the block
+    lr_maps(p, b, threadIdx.x);
+    __syncthreads();
+    lr_gather_sq(b, threadIdx.x);
+    __syncthreads();
+    lr_vsums(b, threadIdx.x);
+    __syncthreads();
+    lr_sgr_tables_sep(p, b, threadIdx.x);
+    __syncthreads();
+    lr_sgr_out(p, b, threadIdx.x, LR_FRAME_THREADS);
+}
+
 static int lr_launch(const void* kernel, const LrPass* f, void* stream) {
     const int ns = lr_blocks(*f);
     if (ns < 0 || f->W < 1 || f->bpc < 8 || f->bpc > 12) return -1;
@@ -406,6 +596,30 @@ extern "C" int rav1d_lr_wiener(const LrPass* f, void* stream) {
 
 extern "C" int rav1d_lr_sgr(const LrPass* f, void* stream) {
     return f->nreg != 3 ? -1 : lr_launch((const void*)lr_sgr_kernel, f, stream);
+}
+
+// Every self-guided stripe of every plane in one launch on `stream`: a block
+// per item, each with lr_frame_smem_words() of dynamic shared memory (the
+// limit raised once per device).
+static bool lr_smem_set[64];
+
+extern "C" int rav1d_lr_sgr_frame(const LrFrame* f, void* stream) {
+    if (lr_frame_check(*f)) return -1;
+    const int items = f->item0[f->nplanes];
+    if (items == 0) return 0;
+    const int bytes = lr_frame_smem_words() * (int)sizeof(int);
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= 64) return -1;
+    if (!lr_smem_set[dev]) {
+        e = cudaFuncSetAttribute((const void*)lr_sgr_frame_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e != cudaSuccess) return (int)e;
+        lr_smem_set[dev] = true;
+    }
+    lr_sgr_frame_kernel<<<items, LR_FRAME_THREADS, bytes, (cudaStream_t)stream>>>(*f);
+    return (int)cudaGetLastError();
 }
 
 #else  // a host build of the same functions, for the CPU tests
@@ -439,6 +653,30 @@ static int lr_host(const LrPass& p, int sgr) {
 extern "C" int rav1d_lr_wiener_host(const LrPass* f) { return lr_host(*f, 0); }
 
 extern "C" int rav1d_lr_sgr_host(const LrPass* f) { return lr_host(*f, 1); }
+
+// rav1d_lr_sgr_frame without the stream: every item's block, in order or
+// (`reverse`) from the last to the first, each step for every thread in
+// turn (the shared words start as a pattern at each block). Returns 0, or
+// -1 for arguments the kernel does not take.
+extern "C" int rav1d_lr_sgr_frame_host(const LrFrame* f, int reverse) {
+    if (lr_frame_check(*f)) return -1;
+    std::vector<int> sm(lr_frame_smem_words());
+    const int items = f->item0[f->nplanes];
+    for (int i = 0; i < items; i++) {
+        const int item = reverse ? items - 1 - i : i;
+        int s, cb;
+        const LrPass& p = f->pl[lr_item(*f, item, &s, &cb)];
+        for (int& w : sm) w = 0x5a5a5a5a;
+        const LrStripe b = lr_stripe(p, s, cb, sm.data());
+        if (!lr_active(b)) continue;
+        for (int t = 0; t < LR_FRAME_THREADS; t++) lr_maps(p, b, t);
+        for (int t = 0; t < LR_FRAME_THREADS; t++) lr_gather_sq(b, t);
+        for (int t = 0; t < LR_FRAME_THREADS; t++) lr_vsums(b, t);
+        for (int t = 0; t < LR_FRAME_THREADS; t++) lr_sgr_tables_sep(p, b, t);
+        for (int t = 0; t < LR_FRAME_THREADS; t++) lr_sgr_out(p, b, t, LR_FRAME_THREADS);
+    }
+    return 0;
+}
 
 // sgr_x_by_x, for the tests (256 ints)
 extern "C" int rav1d_lr_table_host(int* out) {

@@ -14,15 +14,19 @@ csrc/, one library per source) on the current stream:
 - `superres_frame(planes, pre, hdr, ...)`: csrc/superres.cu
   rav1d_superres_frame, the upscale of every plane of the post-CDEF
   planes and of the snapshot, into a new (2, 3, s_ah, s_aw) tensor;
-- `lr_wiener(out, src, lpf, dev, hdr, pl, ...)` and `lr_sgr(...)`:
-  csrc/lr.cu rav1d_lr_wiener and rav1d_lr_sgr, every Wiener stripe of
-  plane `pl`, or every self-guided stripe of its three kinds, read from
-  the post-CDEF plane `src` and the pre-CDEF plane `lpf`, written to `out`.
+- `lr_wiener(out, src, lpf, dev, hdr, pl, ...)`: csrc/lr.cu
+  rav1d_lr_wiener, every Wiener stripe of plane `pl`, read from the
+  post-CDEF plane `src` and the pre-CDEF plane `lpf`, written to `out`;
+- `lr_sgr_frame(out, src, lpf, dev, hdr, ...)`: csrc/lr.cu
+  rav1d_lr_sgr_frame, every self-guided stripe of every plane (all three
+  kinds) of the (3, ah, aw) planes, likewise.
 
-`lf_pass_lines` (csrc/lf.cu rav1d_lf_pass, a line per block) and
+`lf_pass_lines` (csrc/lf.cu rav1d_lf_pass, a line per block),
 `cdef_frame_global` (csrc/cdef.cu rav1d_cdef_frame, taps read from global
-memory) are the earlier forms of the first two, on no decoder path: they
-stay for comparison on the card.
+memory) and `lr_sgr_plane` (csrc/lr.cu rav1d_lr_sgr, one launch per
+plane, each box sum straight from the tile) are the earlier forms of
+deblock, CDEF and the self-guided filter, on no decoder path: they stay
+for comparison on the card.
 
 Their plain versions are engine/filters.py lf_dir_pass, cdef_pass,
 resize_plane (through engine/programs.py _superres), lr_wiener_pass and
@@ -32,8 +36,8 @@ or refused launch; they read nothing back from the card, copy nothing to
 it, and never fall back. `*_args` build a launch's arguments for any
 device (the CPU tests hand them to the sources' host builds). Counters:
 `lf_launches`, `cdef_launches`, `sr_launches`, `wiener_launches`,
-`sgr_launches`; the earlier forms' `lf_lines_launches` and
-`cdef_global_launches`.
+`sgr_launches`; the earlier forms' `lf_lines_launches`,
+`cdef_global_launches` and `sgr_plane_launches`.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ cdef_global_launches = 0
 sr_launches = 0
 wiener_launches = 0
 sgr_launches = 0
+sgr_plane_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -106,10 +111,19 @@ class LrPass(ctypes.Structure):
                 ("nreg", _I), ("base", _I * 3), ("first", _I * 4)]
 
 
+class LrFrame(ctypes.Structure):
+    """csrc/lr.cu struct LrFrame, field for field."""
+
+    _fields_ = [("pl", LrPass * 3), ("nplanes", _I), ("ncb", _I * 3),
+                ("item0", _I * 4)]
+
+
+LR_CW = 32  # csrc/lr.cu: output columns of an item
 _ENTRIES = {"lf": ("lf.cu", ("rav1d_deblock", "rav1d_lf_pass")),
             "cdef": ("cdef.cu", ("rav1d_cdef", "rav1d_cdef_frame")),
             "superres": ("superres.cu", ("rav1d_superres_frame",)),
-            "lr": ("lr.cu", ("rav1d_lr_wiener", "rav1d_lr_sgr"))}
+            "lr": ("lr.cu", ("rav1d_lr_wiener", "rav1d_lr_sgr",
+                             "rav1d_lr_sgr_frame"))}
 
 
 def lib(name):
@@ -319,9 +333,27 @@ def lr_args(out, src, lpf, dev, hdr, pl, kinds, *, ph, W, bpc):
     return a
 
 
+def lr_frame_args(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
+    """The LrFrame of a frame's self-guided stripes: `out` the planes'
+    restored copy, `src` the post-CDEF planes and `lpf` the pre-CDEF
+    planes, each (3, ah, aw); phs and Ws each plane's visible rows and
+    slot tile width. Its items: each plane's stripe slots (three kinds'
+    regions) times the column blocks of its W."""
+    a = LrFrame()
+    a.nplanes = 1 if layout_i == 0 else 3
+    for p in range(a.nplanes):
+        a.pl[p] = lr_args(out[p], src[p], lpf[p], dev, hdr, p, (0, 1, 2),
+                          ph=phs[p], W=Ws[p], bpc=bpc)
+        a.ncb[p] = -(-Ws[p] // LR_CW)
+        a.item0[p + 1] = a.item0[p] + (a.pl[p].first[3] * a.ncb[p]
+                                       if phs[p] > 0 else 0)
+    return a
+
+
 def lr_planes(hdr, layout_i):
     """[(plane, Wiener stripes?, self-guided stripes?)] of the planes with
-    LR stripes: each takes one launch of each kind it has."""
+    LR stripes: each takes one Wiener launch if it has such stripes (and
+    the frame one self-guided launch if any plane has)."""
     out = []
     for pl in range(1 if layout_i == 0 else 3):
         ch = lr_chunks(hdr, pl)
@@ -332,9 +364,11 @@ def lr_planes(hdr, layout_i):
 
 
 def lr_launches(hdr, layout_i):
-    """(Wiener launches, self-guided launches) of a frame."""
+    """(Wiener launches, self-guided launches) of a frame: one a plane
+    with Wiener stripes, one if any plane has self-guided stripes."""
     planes = lr_planes(hdr, layout_i)
-    return sum(w for _, w, _ in planes), sum(s for _, _, s in planes)
+    return (sum(w for _, w, _ in planes),
+            int(any(s for _, _, s in planes)))
 
 
 def _launch(name, entry, a, t):
@@ -410,10 +444,20 @@ def lr_wiener(out, src, lpf, dev, hdr, pl, *, ph, W, bpc):
     wiener_launches += 1
 
 
-def lr_sgr(out, src, lpf, dev, hdr, pl, *, ph, W, bpc):
-    """Every self-guided stripe of plane pl, all three kinds, into `out`:
-    one launch."""
+def lr_sgr_frame(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
+    """Every self-guided stripe of every plane, all three kinds, into `out`
+    (3, ah, aw): one launch."""
     global sgr_launches
+    a = lr_frame_args(out, src, lpf, dev, hdr, layout_i=layout_i, phs=phs,
+                      Ws=Ws, bpc=bpc)
+    _launch("lr", "rav1d_lr_sgr_frame", a, out)
+    sgr_launches += 1
+
+
+def lr_sgr_plane(out, src, lpf, dev, hdr, pl, *, ph, W, bpc):
+    """Every self-guided stripe of plane pl, all three kinds, into `out`
+    through the earlier form, rav1d_lr_sgr: one launch."""
+    global sgr_plane_launches
     a = lr_args(out, src, lpf, dev, hdr, pl, (0, 1, 2), ph=ph, W=W, bpc=bpc)
     _launch("lr", "rav1d_lr_sgr", a, out)
-    sgr_launches += 1
+    sgr_plane_launches += 1

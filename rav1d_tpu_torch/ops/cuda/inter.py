@@ -1,20 +1,24 @@
 """The inter kernel's wrapper: a frame's whole inter phase on the card.
 
 `inter_frame(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap, mask,
-...)` launches csrc/inter.cu rav1d_inter_frame (built at first use) once, on
-the current stream: a persistent cooperative grid walks the frame's puts,
-warps, preps and host pool tiles, the compound combines, the OBMC blends
-(top laps, then left laps) and the residual add, with a grid-wide barrier
-between those phases, reading the descriptors from the frame blob and the
-reference planes through their pointers, and writing the planes in place.
-Its plain version is engine/programs.py inter_plain.
+...)` launches csrc/inter.cu rav1d_inter_batches (built at first use) once,
+on the current stream: a persistent cooperative grid walks the frame's
+puts, warps, preps and host pool tiles, the compound combines, the OBMC
+blends (top laps, then left laps) and the residual add, with a grid-wide
+barrier between those phases, reading the descriptors from the frame blob
+in batches of consecutive tiles and the reference planes through their
+pointers, and writing the planes in place. `inter_frame_earlier` launches
+the earlier form, rav1d_inter_frame (a warp per tile, its descriptor and
+taps read from global memory, a scalar residual add), on no decoder path:
+it stays for comparison on the card. `trace_frame` runs either through its
+traced build. Their plain version is engine/programs.py inter_plain.
 
-The wrapper takes CUDA tensors only and raises on anything else, on a
-descriptor region outside the blob, and on a failed or refused launch; it
-reads nothing back from the card, copies nothing to it and never falls
-back. `inter_args` builds the launch's arguments for any device (the CPU
-tests hand them to the source's host build). `launches` counts the
-launches.
+The wrappers take CUDA tensors only and raise on anything else, on a
+descriptor region outside the blob, and on a failed or refused launch; they
+read nothing back from the card, copy nothing to it and never fall back.
+`inter_args` builds the launch's arguments for any device (the CPU tests
+hand them to the source's host builds). `launches` counts the new form's
+launches, `earlier_launches` the earlier form's.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ...engine.layout import (
 from . import build
 
 launches = 0
+earlier_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +55,11 @@ ROWS.update(hostpool=65, seguv=NCOMB, blend=NBLEND,
             **{name: NCOMB for name in COMB})
 PUT_CASES = {"putY": 4, "putC": 4, "lapY": 4, "lapC": 4, "prepY": 3,
              "prepC": 3}
+# per slot: its id, lanes a chunk, words a chunk, the largest case its runs
+# name (-1: its runs' cases are not passed)
+_INFO = {name: (SLOTS[name], HB if name == "hostpool" else TB,
+                ROWS[name] * (HB if name == "hostpool" else TB),
+                PUT_CASES.get(name, -1)) for name in ROWS}
 
 
 class InterFrame(ctypes.Structure):
@@ -71,10 +81,14 @@ def lib():
     global _LIB
     if _LIB is None:
         so = build.build("inter", "inter.cu")
-        so.rav1d_inter_frame.argtypes = [_P, _I, _P, _P]
-        so.rav1d_inter_frame.restype = _I
-        so.rav1d_inter_grid.argtypes = []
-        so.rav1d_inter_grid.restype = _I
+        for e in ("rav1d_inter_frame", "rav1d_inter_batches"):
+            getattr(so, e).argtypes = [_P, _I, _P, _P]
+            getattr(so, e + "_trace").argtypes = [_P, _I, _P, _P, _P]
+        so.rav1d_inter_grid.argtypes = [_I]
+        for e in ("rav1d_inter_frame", "rav1d_inter_batches",
+                  "rav1d_inter_frame_trace", "rav1d_inter_batches_trace",
+                  "rav1d_inter_grid", "rav1d_inter_stamps"):
+            getattr(so, e).restype = _I
         _LIB = so
     return _LIB
 
@@ -125,6 +139,17 @@ def _refs(refs, vw, vh, dev, kind):
     return [t.data_ptr() for t in planes], planes[0].element_size(), shape[1]
 
 
+_TABS = {}  # device -> the filter tables' pointers
+
+
+def _tab_ptrs(d_):
+    if d_ not in _TABS:
+        tab = tables(d_)
+        _TABS[d_] = tuple(tab[k].data_ptr() for k in (
+            "mc_subpel_filters", "mc_warp_filter", "filter_dir"))
+    return _TABS[d_]
+
+
 def inter_args(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap, mask, *,
                ah, aw, bpc, vwY, vhY, vwC, vhC):
     """The InterFrame of a frame: `planes` (3, ah, aw) int32, written in
@@ -150,76 +175,128 @@ def inter_args(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap, mask, *,
         raise ValueError("inter kernel: pools smaller than the packer's limit")
     if bpc not in (8, 10, 12):
         raise ValueError(f"inter kernel: bpc {bpc}")
-    tab = tables(d_)
     a = InterFrame(planes.data_ptr(), ra.data_ptr(), dev.data_ptr(),
                    pool.data_ptr(), lap.data_ptr(), mask.data_ptr(),
-                   tab["mc_subpel_filters"].data_ptr(),
-                   tab["mc_warp_filter"].data_ptr(),
-                   tab["filter_dir"].data_ptr())
+                   *_tab_ptrs(d_))
     for k, (refs, vw, vh) in enumerate(((refsY, vwY, vhY),
                                         (refsC, vwC, vhC))):
         ptrs, es, stride = _refs(refs, vw, vh, d_, "YC"[k])
-        for i, ptr in enumerate(ptrs):
-            a.ref[k][i] = ptr
+        a.ref[k][: len(ptrs)] = ptrs
         a.nref[k], a.esize[k], a.refw[k] = len(ptrs), es, stride
         a.vw[k], a.vh[k] = vw, vh
-    a.blob_len, a.ah, a.aw, a.bpc = dev.numel(), ah, aw, bpc
-    a.poolrows, a.hbase = rows, int(hdr[IH0])
-    s = first = 0
-    for i, phase in enumerate(phases(runs)):
-        a.ps[i] = s
+    n = dev.numel()
+    h = hdr.tolist()
+    a.blob_len, a.ah, a.aw, a.bpc = n, ah, aw, bpc
+    a.poolrows, a.hbase = rows, h[IH0]
+    ps, slot, case, base, first = [], [], [], [], [0]
+    for phase in phases(runs):
+        ps.append(len(slot))
         for name, run in phase:
-            if s == SEGS:
-                raise ValueError(f"inter kernel: more than {SEGS} slot runs")
-            B = HB if name == "hostpool" else TB
-            base = int(hdr[INTER0 + 2 * SLOTS[name]]) + run.c0 * ROWS[name] * B
-            if not (0 <= base and base + run.nc * ROWS[name] * B
-                    <= dev.numel()) or not (0 <= run.n <= run.nc * B):
-                raise ValueError(f"inter kernel: the {name} run at {base} "
-                                 f"({run.nc} chunks, {run.n} tiles) does not "
-                                 f"fit a blob of {dev.numel()} words")
-            a.seg_slot[s] = SLOTS[name]
-            a.seg_case[s] = (min(max(run.case, 0), PUT_CASES[name])
-                             if name in PUT_CASES else 0)
-            a.seg_base[s], a.seg_first[s] = base, first
-            first += run.n
-            s += 1
-    a.ps[5] = s
-    a.seg_first[s] = first
+            sid, B, words, cmax = _INFO[name]
+            b = h[INTER0 + 2 * sid] + run.c0 * words
+            nc, nt = run.nc, run.n
+            if b < 0 or b + nc * words > n or nt < 0 or nt > nc * B:
+                raise ValueError(f"inter kernel: the {name} run at {b} "
+                                 f"({nc} chunks, {nt} tiles) does not "
+                                 f"fit a blob of {n} words")
+            slot.append(sid)
+            case.append(0 if cmax < 0 else min(max(run.case, 0), cmax))
+            base.append(b)
+            first.append(first[-1] + nt)
+    if len(slot) > SEGS:
+        raise ValueError(f"inter kernel: more than {SEGS} slot runs")
+    ps.append(len(slot))
+    a.ps[:] = ps
+    s = len(slot)
+    a.seg_slot[:s], a.seg_case[:s], a.seg_base[:s] = slot, case, base
+    a.seg_first[: s + 1] = first
     return a
 
 
 _GRIDS = {}
+_BARS = {}  # (device, stream) -> the new form's barrier word
+# csrc/inter.cu rav1d_inter_grid's kernels
+EARLIER, EARLIER_TRACE, NEW, NEW_TRACE = 0, 1, 2, 3
 
 
-def grid():
-    """The launch's blocks on the current card: as many as stay resident
-    (asked once per card)."""
-    d = torch.cuda.current_device()
-    if d not in _GRIDS:
-        g = lib().rav1d_inter_grid()
+def grid(which=NEW):
+    """The blocks a launch of kernel `which` takes on the current card: as
+    many as stay resident (asked once per card and kernel)."""
+    key = (torch.cuda.current_device(), which)
+    if key not in _GRIDS:
+        g = lib().rav1d_inter_grid(which)
         if g < 1:
             raise RuntimeError(f"inter kernel: no resident grid ({g})")
-        _GRIDS[d] = g
-    return _GRIDS[d]
+        _GRIDS[key] = g
+    return _GRIDS[key]
+
+
+def _cuda(planes):
+    if planes.device.type != "cuda":
+        raise ValueError(f"inter kernel: CUDA tensors only, got "
+                         f"{planes.device}")
+
+
+def _launch(entry, which, a, planes, *extra):
+    """One cooperative launch of `entry` on the current stream. The new
+    form's entries zero their barrier word on the stream themselves (one
+    word kept per device and stream); the earlier form's gets a fresh
+    zeroed word."""
+    d_ = planes.device
+    stream = torch.cuda.current_stream(d_).cuda_stream
+    g = grid(which)
+    if which in (NEW, NEW_TRACE):
+        key = (d_, stream)
+        if key not in _BARS:
+            _BARS[key] = torch.zeros(1, dtype=I32, device=d_)
+        bar = _BARS[key]
+    else:
+        bar = torch.zeros(1, dtype=I32, device=d_)  # barrier count
+    rc = getattr(lib(), entry)(ctypes.byref(a), g, bar.data_ptr(), *extra,
+                               stream)
+    if rc != 0:
+        raise RuntimeError(f"inter kernel: the cooperative launch of {g} "
+                           f"blocks failed (error {rc})")
 
 
 def inter_frame(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap, mask,
                 **geom):
     """The frame's inter phase into `planes` (3, ah, aw) int32 on the card,
-    in place: one cooperative launch on the current stream."""
+    in place: one cooperative launch of the new form on the current
+    stream."""
     global launches
-    if planes.device.type != "cuda":
-        raise ValueError(f"inter kernel: CUDA tensors only, got "
-                         f"{planes.device}")
+    _cuda(planes)
     a = inter_args(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap, mask,
                    **geom)
-    g = grid()
-    bar = torch.zeros(1, dtype=I32, device=planes.device)  # barrier count
-    rc = lib().rav1d_inter_frame(
-        ctypes.byref(a), g, bar.data_ptr(),
-        torch.cuda.current_stream(planes.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"inter kernel: the cooperative launch of {g} "
-                           f"blocks failed (error {rc})")
+    _launch("rav1d_inter_batches", NEW, a, planes)
     launches += 1
+
+
+def inter_frame_earlier(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap,
+                        mask, **geom):
+    """inter_frame through the earlier form, rav1d_inter_frame: one
+    cooperative launch."""
+    global earlier_launches
+    _cuda(planes)
+    a = inter_args(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap, mask,
+                   **geom)
+    _launch("rav1d_inter_frame", EARLIER, a, planes)
+    earlier_launches += 1
+
+
+def trace_frame(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap, mask,
+                *, form="new", **geom):
+    """inter_frame (form "new") or inter_frame_earlier ("earlier") through
+    its traced build, which also writes the SM's clock64 at the start of
+    each phase and when the block's part of it is done: returns them as an
+    int64 tensor (grid, phases, 2) on the card, zero for a phase that does
+    not run. For measurement; not counted."""
+    _cuda(planes)
+    a = inter_args(planes, ra, dev, hdr, runs, refsY, refsC, pool, lap, mask,
+                   **geom)
+    entry, which = (("rav1d_inter_batches_trace", NEW_TRACE) if form == "new"
+                    else ("rav1d_inter_frame_trace", EARLIER_TRACE))
+    clk = torch.zeros((grid(which), lib().rav1d_inter_stamps()),
+                      dtype=torch.int64, device=planes.device)
+    _launch(entry, which, a, planes, clk.data_ptr())
+    return clk.view(clk.shape[0], -1, 2)

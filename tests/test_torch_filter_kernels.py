@@ -4,14 +4,15 @@ engine's, exactly.
 csrc/lf.cu, csrc/cdef.cu and csrc/lr.cu compiled for the host with g++:
 their host entries (rav1d_deblock_host and the earlier form's
 rav1d_lf_pass_host, rav1d_cdef_host and the earlier rav1d_cdef_frame_host,
-rav1d_lr_wiener_host, rav1d_lr_sgr_host) walk the thread blocks of a
+rav1d_lr_wiener_host, rav1d_lr_sgr_frame_host and the earlier per-plane
+rav1d_lr_sgr_host) walk the thread blocks of a
 launch with the kernels' own step functions, thread by thread, each
 barrier a loop boundary (a thread's registers kept across it), shared
 words and registers pre-filled with a pattern, on the arguments
 ops/cuda/filters.py builds for the launch (`*_args`). The kernels
 themselves build and run only on the card, where chip_smoke.py holds them
-to their plain versions. Checked, the deblock and CDEF cases for both
-forms ("new": the decoder path's entries; "earlier"):
+to their plain versions. Checked, the deblock, CDEF and self-guided cases
+for both forms ("new": the decoder path's entries; "earlier"):
 
 - deblock (`deblock_args`, `lf_args` over a hand-built blob): one
   direction's pass over all three planes against engine/filters.py
@@ -41,7 +42,13 @@ forms ("new": the decoder path's entries; "earlier"):
   lr_wiener_pass_raw / lr_sgr_pass_raw (wiener_batch, sgr_batch) at 8,
   10 and 12 bits, on stripes at the top, bottom, left and right of the
   frame, with S_W < W, S_W = W and S_W > W and S_H < 64, lpf rows from
-  the pre-CDEF plane; 66 narrow stripes in two descriptor chunks;
+  the pre-CDEF plane; 66 narrow stripes in two descriptor chunks; the
+  self-guided kinds through the one-launch frame entry (blocks forwards
+  and backwards) and the earlier per-plane one: three 4:4:4 planes also
+  against sgr_batch, 4:0:0 (chroma stripes in the blob to ignore), 4:2:2
+  and 4:2:0, with a column range past the plane, lpf rows from cat row
+  ph, no left context at x0 > 0, S_W > W at a W of 48, and pixels up to
+  2^16 where the int32 arithmetic wraps;
 - the kernels' constant tables and rav1d_cdef's packed direction tables
   against engine/consts.py and ops/cdef.py;
 - engine/programs.py filter_kernels through the host entries (and
@@ -111,6 +118,8 @@ def host_kernels(d):
                libs["lr"].rav1d_lr_table_host):
         fn.argtypes = [_VOID]
         fn.restype = ctypes.c_int
+    libs["lr"].rav1d_lr_sgr_frame_host.argtypes = [_VOID, ctypes.c_int]
+    libs["lr"].rav1d_lr_sgr_frame_host.restype = ctypes.c_int
     return HostKernels(libs)
 
 
@@ -125,16 +134,20 @@ FORMS = ["new", "earlier"]
 class HostKernels:
     """ops/cuda/filters.py's launch wrappers with the host entries in place
     of the launches; `n` counts the calls per kernel. `form` "earlier"
-    runs the earlier forms' entries for deblock and CDEF (lf_pass_lines,
-    cdef_frame_global); `group` sets the deblock band."""
+    runs the earlier forms' entries for deblock, CDEF and the self-guided
+    filter (lf_pass_lines, cdef_frame_global, lr_sgr_plane for each plane
+    in place of lr_sgr_frame); `group` sets the deblock band; `reverse`
+    runs the one-launch self-guided entry's blocks from the last."""
 
-    def __init__(self, libs, form="new", group=None):
+    def __init__(self, libs, form="new", group=None, reverse=False):
         self.libs, self.form, self.group = libs, form, group
-        self.n = dict.fromkeys(("lf", "cdef", "sr", "wiener", "sgr"), 0)
+        self.reverse = reverse
+        self.n = dict.fromkeys(("lf", "cdef", "sr", "wiener", "sgr",
+                                "sgr_plane"), 0)
 
-    def of(self, form, group=None):
+    def of(self, form, group=None, reverse=False):
         """The same libraries through another form."""
-        return HostKernels(self.libs, form, group)
+        return HostKernels(self.libs, form, group, reverse)
 
     def _run(self, lib, entry, a, key):
         assert getattr(self.libs[lib], entry)(ctypes.byref(a)) == 0
@@ -169,10 +182,24 @@ class HostKernels:
                   FK.lr_args(out, src, lpf, dev, hdr, pl, ("w",), **kw),
                   "wiener")
 
-    def lr_sgr(self, out, src, lpf, dev, hdr, pl, **kw):
+    def lr_sgr_plane(self, out, src, lpf, dev, hdr, pl, **kw):
         self._run("lr", "rav1d_lr_sgr_host",
                   FK.lr_args(out, src, lpf, dev, hdr, pl, (0, 1, 2), **kw),
-                  "sgr")
+                  "sgr_plane")
+
+    def lr_sgr_frame(self, out, src, lpf, dev, hdr, *, layout_i, phs, Ws,
+                     bpc):
+        if self.form == "earlier":  # one launch per plane with stripes
+            for pl, _, sgr in FK.lr_planes(hdr, layout_i):
+                if sgr:
+                    self.lr_sgr_plane(out[pl], src[pl], lpf[pl], dev, hdr,
+                                      pl, ph=phs[pl], W=Ws[pl], bpc=bpc)
+            return
+        a = FK.lr_frame_args(out, src, lpf, dev, hdr, layout_i=layout_i,
+                             phs=phs, Ws=Ws, bpc=bpc)
+        assert self.libs["lr"].rav1d_lr_sgr_frame_host(
+            ctypes.byref(a), int(self.reverse)) == 0
+        self.n["sgr"] += 1
 
 
 class Blob:
@@ -594,7 +621,7 @@ def _lr_case(rng, kind, narrow=False):
     return np.asarray(cols, np.int32).T
 
 
-def _lr_check(host, bpc, kind, d):
+def _lr_check(host, bpc, kind, d, form="new"):
     rng = np.random.default_rng(bpc * 31 + (9 if kind == "w" else kind))
     src = _smooth(rng, (LR_AH, LR_AW), bpc, cell=8)
     lpf = _smooth(rng, (LR_AH, LR_AW), bpc, cell=8)
@@ -624,8 +651,13 @@ def _lr_check(host, bpc, kind, d):
     kw = dict(ph=LR_PH, W=LR_W, bpc=bpc)
     if kind == "w":
         host.lr_wiener(got, _t(src), _t(lpf), blob.dev(), blob.hdr, 0, **kw)
-    else:
-        host.lr_sgr(got, _t(src), _t(lpf), blob.dev(), blob.hdr, 0, **kw)
+    elif form == "earlier":
+        host.lr_sgr_plane(got, _t(src), _t(lpf), blob.dev(), blob.hdr, 0,
+                          **kw)
+    else:  # the frame entry over one plane (4:0:0)
+        host.lr_sgr_frame(got[None], _t(src)[None], _t(lpf)[None],
+                          blob.dev(), blob.hdr, layout_i=0, phs=(LR_PH,),
+                          Ws=(LR_W,), bpc=bpc)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     changed = want.numpy() != src
     for x0, y0, w, h in d[:4].T:
@@ -635,15 +667,144 @@ def _lr_check(host, bpc, kind, d):
         assert not changed[56:120, 64 + LR_W : 168].any()
 
 
-@pytest.mark.parametrize("kind", ["w", 0, 1, 2], ids=lambda k: f"kind-{k}")
+# the self-guided kinds through both forms (the one-launch frame entry and
+# the earlier per-plane entry); Wiener has one
+LR_FORMS = [("w", "new")] + [(k, f) for k in (0, 1, 2) for f in FORMS]
+
+
+@pytest.mark.parametrize("kind,form", LR_FORMS,
+                         ids=lambda v: f"kind-{v}" if v not in FORMS else v)
 @pytest.mark.parametrize("bpc", [8, 10, 12])
-def test_lr_stripes(host, bpc, kind):
-    _lr_check(host, bpc, kind, _lr_case(np.random.default_rng(bpc), kind))
+def test_lr_stripes(host, bpc, kind, form):
+    _lr_check(host, bpc, kind, _lr_case(np.random.default_rng(bpc), kind),
+              form)
 
 
 def test_lr_two_chunks(host):
     """66 narrow stripes: the second descriptor chunk, the region walk."""
     _lr_check(host, 10, "w", _lr_case(np.random.default_rng(3), "w", True))
+
+
+# the planes of the frame cases: (vw, ph) of luma and chroma by layout
+def _lr_planes_geom(layout):
+    ss_hor, ss_ver = _ss(layout)
+    n = 1 if layout == PL.I400 else 3
+    return [(LR_VW, LR_PH) if p == 0 else
+            ((LR_VW + ss_hor) >> ss_hor, (LR_PH + ss_ver) >> ss_ver)
+            for p in range(n)]
+
+
+def _sgr_frame_case(layout, bpc, seed, big=False):
+    """Self-guided stripes of all three kinds in every plane of a layout,
+    none sharing a pixel: per plane and kind one at the top, where the
+    plane is tall enough one in the middle with lpf rows on both sides,
+    and one of 10 rows at the bottom right (4:0:0: in the chroma slots too,
+    as 4:2:0 would have them, for the launch to ignore); in luma a column
+    range past the plane and a stripe at row 2 (lpf rows from cat row ph)
+    with no left context, in the first chroma plane a stripe wider than
+    its W of 48. `big`: pixels of
+    up to 2^16, where the squares, the box sums of squares and the scaled
+    variance wrap past 2^31. Returns (blob, src, lpf,
+    {(plane, kind): (16, n) descriptors}, phs, Ws)."""
+    rng = np.random.default_rng(seed)
+    blob = Blob()
+    geo = _lr_planes_geom(PL.I420 if layout == PL.I400 else layout)
+    Ws = (LR_W, 48, 48)
+    descs = {}
+    for p, (vw, ph) in enumerate(geo):
+        for kind in (0, 1, 2):
+            def stripe(x0, y0, w, h):  # _stripe on this plane
+                hl, hr = x0 > 0, x0 + w < vw
+                top = (y0, y0) if y0 == 0 else (ph + y0 - 2, ph + y0 - 1)
+                below = y0 + h
+                bot = ((below - 1, below - 1) if below == ph else
+                       (ph + below, ph + (below if below + 1 == ph
+                                          else below + 1)))
+                return [x0, y0, w, h, x0 - 3 * hl, x0 + w - 1 + 3 * hr,
+                        *top, *bot, *_lr_params(rng, kind)]
+            x = 16 * kind
+            cols = [stripe(x, 0, 16, 56 if ph > 120 else 40)]
+            if ph > 120:
+                cols.append(stripe(x + 48, 56, 16, 64))
+            cols.append(stripe(vw - 24 * (kind + 1), ph - 10, 24, 10))
+            if (p, kind) == (0, 0):  # up to the plane's last column, with a
+                cols.append(stripe(LR_AW - 24, 10, 24, 6))  # column range
+                cols[-1][5] = LR_AW + 2  # past it
+            if (p, kind) == (0, 1):  # lpf rows from cat row ph on; no left
+                cols.append(stripe(104, 2, 16, 6))  # context at x0 > 0
+                cols[-1][4] = 104
+            if (p, kind) == (1, 2):  # S_W > W where W is no multiple of 32
+                cols.append(stripe(48, 8, Ws[1] + 4, 8))
+            d = np.asarray(cols, np.int32).T
+            chunks = np.zeros((16, LRB), np.int32)
+            chunks[:, : d.shape[1]] = d
+            i = 4 * p + FK.KINDS.index(kind)
+            blob.hdr[LR0 + 2 * i] = blob.add(
+                chunks.reshape(16, 1, LRB).transpose(1, 0, 2))
+            blob.hdr[LR0 + 2 * i + 1] = 1
+            descs[p, kind] = chunks
+    src = np.stack([_smooth(rng, (LR_AH, LR_AW), bpc, cell=8)
+                    for _ in range(3)])
+    lpf = np.stack([_smooth(rng, (LR_AH, LR_AW), bpc, cell=8)
+                    for _ in range(3)])
+    if big:
+        src = src * 193 + rng.integers(0, 1 << 12, src.shape)
+        lpf = lpf * 151 + rng.integers(0, 1 << 12, lpf.shape)
+    phs = tuple(ph for _, ph in geo)
+    return blob, src, lpf, descs, phs, Ws
+
+
+def _sgr_frame_check(host, layout, bpc, seed, jax_too=False, big=False):
+    """One rav1d_lr_sgr_frame_host call over every plane against each
+    plane's three plain lr_sgr_pass calls (and rav1d_tpu's
+    lr_sgr_pass_raw, `jax_too`), and against the earlier per-plane
+    entry."""
+    blob, src, lpf, descs, phs, Ws = _sgr_frame_case(layout, bpc, seed, big)
+    n = len(_lr_planes_geom(layout))
+    want = _t(src)
+    for p in range(n):
+        cat = np.concatenate([src[p][: phs[p]], lpf[p][: phs[p]]])
+        pf = torch.cat([_t(src[p]).reshape(-1),
+                        torch.zeros(1, dtype=torch.int32)])
+        jout = jnp.asarray(src[p].ravel())
+        for kind in (0, 1, 2):
+            FL.lr_sgr_pass(pf, _t(cat), _t(descs[p, kind]), Ws[p], kind, bpc,
+                           LR_AW)
+            if jax_too:
+                jout = _JSGR(jout, cat, descs[p, kind], Ws[p], kind, bpc,
+                             LR_AW)
+        want[p] = pf[:-1].view(LR_AH, LR_AW)
+        if jax_too:
+            np.testing.assert_array_equal(want[p].numpy().ravel(),
+                                          np.asarray(jout))
+        assert (want[p].numpy() != src[p]).any()
+    kw = dict(layout_i=int(layout), phs=phs, Ws=Ws, bpc=bpc)
+    for k in (host, host.of("new", reverse=True), host.of("earlier")):
+        got = _t(src)
+        k.lr_sgr_frame(got, _t(src), _t(lpf), blob.dev(), blob.hdr, **kw)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert FK.lr_launches(blob.hdr, int(layout)) == (0, 1)
+
+
+def test_lr_sgr_frame_three_planes(host):
+    """Every kind in all three planes of a 4:4:4 frame in one launch, against
+    the plain passes and rav1d_tpu's sgr_batch."""
+    _sgr_frame_check(host, PL.I444, 10, 21, jax_too=True)
+
+
+def test_lr_sgr_frame_wraps(host):
+    """Pixels of up to 2^16 in a 4:2:0 frame: the squares, their box sums
+    and the scaled variance wrap as the plain version's int32 arithmetic
+    does; against rav1d_tpu's sgr_batch too."""
+    _sgr_frame_check(host, PL.I420, 8, 25, jax_too=True, big=True)
+
+
+@pytest.mark.parametrize("layout", [PL.I400, PL.I422, PL.I420],
+                         ids=lambda v: v.name)
+def test_lr_sgr_frame_layouts(host, layout):
+    """The one-launch entry over 4:0:0 (one plane), 4:2:2 chroma (full
+    height, half width) and 4:2:0 chroma planes."""
+    _sgr_frame_check(host, layout, 8 + 2 * int(layout), 22 + int(layout))
 
 
 def test_constant_tables(host):
@@ -720,6 +881,13 @@ class Frame:
                               **self.kw)
 
 
+def plain_lr_calls(hdr, layout_i):
+    """The plain LR passes filter_plain makes on a frame: one per plane
+    and kind with stripes."""
+    return sum(bool(FK.lr_chunks(hdr, p)[k][1])
+               for p in range(1 if layout_i == 0 else 3) for k in FK.KINDS)
+
+
 @functools.lru_cache(maxsize=None)
 def frame_of(name):
     packets, i = FRAMES[name]
@@ -738,8 +906,10 @@ def test_filter_program_matches_plain(host, name):
     w, s = FK.lr_launches(frame.pk.hdr, frame.layout)
     sr = int(frame.kw["sr_geom"] is not None)
     assert sr == (name == "8bit-420-superres")
-    assert {k: host.n[k] - n0[k] for k in n0} == dict(lf=2, cdef=1, sr=sr,
-                                                      wiener=w, sgr=s)
+    assert {k: host.n[k] - n0[k] for k in n0} == dict(
+        lf=2, cdef=1, sr=sr, wiener=w, sgr=s, sgr_plane=0)
+    assert s == int(any(p for _, _, p in FK.lr_planes(frame.pk.hdr,
+                                                         frame.layout)))
     assert FL.calls == c0
     assert w + s > 0 or name == "10bit-422-lf-tools"
 
@@ -774,8 +944,8 @@ def test_cpu_filter_runs_the_plain_version():
     want, want_packed = frame.plain()
     np.testing.assert_array_equal(planes.numpy(), want.numpy())
     np.testing.assert_array_equal(packed.numpy(), want_packed.numpy())
-    w, s = FK.lr_launches(frame.pk.hdr, frame.layout)
-    assert FL.calls - c0 == 2 * (6 + 1 + w + s)  # filter_ and frame.plain
+    lr = plain_lr_calls(frame.pk.hdr, frame.layout)
+    assert FL.calls - c0 == 2 * (6 + 1 + lr)  # filter_ and frame.plain
     assert (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
             FK.sgr_launches) == launches
 
@@ -794,7 +964,7 @@ def test_wrappers_take_cuda_tensors_only():
     def counts():
         return (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
                 FK.sgr_launches, FK.lf_lines_launches,
-                FK.cdef_global_launches)
+                FK.cdef_global_launches, FK.sgr_plane_launches)
 
     before = counts()
     calls = [
@@ -805,7 +975,11 @@ def test_wrappers_take_cuda_tensors_only():
         lambda: FK.cdef_frame_global(planes, planes.clone(), dev, hdr, **k),
         lambda: FK.lr_wiener(planes[0], planes[0], planes[0], dev, hdr, 0,
                              **lw),
-        lambda: FK.lr_sgr(planes[0], planes[0], planes[0], dev, hdr, 0, **lw),
+        lambda: FK.lr_sgr_plane(planes[0], planes[0], planes[0], dev, hdr, 0,
+                                **lw),
+        lambda: FK.lr_sgr_frame(planes, planes, planes, dev, hdr,
+                                layout_i=frame.layout, phs=(vis_h,) * 3,
+                                Ws=kw["lr_ws"][:1] * 3, bpc=8),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

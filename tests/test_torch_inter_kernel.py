@@ -1,16 +1,22 @@
-"""The inter kernel against the plain inter program and the JAX engine's,
-exactly.
+"""The inter kernel's two forms against the plain inter program and the
+JAX engine's, exactly.
 
-csrc/inter.cu compiled for the host with g++: its host entry
-rav1d_inter_frame_host walks the launch's phases (zero, puts/warps/preps,
-combines, seguv, top blends, left blends, residual add) with the kernel's
-own step functions, the warps of a grid of blocks in turn and each warp's
-tiles lane by lane, each barrier a loop boundary, or a phase's tiles from
-the last to the first (`reverse`), on the arguments ops/cuda/inter.py
-builds for the launch (`inter_args`). The pools it is given hold a pattern,
-so a pool cell the kernel reads without having zeroed or written it shows.
-The kernel itself builds and runs only on the card, where chip_smoke.py
-holds it to inter_plain. Checked:
+csrc/inter.cu compiled for the host with g++: the new form's host entry
+rav1d_inter_batches_host (the decoder path's kernel) walks the launch's
+phases (zero, puts/warps/preps, combines, seguv, top blends, left blends,
+residual add) with the kernel's own step functions, each warp's batches of
+consecutive tiles (the batch's descriptors loaded lane by lane, then each
+tile's steps for every lane in turn, the next tile's window held in the
+lanes' registers between its issue and its commit), each barrier a loop
+boundary, or a phase's batches from the last to the first (`reverse`);
+the earlier form's rav1d_inter_frame_host walks the warps of a grid of
+blocks in turn and each warp's tiles lane by lane, or a phase's tiles
+backwards. Both run on the arguments ops/cuda/inter.py builds for the
+launch (`inter_args`). The pools they are given hold a pattern, and so do
+the warp's shared words before each writer, so a cell the kernel reads
+without having zeroed or written it shows. The kernels themselves build
+and run only on the card, where chip_smoke.py holds them to inter_plain.
+Checked, for both forms where a test names a form:
 
 - engine/programs.py inter_kernels through the host entry against
   inter_plain on every inter frame of the 256x192 sequences of
@@ -18,8 +24,8 @@ holds it to inter_plain. Checked:
   tests/test_torch_formats_programs.py (10-bit 4:2:2 with segy10, 8-bit
   4:4:4 with segy00, the 10-bit 4:2:2 header-tools sequence), and of a
   12-bit 4:0:0 and a 12-bit 4:2:0 sequence, forwards over 3 blocks and
-  backwards over 1; seed 1's frame 1 also against mega.inter_prog (its
-  blob is the port's, word-identical to run2's);
+  backwards over 1; seed 1's frame 1 through the new form also against
+  mega.inter_prog (its blob is the port's, word-identical to run2's);
 - hand-built blobs at 8, 10 and 12 bits with every slot: the five put and
   four prep cases, bilinear with mx and my each 0 or not, windows clamped
   at all four edges of the visible picture and stack rows outside the
@@ -31,6 +37,12 @@ holds it to inter_plain. Checked:
   padding lanes, stores partly outside the planes, multi-chunk runs; at
   12 bits reference planes over the whole int16 range, where the int16
   wraps of the intermediates change the result;
+- windows flush with each edge of the visible picture (the new form's
+  word loads) and across it (its clamped gather), at 1- and 2-byte
+  references whose planes and rows start off a 4-byte boundary; runs of
+  33, 31, 1, 40 and 5 tiles whose batches straddle the runs' boundaries;
+  a frame whose 3 x 65 cells leave a residual tail of 3 after the groups
+  of 4;
 - that the slots the kernel runs in one phase write disjoint pixels and
   pool cells on every packed frame above;
 - the wrapper's rules: a CPU tensor raises and counts no launch, a run
@@ -75,18 +87,27 @@ def host_lib(tmp_path_factory):
                     "-fPIC", "-o", so, os.path.join(CSRC, "inter.cu")],
                    check=True)
     lib = ctypes.CDLL(so)
-    lib.rav1d_inter_frame_host.argtypes = [_VOID, ctypes.c_int, ctypes.c_int]
-    lib.rav1d_inter_frame_host.restype = ctypes.c_int
+    for entry in HOST_ENTRIES.values():
+        getattr(lib, entry).argtypes = [_VOID, ctypes.c_int, ctypes.c_int]
+        getattr(lib, entry).restype = ctypes.c_int
     return lib
 
 
-class HostInter:
-    """ops/cuda/inter.py's launch wrapper with the host entry in place of
-    the launch: `grid` blocks, or every phase backwards with `reverse`; the
-    pools filled with a pattern first. `n` counts the calls."""
+# the host entries of the two forms: the new one (rav1d_inter_batches, the
+# decoder path's) and the earlier one (rav1d_inter_frame)
+HOST_ENTRIES = {"new": "rav1d_inter_batches_host",
+                "earlier": "rav1d_inter_frame_host"}
+FORMS = tuple(HOST_ENTRIES)
 
-    def __init__(self, lib, grid=3, reverse=False):
+
+class HostInter:
+    """ops/cuda/inter.py's launch wrapper with a form's host entry in place
+    of the launch: `grid` blocks, or every phase backwards with `reverse`;
+    the pools filled with a pattern first. `n` counts the calls."""
+
+    def __init__(self, lib, grid=3, reverse=False, form="new"):
         self.lib, self.grid, self.reverse, self.n = lib, grid, reverse, 0
+        self.entry = getattr(lib, HOST_ENTRIES[form])
 
     def inter_frame(self, planes, ra, dev, hdr, runs, refsY, refsC, pool,
                     lap, mask, **geom):
@@ -94,18 +115,18 @@ class HostInter:
             t.fill_(0x5A5A5A5A)
         a = IK.inter_args(planes, ra, dev, hdr, runs, refsY, refsC, pool,
                           lap, mask, **geom)
-        assert self.lib.rav1d_inter_frame_host(ctypes.byref(a), self.grid,
-                                               int(self.reverse)) == 0
+        assert self.entry(ctypes.byref(a), self.grid, int(self.reverse)) == 0
         self.n += 1
 
 
 WALKS = ((3, False), (1, True))  # (grid, reverse)
 
 
-def _kernel_matches_plain(lib, planes, ra, dev, hdr, runs, sY, sC, geom):
+def _kernel_matches_plain(lib, planes, ra, dev, hdr, runs, sY, sC, geom,
+                          form="new", walks=WALKS):
     want = P.inter_plain(planes.clone(), ra, dev, hdr, runs, sY, sC, **geom)
-    for grid, reverse in WALKS:
-        k = HostInter(lib, grid, reverse)
+    for grid, reverse in walks:
+        k = HostInter(lib, grid, reverse, form)
         got = P.inter_kernels(planes.clone(), ra, dev, hdr, runs, sY, sC,
                               k=k, **geom)
         assert k.n == 1
@@ -167,18 +188,20 @@ def frame_of(name, i):
     return Frame(name, i)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("name,i", FRAMES, ids=lambda v: str(v))
-def test_kernel_matches_inter_plain(host_lib, name, i):
+def test_kernel_matches_inter_plain(host_lib, name, i, form):
     fr = frame_of(name, i)
     want = _kernel_matches_plain(host_lib, fr.zeros(), fr.ra, fr.dev,
                                  fr.pk.hdr, fr.pk.inter_runs, fr.sY, fr.sC,
-                                 fr.geom)
+                                 fr.geom, form)
     assert want.any()
 
 
 def test_kernel_matches_jax_inter_prog(host_lib):
-    """Seed 1's frame 1 against mega.inter_prog, at the geometry and stack
-    depths tests/test_torch_inter.py compiles it with."""
+    """Seed 1's frame 1 through the new form against mega.inter_prog, at
+    the geometry and stack depths tests/test_torch_inter.py compiles it
+    with."""
     fr = frame_of("s1", 1)
 
     def jstack(srcs, depth):
@@ -507,8 +530,9 @@ def hand_frame(bpc, seed):
     return planes, ra, b.dev(), b.hdr, runs, refs, geom
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("bpc", (8, 10, 12))
-def test_hand_built_blob(host_lib, bpc):
+def test_hand_built_blob(host_lib, bpc, form):
     """Every slot, case and clamp of a hand-built blob (module docstring),
     the reference planes stacked for the plain version and listed for the
     kernel."""
@@ -520,7 +544,8 @@ def test_hand_built_blob(host_lib, bpc):
                          torch.stack(rY), torch.stack(rC), **geom)
     for grid, reverse in WALKS:
         got = P.inter_kernels(planes.clone(), ra, dev, hdr, runs, rY, rC,
-                              k=HostInter(host_lib, grid, reverse), **geom)
+                              k=HostInter(host_lib, grid, reverse, form),
+                              **geom)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert (want != planes).float().mean() > 0.5
 
@@ -530,10 +555,10 @@ def test_hand_built_blob(host_lib, bpc):
 
 def test_cpu_inter_runs_the_plain_version():
     """programs.inter on CPU tensors is inter_plain, on stacked or listed
-    reference planes, and launches nothing; the wrapper raises on CPU
-    tensors and counts no launch."""
+    reference planes, and launches nothing; the wrappers of both forms
+    and of their traced builds raise on CPU tensors and count no launch."""
     fr = frame_of("s1", 1)
-    n0 = IK.launches
+    n0 = (IK.launches, IK.earlier_launches)
     want = P.inter_plain(fr.zeros(), fr.ra, fr.dev, fr.pk.hdr,
                          fr.pk.inter_runs, fr.sY, fr.sC, **fr.geom)
     got = P.inter(fr.zeros(), fr.ra, fr.dev, fr.pk.hdr, fr.pk.inter_runs,
@@ -544,12 +569,17 @@ def test_cpu_inter_runs_the_plain_version():
     np.testing.assert_array_equal(listed.numpy(), want.numpy())
     rows = IK.pool_rows(fr.geom["ah"], fr.geom["aw"])
     scratch = [torch.empty(rows * 64, dtype=torch.int32) for _ in range(2)]
-    with pytest.raises(ValueError, match="CUDA"):
-        IK.inter_frame(fr.zeros(), fr.ra, fr.dev, fr.pk.hdr,
-                       fr.pk.inter_runs, fr.sY, fr.sC, *scratch,
-                       torch.empty(fr.geom["ah"] * fr.geom["aw"],
-                                   dtype=torch.int32), **fr.geom)
-    assert IK.launches == n0
+    scratch.append(torch.empty(fr.geom["ah"] * fr.geom["aw"],
+                               dtype=torch.int32))
+    args = (fr.zeros(), fr.ra, fr.dev, fr.pk.hdr, fr.pk.inter_runs, fr.sY,
+            fr.sC, *scratch)
+    for call in (lambda: IK.inter_frame(*args, **fr.geom),
+                 lambda: IK.inter_frame_earlier(*args, **fr.geom),
+                 lambda: IK.trace_frame(*args, form="new", **fr.geom),
+                 lambda: IK.trace_frame(*args, form="earlier", **fr.geom)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (IK.launches, IK.earlier_launches) == n0
 
 
 def test_inter_args_refuse_what_the_kernel_does_not_take():
@@ -579,3 +609,186 @@ def test_inter_args_refuse_what_the_kernel_does_not_take():
             (fr.pk.inter_runs, fr.sY, dict(g, bpc=9), "bpc")):
         with pytest.raises(ValueError, match=what):
             IK.inter_args(*args, runs, sY, fr.sC, *sc, **kw)
+
+
+# ---------------------- windows, batches, the tail -----------------------
+
+EDGE_VIS = {0: (90, 60), 1: (45, 30)}  # (vw, vh) of the luma and chroma refs
+EDGE_REF = {0: (61, 91), 1: (31, 47)}  # their planes: rows of odd length
+
+
+def _odd_planes(rng, shape, dt, hi, n=2):
+    """n contiguous (H, W) planes that start one element into their
+    storage, so that neither a plane nor (with W odd) most of its rows
+    start on a 4-byte boundary."""
+    out = []
+    for _ in range(n):
+        flat = torch.from_numpy(rng.integers(0, hi, shape[0] * shape[1] + 1)
+                                ).to(dt)
+        out.append(flat[1:].view(shape))
+    return out
+
+
+def edge_frame(bpc, seed):
+    """Puts of all five cases and warps, luma and chroma, whose windows lie
+    flush with each edge of the visible picture (inside it: the new form
+    loads their rows as words), cross each edge by one to three pixels
+    (the clamped gather) or lie inside at random. Returns (planes, ra,
+    blob, header, runs, reference planes, statics, windows by (edge,
+    inside))."""
+    rng = np.random.default_rng(seed)
+    psz = AH * AW
+    pxmax = (1 << bpc) - 1
+    cells = [p * psz + y * AW + x for p in range(3) for y in range(0, AH, 8)
+             for x in range(0, AW, 8)]
+    cells = [cells[i] for i in rng.permutation(len(cells))]
+    wins = {}
+    desc = {}
+
+    def place(k, ny, nx, edge, flush):
+        vw, vh = EDGE_VIS[k]
+        y0 = int(rng.integers(0, vh - ny + 1))
+        x0 = int(rng.integers(0, vw - nx + 1))
+        out = 0 if flush else int(rng.integers(1, 4))
+        if edge == "top":
+            y0 = -out
+        elif edge == "bottom":
+            y0 = vh - ny + out
+        elif edge == "left":
+            x0 = -out
+        elif edge == "right":
+            x0 = vw - nx + out
+        inside = 0 <= y0 <= vh - ny and 0 <= x0 <= vw - nx
+        wins[edge, inside] = wins.get((edge, inside), 0) + 1
+        return y0, x0
+
+    spots = [(e, f) for e in ("top", "bottom", "left", "right")
+             for f in (True, False)] + [("inside", True)] * 2
+    for name, k in (("putY", 0), ("putC", 1)):
+        for case in range(5):
+            v, h = case in (0, 2), case in (0, 1)
+            ny = 9 if case == 4 else (15 if v else 8)
+            nx = 9 if case == 4 else (15 if h else 8)
+            for edge, flush in spots:
+                y0, x0 = place(k, ny, nx, edge, flush)
+                desc.setdefault(name, {}).setdefault(case, []).append(
+                    (int(rng.integers(0, 2)), y0 + 3 * v, x0 + 3 * h,
+                     int(rng.integers(1, 16)), int(rng.integers(1, 16)),
+                     int(rng.integers(0, 10)), cells.pop(), 8, 8,
+                     int(rng.choice([4, 8])), int(rng.choice([4, 8])), case))
+    for name, k in (("warpY", 0), ("warpC", 1)):
+        for edge, flush in spots:
+            y0, x0 = place(k, 15, 15, edge, flush)
+            a, b_, c, d = (int(v) for v in rng.integers(-3000, 3001, 4))
+            mx, my = (int(v) for v in rng.integers(-70000, 70001, 2))
+            desc.setdefault(name, {}).setdefault(None, []).append(
+                (int(rng.integers(0, 2)), y0 + 3, x0 + 3, a, b_, c, d, mx, my,
+                 cells.pop(), 8, 8))
+    b = Blob()
+    runs = {name: b.slot(name, sorted(g.items(), key=lambda kv: kv[0] or 0),
+                         IK.ROWS[name]) for name, g in desc.items()}
+    b.hdr[IH0] = b.add(np.zeros(64, np.int32))
+    dt = torch.uint8 if bpc == 8 else torch.int16
+    refs = [_odd_planes(rng, EDGE_REF[k], dt, pxmax + 1) for k in (0, 1)]
+    ra = torch.from_numpy(rng.integers(-pxmax, pxmax + 1, 6 * psz)
+                          .astype(np.int32))
+    planes = torch.from_numpy(rng.integers(0, pxmax + 1, (3, AH, AW))
+                              .astype(np.int32))
+    geom = dict(ah=AH, aw=AW, bpc=bpc, vwY=EDGE_VIS[0][0],
+                vhY=EDGE_VIS[0][1], vwC=EDGE_VIS[1][0], vhC=EDGE_VIS[1][1])
+    return planes, ra, b.dev(), b.hdr, runs, refs, geom, wins
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("bpc", (8, 10))
+def test_windows_on_the_picture_edges(host_lib, bpc, form):
+    """Windows flush with and across each edge of the visible picture, at
+    1- and 2-byte references whose planes and rows start off a 4-byte
+    boundary: the word loads and the clamped gather of the new form, and
+    the earlier form's gather, against inter_plain."""
+    planes, ra, dev, hdr, runs, (rY, rC), geom, wins = edge_frame(bpc, bpc)
+    for edge in ("top", "bottom", "left", "right"):
+        assert wins[edge, True] and wins[edge, False], edge
+    assert all(t.data_ptr() % 4 for t in rY + rC)
+    _kernel_matches_plain(host_lib, planes, ra, dev, hdr, runs,
+                          torch.stack(rY), torch.stack(rC), geom, form)
+    want = P.inter_plain(planes.clone(), ra, dev, hdr, runs,
+                         torch.stack(rY), torch.stack(rC), **geom)
+    got = P.inter_kernels(planes.clone(), ra, dev, hdr, runs, rY, rC,
+                          k=HostInter(host_lib, 3, False, form), **geom)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def batches(n, nw):
+    """csrc/inter.cu's batches of a phase of n tiles over nw warps: [(first
+    tile, tiles)]."""
+    bs = min(32, max(1, -(-n // (2 * nw))))
+    return [(b, min(bs, n - b)) for b in range(0, n, bs)]
+
+
+RUN_SIZES = (33, 31, 1, 40, 5)  # putY tiles of cases 0-4
+
+
+@pytest.mark.parametrize("grid", (1, 2))
+def test_batches_straddle_runs(host_lib, grid):
+    """Runs of 33, 31, 1, 40 and 5 tiles (fewer and more than 32) in one
+    phase: at 1 and 2 blocks (8 and 16 warps) batches of 7 and 4 tiles
+    straddle the runs' boundaries; both forms against inter_plain."""
+    rng = np.random.default_rng(7 + grid)
+    psz = AH * AW
+    cells = [p * psz + y * AW + x for p in range(3) for y in range(0, AH, 8)
+             for x in range(0, AW, 8)]
+    cells = [cells[i] for i in rng.permutation(len(cells))]
+    groups = []
+    for case, n in enumerate(RUN_SIZES):
+        cols = []
+        for _ in range(n):
+            cols.append((int(rng.integers(0, 2)), int(rng.integers(-8, 64)),
+                         int(rng.integers(-8, 94)), int(rng.integers(0, 16)),
+                         int(rng.integers(0, 16)), int(rng.integers(0, 10)),
+                         cells.pop(), *(int(v) for v in rng.integers(1, 9, 2)),
+                         8, 8, case))
+        groups.append((case, cols))
+    b = Blob()
+    runs = {"putY": b.slot("putY", groups, NPUT)}
+    b.hdr[IH0] = b.add(np.zeros(64, np.int32))
+    bounds = np.cumsum(RUN_SIZES)[:-1]
+    got = batches(sum(RUN_SIZES), 8 * grid)
+    assert any(b0 < e < b0 + n for b0, n in got for e in bounds)
+    assert min(RUN_SIZES) < 32 < max(RUN_SIZES)
+    refs = [torch.from_numpy(rng.integers(0, 256, REF_SHAPE[0])).to(
+        torch.uint8) for _ in range(2)]
+    geom = dict(ah=AH, aw=AW, bpc=8, vwY=VIS[0][0], vhY=VIS[0][1],
+                vwC=VIS[1][0], vhC=VIS[1][1])
+    planes = torch.from_numpy(rng.integers(0, 256, (3, AH, AW)).astype(
+        np.int32))
+    ra = torch.from_numpy(rng.integers(-255, 256, 6 * psz).astype(np.int32))
+    for form in FORMS:
+        _kernel_matches_plain(host_lib, planes, ra, b.dev(), b.hdr, runs,
+                              torch.stack(refs), torch.stack(refs[:1]), geom,
+                              form, walks=((grid, False), (grid, True)))
+
+
+def test_residual_tail(host_lib):
+    """A frame of 5 x 13 cells a plane (3 x 65 = 195 cells: 48 groups of 4
+    and a tail of 3) with two partial puts: both forms against
+    inter_plain, over 1 and 3 blocks."""
+    rng = np.random.default_rng(11)
+    ah, aw = 5, 13
+    b = Blob()
+    cols = [(0, 1, 2, 0, 0, 0, 0, 8, 5, 8, 8, 3),
+            (0, 0, 5, 0, 0, 0, 2 * ah * aw + 8, 5, 5, 8, 8, 3)]
+    runs = {"putY": b.slot("putY", [(3, cols)], NPUT)}
+    b.hdr[IH0] = b.add(np.zeros(64, np.int32))
+    refs = torch.from_numpy(rng.integers(0, 256, (1, 8, 16))).to(torch.uint8)
+    geom = dict(ah=ah, aw=aw, bpc=8, vwY=13, vhY=5, vwC=7, vhC=3)
+    planes = torch.from_numpy(rng.integers(0, 256, (3, ah, aw)).astype(
+        np.int32))
+    ra = torch.from_numpy(rng.integers(-255, 256, 6 * ah * aw).astype(
+        np.int32))
+    assert (3 * ah * aw) % 4 == 3
+    for form in FORMS:
+        want = _kernel_matches_plain(
+            host_lib, planes, ra, b.dev(), b.hdr, runs, refs, refs, geom,
+            form, walks=((1, False), (3, True)))
+    assert (want[:, 4, 8:] != planes[:, 4, 8:]).any()

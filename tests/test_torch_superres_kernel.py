@@ -52,7 +52,7 @@ from rav1d_tpu_torch.engine.layout import HDR_LEN, SR0
 from rav1d_tpu_torch.headers import PixelLayout as PL
 from rav1d_tpu_torch.ops.cuda import filters as FK
 from rav1d_tpu_torch.recon.superres import get_upscale_x0
-from test_torch_filter_kernels import Frame, host_kernels
+from test_torch_filter_kernels import Frame, host_kernels, plain_lr_calls
 
 CSRC = os.path.join(os.path.dirname(FK.__file__), "..", "..", "csrc")
 PATTERN = 0x5A5A5A5A
@@ -240,8 +240,8 @@ def test_filter_program_superres_matches_plain(host):
     np.testing.assert_array_equal(got.numpy(), planes.numpy())
     np.testing.assert_array_equal(got_packed.numpy(), packed.numpy())
     w, s = FK.lr_launches(frame.pk.hdr, frame.layout)
-    assert {k: host.n[k] - n0[k] for k in n0} == dict(lf=2, cdef=1, sr=1,
-                                                      wiener=w, sgr=s)
+    assert {k: host.n[k] - n0[k] for k in n0} == dict(
+        lf=2, cdef=1, sr=1, wiener=w, sgr=s, sgr_plane=0)
     assert FL.calls == c0
 
 
@@ -269,7 +269,7 @@ def test_wrapper_takes_cuda_tensors_only():
     want, want_packed = frame.plain()
     np.testing.assert_array_equal(planes.numpy(), want.numpy())
     np.testing.assert_array_equal(packed.numpy(), want_packed.numpy())
-    w, s = FK.lr_launches(frame.pk.hdr, frame.layout)
-    assert FL.calls - c0 == 2 * (6 + 1 + 2 * 3 + w + s)  # filter_, plain
+    lr = plain_lr_calls(frame.pk.hdr, frame.layout)
+    assert FL.calls - c0 == 2 * (6 + 1 + 2 * 3 + lr)  # filter_, plain
     assert (FK.lf_launches, FK.cdef_launches, FK.sr_launches,
             FK.wiener_launches, FK.sgr_launches) == launches
