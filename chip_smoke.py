@@ -22,8 +22,8 @@ Phases (any failure exits non-zero before the last line):
    including extreme values; and each filter kernel, through its wrapper
    (ops/cuda/filters.py), against its plain pass (engine/filters.py) on
    random planes, maps and stripes in hand-built blobs at 8, 10 and 12
-   bits and in 4:0:0 (deblock, CDEF and the self-guided filter through
-   both their forms),
+   bits and in 4:0:0 (deblock, CDEF, Wiener and the self-guided filter
+   through both their forms),
    and the superres kernel against programs._superres (resize_plane)
    on random planes at 8, 10 and 12 bits in every layout at denominators
    9-16 (filter_kernel_phase); bit-identical required;
@@ -39,9 +39,9 @@ wave_plain on the same input (zero planes, or the inter program's on an
 inter frame; at 1080p only on still
 seed 1, inter frame 1 and the 12-bit 4:4:4 still, whose plain wavefront
 takes 10-30 s each), and on every engine frame filter_ (the filter
-kernels: two deblock launches, one CDEF launch, one Wiener launch per
-plane with such stripes, one self-guided launch where any plane has such
-stripes, one superres launch on a superres frame) must equal filter_plain
+kernels: two deblock launches, one CDEF launch, one Wiener launch and
+one self-guided launch where any plane has such stripes, one superres
+launch on a superres frame) must equal filter_plain
 on the wave program's output,
 planes and packed output; then one
 rav1d_tpu_torch.Decoder(device="cuda") at
@@ -68,12 +68,14 @@ filter_ and filter_plain in turns (CUDA events), the device time of each
 filter kernel (torch.profiler) and of its launches alone (CUDA events),
 each plain pass's time, and each kernel's bound (filter_work); on a
 superres frame also the upscale through one torch.matmul per plane by its
-banded resampling matrix (the library time); and deblock by direction and
-CDEF and the self-guided filter through the decoder path's kernels
-(rav1d_deblock, rav1d_cdef, rav1d_lr_sgr_frame) and their earlier forms
-(rav1d_lf_pass, rav1d_cdef_frame, rav1d_lr_sgr a plane), each stage's
-input from filter_plain (the self-guided launch's from filter_kernels,
-its outcome filter_plain's): new == earlier == the plain stage, and each
+banded resampling matrix (the library time); and deblock by direction,
+CDEF, Wiener and the self-guided filter through the decoder path's kernels
+(rav1d_deblock, rav1d_cdef, rav1d_lr_wiener_frame, rav1d_lr_sgr_frame)
+and their earlier forms (rav1d_lf_pass, rav1d_cdef_frame, rav1d_lr_wiener
+and rav1d_lr_sgr a plane), each stage's input from filter_plain (the loop
+restoration launches' from filter_kernels, the Wiener outcome each
+plane's lr_wiener_pass, the self-guided one filter_plain's): new ==
+earlier == the plain stage, and each
 form's device time (torch.profiler, each direction's launches alone in
 their own windows) and its launches alone (CUDA events), in turns, beside
 the stage's bound (filter_forms). On each 1080p inter frame the inter
@@ -142,7 +144,9 @@ forms' traced phases in clock cycles (inter_trace).
    run the stream's wall and mean per frame, the caller's thread's time
    in send_data, the syntax pass and get_picture, the dense passes' time
    (the worker's busy time) with the planner's and pack's shares, and the
-   CUDA-event stages;
+   CUDA-event stages; then, on a machine with two cards or more, the
+   640x360 inter sequence decoded on cuda:1 at delay 1 while card 0 is
+   current, to the host path's MD5s (second_card_phase);
 11. timing: on the blobs of phases 3 and 5, the frame launch and
    resid_plain (CUDA events), and torch.profiler windows over resid calls
    and over each class of the frame launched alone, which give the
@@ -161,7 +165,7 @@ Every decode must make no class_step and no inter_plain call, and each,
 but for the whole conformance streams of the vector phase, one wave frame
 launch per frame with wave items and no level launch, one inter launch
 per engine inter frame and none of its earlier form, and its frames'
-filter launches with no launch of the earlier deblock, CDEF and
+filter launches with no launch of the earlier deblock, CDEF, Wiener and
 self-guided forms and no plain filter call. The earlier filter forms then
 run once on their own over still seed 1's filter input, and the earlier
 inter form over the 1080p inter frame 1, their launch counts reset
@@ -840,9 +844,10 @@ def timing_phase(blobs):
     for label, bpc, d, hdr, tv, ah, aw in blobs:
         ra = torch.zeros(6 * ah * aw, dtype=torch.int32, device=d.device)
         k_ms = cuda_ms(lambda: I.itx_frame(d, hdr, tv, ra, aw, bpc), 50)
-        dev_ms = profiled_kernel_ms(
-            lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=bpc),
-            "itx_frame_kernel", 10)
+        dev_ms = profiled_names_ms(  # its mean per launch (one a call)
+            lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=bpc), 10,
+            ["itx_frame_kernel"], {"itx_frame_kernel": 1})[1][
+                "itx_frame_kernel"]
         r_ms = cuda_ms(lambda: P.resid(d, hdr, tv, ah=ah, aw=aw, bpc=bpc), 20)
         p_ms = cuda_ms(
             lambda: P.resid_plain(d, hdr, tv, ah=ah, aw=aw, bpc=bpc), 3)
@@ -1201,7 +1206,10 @@ def wave_timing(label, pk, d, ra, planes, kw, plain_ms):
     ms_l = [cuda_ms(per_level, 3)]
     ms_l.append(cuda_ms(per_level, 3))
     ms.append(cuda_ms(frame, 3))
-    dev_ms, k_ms = profiled_device_ms(frame, 1, "wave_frame_kernel")
+    # the frame kernel's mean per launch (one a call)
+    dev_ms, k_ms = profiled_names_ms(frame, 3, ["wave_frame_kernel"],
+                                     {"wave_frame_kernel": 1})
+    k_ms = k_ms["wave_frame_kernel"]
     dev_l, k_l = profiled_device_ms(per_level, 1, "wave_level_kernel")
     bar_ms = cuda_ms(barriers, 3)
     bar_dev = profiled_device_ms(barriers, 1, "wave_barrier_kernel")[1]
@@ -1305,24 +1313,27 @@ FILTERS = (
      "rav1d_tpu/engine/filters.py:84"),
     ("sr", ("superres_kernel",), "rav1d_superres_frame", "superres.cu",
      "rav1d_tpu/engine/filters.py:185"),
-    ("wiener", ("lr_wiener_kernel",), "rav1d_lr_wiener", "lr.cu",
-     "rav1d_tpu/engine/filters.py:246"),
+    ("wiener", ("lr_wiener_frame_kernel",), "rav1d_lr_wiener_frame",
+     "lr.cu", "rav1d_tpu/engine/filters.py:246"),
     ("sgr", ("lr_sgr_frame_kernel",), "rav1d_lr_sgr_frame", "lr.cu",
      "rav1d_tpu/engine/filters.py:253"),
 )
-# the earlier forms of deblock, CDEF and the self-guided filter (on no
-# decoder path), likewise
+# the earlier forms of deblock, CDEF and the two loop restoration filters
+# (on no decoder path), likewise
 EARLIER = (
     ("lf_lines", ("lf_pass_kernel",), "rav1d_lf_pass", "lf.cu",
      "rav1d_tpu/engine/filters.py:34"),
     ("cdef_global", ("cdef_frame_kernel",), "rav1d_cdef_frame", "cdef.cu",
      "rav1d_tpu/engine/filters.py:84"),
+    ("wiener_plane", ("lr_wiener_kernel",), "rav1d_lr_wiener", "lr.cu",
+     "rav1d_tpu/engine/filters.py:246"),
     ("sgr_plane", ("lr_sgr_kernel",), "rav1d_lr_sgr", "lr.cu",
      "rav1d_tpu/engine/filters.py:253"),
 )
 # each earlier form: the filter_forms stages it runs, the new kernel's key
 EARLIER_STAGES = {"lf_lines": (("lf_v", "lf_h"), "lf"),
                   "cdef_global": (("cdef",), "cdef"),
+                  "wiener_plane": (("wiener",), "wiener"),
                   "sgr_plane": (("sgr",), "sgr")}
 # the filter kernels across the run: launches in the decodes (the earlier
 # forms' must stay 0) and in the earlier forms' own run ("own"), frames
@@ -1368,6 +1379,7 @@ def filter_counts():
                 sr=FK.sr_launches, wiener=FK.wiener_launches,
                 sgr=FK.sgr_launches, lf_lines=FK.lf_lines_launches,
                 cdef_global=FK.cdef_global_launches,
+                wiener_plane=FK.wiener_plane_launches,
                 sgr_plane=FK.sgr_plane_launches, filter_plain=FL.calls)
 
 
@@ -1378,21 +1390,21 @@ def reset_filter_counts():
     FK.lf_launches = FK.cdef_launches = FK.sr_launches = 0
     FK.wiener_launches = FK.sgr_launches = 0
     FK.lf_lines_launches = FK.cdef_global_launches = 0
-    FK.sgr_plane_launches = 0
+    FK.wiener_plane_launches = FK.sgr_plane_launches = 0
     FL.calls = 0
 
 
 def filter_want(frames):
     """The filter launches of engine frames [(hdr, layout_i, superres?)]:
     two deblock and one CDEF launch each, one superres launch each with
-    superres, one Wiener launch per plane with such stripes, one
+    superres, one Wiener launch each with such stripes in any plane, one
     self-guided launch each with such stripes in any plane; no launch of
-    the earlier deblock, CDEF and self-guided forms and no plain filter
-    call (engine/filters.py calls counts the plain upscale too)."""
+    the earlier deblock, CDEF, Wiener and self-guided forms and no plain
+    filter call (engine/filters.py calls counts the plain upscale too)."""
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
     want = dict(lf=0, cdef=0, sr=0, wiener=0, sgr=0, lf_lines=0,
-                cdef_global=0, sgr_plane=0, filter_plain=0)
+                cdef_global=0, wiener_plane=0, sgr_plane=0, filter_plain=0)
     for hdr, layout_i, sr in frames:
         w, s = FK.lr_launches(hdr, layout_i)
         want["lf"] += 2
@@ -1734,7 +1746,8 @@ def kernel_event_ms(fin, d, pk, kw):
     its wrapper alone on the frame's filter input (CUDA events over 10
     frames' launches, host calls included; the launches are counted but
     happen outside the decodes, whose counts are reset before them); the
-    earlier self-guided form's per-plane launches too ("sgr_plane")."""
+    earlier loop restoration forms' per-plane launches too ("wiener_plane",
+    "sgr_plane")."""
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
     _, _, _, _, bh, bw, vis_h = kw["geom"]
@@ -1761,10 +1774,13 @@ def kernel_event_ms(fin, d, pk, kw):
     ms = {"lf": cuda_ms(lf, 10),
           "cdef": cuda_ms(lambda: FK.cdef_frame(out, pre, d, pk.hdr, **k),
                           10),
-          "wiener": cuda_ms(lr(FK.lr_wiener, ("w",)), 10),
+          "wiener": cuda_ms(lambda: FK.lr_wiener_frame(
+              out, x, pre, d, pk.hdr, layout_i=kw["layout_i"], phs=phs,
+              Ws=Ws, bpc=kw["bpc"]), 10),
           "sgr": cuda_ms(lambda: FK.lr_sgr_frame(
               out, x, pre, d, pk.hdr, layout_i=kw["layout_i"], phs=phs,
               Ws=Ws, bpc=kw["bpc"]), 10),
+          "wiener_plane": cuda_ms(lr(FK.lr_wiener_plane, ("w",)), 10),
           "sgr_plane": cuda_ms(lr(FK.lr_sgr_plane, (0, 1, 2)), 10)}
     if kw["sr_geom"] is not None:
         ms["sr"] = cuda_ms(lambda: FK.superres_frame(
@@ -1938,29 +1954,71 @@ def form_ms(row, form):
 
 @_filter_seconds
 def lr_inputs(fin, d, pk, kw):
-    """The self-guided launch's inputs in filter_kernels on a frame's
-    filter input: (a copy of its output buffer as the launch finds it, the
-    Wiener stripes written; the planes and the snapshot it reads; its
-    keywords), or None where the frame has no self-guided stripe; and
-    filter_plain's planes, the launch's plain outcome."""
+    """The loop restoration launches' inputs in filter_kernels on a frame's
+    filter input: {"wiener": ..., "sgr": ...}, each (a copy of its output
+    buffer as the launch finds it: the planes' copy, then with the Wiener
+    stripes written; the planes and the snapshot it reads; its keywords),
+    or None where the frame has no stripe of that filter; and
+    filter_plain's planes, the self-guided launch's plain outcome."""
     import types
 
     from rav1d_tpu_torch.engine import programs as P
     from rav1d_tpu_torch.ops.cuda import filters as FK
 
-    rec = []
+    rec = {"wiener": None, "sgr": None}
 
-    def lr_sgr_frame(out, src, lpf, dev, hdr, **k):
-        rec.append((out.clone(), src, lpf, k))
-        FK.lr_sgr_frame(out, src, lpf, dev, hdr, **k)
+    def recorder(key, launch):
+        def call(out, src, lpf, dev, hdr, **k):
+            rec[key] = (out.clone(), src, lpf, k)
+            launch(out, src, lpf, dev, hdr, **k)
+        return call
 
-    k = types.SimpleNamespace(lf_pass=FK.lf_pass, cdef_frame=FK.cdef_frame,
-                              superres_frame=FK.superres_frame,
-                              lr_wiener=FK.lr_wiener,
-                              lr_sgr_frame=lr_sgr_frame)
+    k = types.SimpleNamespace(
+        lf_pass=FK.lf_pass, cdef_frame=FK.cdef_frame,
+        superres_frame=FK.superres_frame,
+        lr_wiener_frame=recorder("wiener", FK.lr_wiener_frame),
+        lr_sgr_frame=recorder("sgr", FK.lr_sgr_frame))
     P.filter_kernels(fin.clone(), d, pk.hdr, k=k, **kw)
-    return (rec[0] if rec else None,
-            P.filter_plain(fin.clone(), d, pk.hdr, **kw)[0])
+    return rec, P.filter_plain(fin.clone(), d, pk.hdr, **kw)[0]
+
+
+def wiener_plain(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
+    """The Wiener launch's plain outcome: a copy of `out` with each plane's
+    Wiener stripes written by engine/filters.py lr_wiener_pass (from cat =
+    the plane's and the snapshot's first ph rows), as filter_plain runs
+    it."""
+    import torch
+
+    from rav1d_tpu_torch.engine import filters as FL
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.engine.layout import LRB
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    want = out.clone()
+    aw = out.shape[-1]
+    for pl, wiener, _ in FK.lr_planes(hdr, layout_i):
+        if not wiener:
+            continue
+        base, n = FK.lr_chunks(hdr, pl)["w"]
+        dsc = P._region(dev, base, n * 16 * LRB).view(n, 16, LRB)
+        dsc = dsc.permute(1, 0, 2).reshape(16, n * LRB)
+        cat = torch.cat([src[pl][: phs[pl]], lpf[pl][: phs[pl]]])
+        pf = torch.cat([want[pl].reshape(-1),
+                        torch.zeros(1, dtype=want.dtype, device=want.device)])
+        FL.lr_wiener_pass(pf, cat, dsc, Ws[pl], bpc, aw)
+        want[pl] = pf[:-1].view(want[pl].shape)
+    return want
+
+
+def lr_wiener_planes(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
+    """lr_wiener_frame through the earlier form: ops/cuda/filters.py
+    lr_wiener_plane on each plane with Wiener stripes."""
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+
+    for pl, wiener, _ in FK.lr_planes(hdr, layout_i):
+        if wiener:
+            FK.lr_wiener_plane(out[pl], src[pl], lpf[pl], dev, hdr, pl,
+                               ph=phs[pl], W=Ws[pl], bpc=bpc)
 
 
 def lr_sgr_planes(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
@@ -1975,13 +2033,14 @@ def lr_sgr_planes(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
 
 
 def filter_forms(label, fin, d, pk, kw):
-    """Deblock by direction, CDEF and the self-guided filter on a frame's
-    filter input through the new kernels (the decoder path's) and the
-    earlier forms (lf_pass_lines, cdef_frame_global, lr_sgr_plane on each
-    plane), each stage's input taken from filter_plain (plain_stages; the
-    self-guided launch's from filter_kernels, lr_inputs, held to
-    filter_plain's planes): every form's output must equal the plain
-    stage's; then
+    """Deblock by direction, CDEF, Wiener and the self-guided filter on a
+    frame's filter input through the new kernels (the decoder path's) and
+    the earlier forms (lf_pass_lines, cdef_frame_global, lr_wiener_plane
+    and lr_sgr_plane on each plane), each stage's input taken from
+    filter_plain (plain_stages; the loop restoration launches' from
+    filter_kernels, lr_inputs, the Wiener launch's held to wiener_plain,
+    the self-guided launch's to filter_plain's planes): every form's
+    output must equal the plain stage's; then
     each stage's device time per form (torch.profiler, each direction's
     launches alone in their own windows) and its launches alone with
     their host calls (CUDA events), the forms in turns (new, earlier,
@@ -2005,10 +2064,22 @@ def filter_forms(label, fin, d, pk, kw):
              "cdef": (FK.cdef_frame, FK.cdef_frame_global, "cdef_area_kernel",
                       "cdef_frame_kernel", "cdef", "cdef_global")}
     lr, st["sgr"] = lr_inputs(fin, d, pk, kw)
-    if lr is not None:
-        src["sgr"], lr_src, lr_lpf, lr_kw = lr
-        kern["sgr"] = lambda f: lambda x: f(x, lr_src, lr_lpf, d, pk.hdr,
-                                            **lr_kw)
+
+    def lr_stage(stage):  # binds the stage's recorded sources
+        _, lr_src, lr_lpf, lr_kw = lr[stage]
+        return lambda f: lambda x: f(x, lr_src, lr_lpf, d, pk.hdr, **lr_kw)
+
+    if lr["wiener"] is not None:
+        src["wiener"] = lr["wiener"][0]
+        st["wiener"] = wiener_plain(*lr["wiener"][:3], d, pk.hdr,
+                                    **lr["wiener"][3])
+        kern["wiener"] = lr_stage("wiener")
+        forms["wiener"] = (FK.lr_wiener_frame, lr_wiener_planes,
+                           "lr_wiener_frame_kernel", "lr_wiener_kernel",
+                           "wiener", "wiener_plane")
+    if lr["sgr"] is not None:
+        src["sgr"] = lr["sgr"][0]
+        kern["sgr"] = lr_stage("sgr")
         forms["sgr"] = (FK.lr_sgr_frame, lr_sgr_planes, "lr_sgr_frame_kernel",
                         "lr_sgr_kernel", "sgr", "sgr_plane")
     work = filter_work(pk, kw)
@@ -2036,9 +2107,12 @@ def filter_forms(label, fin, d, pk, kw):
             bufs = iter([src[stage].clone() for _ in range(n)])
             return lambda: runs[form](next(bufs))
 
-        # launches a call: the earlier self-guided form's one per plane
-        per = {"new": 1, "earlier": 1 if stage != "sgr" else sum(
-            sgr for _, _, sgr in FK.lr_planes(pk.hdr, kw["layout_i"]))}
+        # launches a call: the earlier loop restoration forms' one per
+        # plane with such stripes
+        lrp = FK.lr_planes(pk.hdr, kw["layout_i"])
+        per = {"new": 1, "earlier": {
+            "wiener": sum(w for _, w, _ in lrp),
+            "sgr": sum(s for _, _, s in lrp)}.get(stage, 1)}
         for form in ("new", "earlier", "earlier", "new"):
             # profiled_names_ms: a warm-up call and up to five windows of 5
             dev[form].append(profiled_names_ms(
@@ -2098,9 +2172,9 @@ def filter_kernel_phase(dev):
     the earlier form against engine/filters.py lf_dir_pass per plane;
     CDEF through both forms against cdef_pass (random level maps: both
     strengths, either, neither); LR against lr_wiener_pass and
-    lr_sgr_pass on a grid of stripes with a random kind each, the
-    self-guided stripes through the one-launch frame kernel and the
-    earlier per-plane form; the superres upscale of random
+    lr_sgr_pass on a grid of stripes with a random kind each, the Wiener
+    and the self-guided stripes each through their one-launch frame kernel
+    and their earlier per-plane form; the superres upscale of random
     planes and snapshots (runs at 0 and at the largest value among them)
     at 8, 10 and 12 bits in 4:0:0, 4:2:0, 4:2:2 and 4:4:4 at every
     denominator 9-16 (steps and starts as the decoder computes them; a
@@ -2239,7 +2313,11 @@ def filter_kernel_phase(dev):
         phs = tuple(ph if p == 0 else (ph + ss_ver) >> ss_ver
                     for p in range(3))
         lw = dict(layout_i=layout_i, phs=phs, Ws=(W,) * 3, bpc=bpc)
-        for key, kinds in (("wiener", ("w",)), ("sgr", (0, 1, 2))):
+        # each filter: every plane in one launch, and per plane through
+        # the earlier form
+        for key, kinds, frame, per_plane in (
+                ("wiener", ("w",), FK.lr_wiener_frame, lr_wiener_planes),
+                ("sgr", (0, 1, 2), FK.lr_sgr_frame, lr_sgr_planes)):
             got, old = src.clone(), src.clone()
             want = torch.cat([src.reshape(3, -1), torch.zeros(
                 (3, 1), dtype=torch.int32, device=dev)], 1)
@@ -2248,9 +2326,6 @@ def filter_kernel_phase(dev):
                     continue
                 vh = phs[p]
                 cat = torch.cat([src[p, :vh], lpf[p, :vh]])
-                if key == "wiener":
-                    FK.lr_wiener(got[p], src[p], lpf[p], blob, hdr, p, ph=vh,
-                                 W=W, bpc=bpc)
                 pf = want[p].clone()
                 for k in kinds:
                     if k == "w" and (p, k) in slots:
@@ -2259,10 +2334,9 @@ def filter_kernel_phase(dev):
                         FL.lr_sgr_pass(pf, cat, slots[p, k], W, k, bpc, aw)
                 want[p] = pf
             want = want[:, :-1].reshape(3, ah, aw)
-            if key == "sgr":  # every plane in one launch; and per plane
-                FK.lr_sgr_frame(got, src, lpf, blob, hdr, **lw)
-                lr_sgr_planes(old, src, lpf, blob, hdr, **lw)
-                check("sgr_plane", old, want)
+            frame(got, src, lpf, blob, hdr, **lw)
+            per_plane(old, src, lpf, blob, hdr, **lw)
+            check(key + "_plane", old, want)
             check(key, got, want)
             if torch.equal(want, src):
                 raise AssertionError(f"{key}: the stripes changed nothing")
@@ -2308,8 +2382,8 @@ def filter_kernel_phase(dev):
                                          f"layout {layout_i}, denominator "
                                          f"{denom}")
                 cases += 1
-    log(f"filter kernel phase: deblock, CDEF and the self-guided filter "
-        f"(both forms each) and Wiener bit-identical to their plain versions "
+    log(f"filter kernel phase: deblock, CDEF, Wiener and the self-guided "
+        f"filter (both forms each) bit-identical to their plain versions "
         f"at 8, 10 and 12 bits (and in 4:0:0), the superres "
         f"kernel to programs._superres in {cases} cases "
         f"(max |err| {json.dumps(FILT['err'])})")
@@ -2795,6 +2869,39 @@ def pipeline_phase(dev):
     return launches
 
 
+def second_card_phase():
+    """A decoder on the second card while the first is current: the
+    640x360 inter sequence on cuda:1 at delay 1 (the dense pass inline on
+    the caller's thread, which enters the decoder's card), decoded as
+    dav1d's CLI calls it (ring_decode), must give the host path's MD5s with
+    no fallback and its filter launches (filter_want). Run only on a
+    machine with two cards or more; returns its itx launches."""
+    import torch
+
+    import rav1d_tpu_torch as T
+    from rav1d_tpu_torch import synth
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"second card: not run ({n} card on this machine)")
+        return 0
+    packets = synth.inter_sequence(FMT_W, FMT_H, 3)
+    want = synth.decode_md5s(T.Decoder(T.Settings(apply_grain=False),
+                                       host_path=True), packets)
+    torch.cuda.set_device(0)
+    with FilterRecorder() as rec:
+        got, fell, c = ring_decode(torch.device("cuda", 1), packets, 1)
+        torch.cuda.synchronize(1)
+    fwant = filter_want(rec.check("second card"))
+    log(f"second card: cuda:1 at delay 1, the current card 0: md5 {got} "
+        f"{'==' if got == want else '!='} host path; fallbacks {fell}; "
+        f"filter launches {json.dumps({k: c[k] for k in fwant})}")
+    if got != want or fell or {k: c[k] for k in fwant} != fwant:
+        raise AssertionError("second card: the cuda:1 decode differs from "
+                             "the host path or its launches from filter_want")
+    return c["itx"]
+
+
 def idct8x8_phase(dev):
     """The 8x8 DCT_DCT batch: its entry point once at N=I8_N (launches
     counted), then kernel vs plain at N=256 x bpc 8/10/12 and at N=I8_N,
@@ -3003,6 +3110,7 @@ def main():
         launches += n + cli_phase(dev, tmp)
         worst = max(worst, err)
     launches += pipeline_phase(dev)
+    launches += second_card_phase()
     WAVE["launches"] += PIPE["wave"]
     INTER["launches"] += PIPE["inter"]
     rows = timing_phase(blobs)
@@ -3093,32 +3201,39 @@ def main():
     if level_launches != WAVE["rows"][lab]["levels"]:
         raise AssertionError("the level kernel's own run: not one launch "
                              "per level")
-    # the earlier deblock and CDEF forms' own run: their entries over still
-    # seed 1's filter input, the counts reset before and read after (they
-    # are on no decoder path), the result held to the plain stages
+    # the earlier deblock, CDEF, Wiener and self-guided forms' own run:
+    # their entries over still seed 1's filter input, the counts reset
+    # before and read after (they are on no decoder path), the result held
+    # to the plain stages
     fin1, fd1, fpk1, fkw1 = FILT["still1"]
     _, _, _, _, bh1, bw1, _ = fkw1["geom"]
     k1 = dict(bh=bh1, bw=bw1, layout_i=fkw1["layout_i"], bpc=fkw1["bpc"])
-    (lr_out, lr_src, lr_lpf, lr_kw), lr_want = lr_inputs(fin1, fd1, fpk1,
-                                                          fkw1)
-    n_sgr = sum(s for _, _, s in FK.lr_planes(fpk1.hdr, fkw1["layout_i"]))
+    lr1, lr_want = lr_inputs(fin1, fd1, fpk1, fkw1)
+    (w_out, w_src, w_lpf, w_kw), (lr_out, lr_src, lr_lpf, lr_kw) = (
+        lr1["wiener"], lr1["sgr"])
+    w_want = wiener_plain(w_out, w_src, w_lpf, fd1, fpk1.hdr, **w_kw)
+    lrp1 = FK.lr_planes(fpk1.hdr, fkw1["layout_i"])
+    n_w, n_sgr = sum(w for _, w, _ in lrp1), sum(s for _, _, s in lrp1)
     FK.lf_lines_launches = FK.cdef_global_launches = 0
-    FK.sgr_plane_launches = 0
+    FK.wiener_plane_launches = FK.sgr_plane_launches = 0
     x1 = fin1.clone()
     FK.lf_pass_lines(x1, fd1, fpk1.hdr, False, **k1)
     FK.lf_pass_lines(x1, fd1, fpk1.hdr, True, **k1)
     FK.cdef_frame_global(x1, x1.clone(), fd1, fpk1.hdr, **k1)
+    lr_wiener_planes(w_out, w_src, w_lpf, fd1, fpk1.hdr, **w_kw)
     lr_sgr_planes(lr_out, lr_src, lr_lpf, fd1, fpk1.hdr, **lr_kw)
     torch.cuda.synchronize()
     FILT["own"] = dict(lf_lines=FK.lf_lines_launches,
                        cdef_global=FK.cdef_global_launches,
+                       wiener_plane=FK.wiener_plane_launches,
                        sgr_plane=FK.sgr_plane_launches)
-    if FILT["own"] != dict(lf_lines=2, cdef_global=1, sgr_plane=n_sgr) or not (
+    if FILT["own"] != dict(lf_lines=2, cdef_global=1, wiener_plane=n_w,
+                           sgr_plane=n_sgr) or not (
             torch.equal(x1, plain_stages(fin1, fd1, fpk1, fkw1)["cdef"])
-            and torch.equal(lr_out, lr_want)):
-        raise AssertionError("the earlier deblock, CDEF and self-guided "
-                             f"forms' own run: launches {FILT['own']}, or != "
-                             "the plain stages")
+            and torch.equal(w_out, w_want) and torch.equal(lr_out, lr_want)):
+        raise AssertionError("the earlier deblock, CDEF, Wiener and "
+                             f"self-guided forms' own run: launches "
+                             f"{FILT['own']}, or != the plain stages")
     # the earlier inter form's own run: its entry over the 1080p 8-bit
     # inter frame 1, the count reset before and read after, held to
     # inter_plain

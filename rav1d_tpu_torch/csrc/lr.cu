@@ -1,7 +1,9 @@
-// Loop restoration, CUDA C++ for sm_90a: every Wiener stripe of a plane in
-// one launch (rav1d_lr_wiener), every self-guided stripe of all three kinds
-// of every plane in one launch a frame (rav1d_lr_sgr_frame; the earlier
-// form, rav1d_lr_sgr, takes a plane a launch and stays for comparison).
+// Loop restoration, CUDA C++ for sm_90a: every Wiener stripe of every plane
+// in one launch a frame (rav1d_lr_wiener_frame; the earlier form,
+// rav1d_lr_wiener, takes a plane a launch and stays for comparison), every
+// self-guided stripe of all three kinds of every plane in one launch a
+// frame (rav1d_lr_sgr_frame; the earlier form, rav1d_lr_sgr, takes a plane a
+// launch and stays for comparison).
 //
 // Replaces the XLA device kernels the JAX engine runs per (kind, plane)
 // slot: rav1d_tpu/engine/filters.py _gather_stripes (:212), _lr_scatter
@@ -37,7 +39,9 @@
 // Every intermediate is int32 arithmetic that wraps as the frameworks'
 // does (computed in uint32 here; C++ signed overflow is undefined).
 //
-// Design: one thread block per (stripe, 32 output columns), 256 threads;
+// Design (the earlier forms and the self-guided frame entry; the Wiener
+// frame entry below, at LrWienerSm): one thread block per (stripe, 32
+// output columns), 256 threads;
 // blocks past the stripe's h or width return at once. The block gathers
 // its tile (70 x 38 words) straight from the two planes through the
 // stripe's row and column maps (no concatenated copy of the planes), into
@@ -61,15 +65,18 @@
 // and table steps (about 60 int32 operations per pixel for one filter,
 // 120 for the mixed kind) take 0.0005-0.018 ms of the card's 16.7 T/s on
 // the 1080p test frames (chip_smoke.py filter_work). On an H100 80GB
-// HBM3 the frame entry took 0.013-0.060 ms of device time there, the
-// earlier form's three launches 0.025-0.065 ms (PERF.md): the gather and
-// the A/B step's arithmetic and weighted sums hold it, not the box sums.
+// HBM3 the self-guided frame entry took 0.013-0.060 ms of device time
+// there, the earlier form's three launches 0.025-0.065 ms (PERF.md): the
+// gather and the A/B step's arithmetic and weighted sums hold it, not the
+// box sums. The earlier Wiener form's launches took 0.026-0.038 ms a frame,
+// 6-15x their bytes bound: three serial launches of one wave of blocks
+// each, a per-pixel gather, and seven shared reads per intermediate.
 //
 // The same source compiles for the host with g++ (the #else branch at the
-// end): rav1d_lr_wiener_host, rav1d_lr_sgr_host and
-// rav1d_lr_sgr_frame_host walk the same blocks with the same step
-// functions, thread by thread, each barrier a loop boundary, for the CPU
-// tests.
+// end): rav1d_lr_wiener_host, rav1d_lr_wiener_frame_host,
+// rav1d_lr_sgr_host and rav1d_lr_sgr_frame_host walk the same blocks with
+// the same step functions, thread by thread, each barrier a loop boundary,
+// for the CPU tests.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -150,7 +157,8 @@ LR_HD int lr_ld(const int* p) {
 // One block's stripe: its descriptor and shared buffers.
 struct LrStripe {
     int kind;          // -1 Wiener, else the self-guided kind
-    int d[16];         // the descriptor
+    int d[16];         // the descriptor (its first nd words: lr_stripe)
+    const int* dsc;    // its first word in the blob (stride LR_LRB)
     int c0;            // the block's first output column
     int hh, ww;        // output rows and columns of the stripe
     int* tile;         // LR_ROWS x LR_TC
@@ -162,14 +170,17 @@ LR_HD int lr_blocks(const LrPass& p) {
     return p.nreg == 1 || p.nreg == 3 ? p.first[p.nreg] : -1;
 }
 
-LR_HD LrStripe lr_stripe(const LrPass& p, int s, int cb, int* sm) {
+// stripe s of the pass, column block cb: its kind, the first nd words of
+// its descriptor (16, or the Wiener frame entry's S_P0: the geometry, the
+// taps read by one thread a block) and its shared buffers from sm
+LR_HD LrStripe lr_stripe(const LrPass& p, int s, int cb, int* sm, int nd = 16) {
     LrStripe b;
     int r = 0;
     while (r + 1 < p.nreg && s >= p.first[r + 1]) r++;
     const int j = s - p.first[r];
     b.kind = p.nreg == 1 ? -1 : r;
-    const int* dsc = p.blob + p.base[r] + (size_t)(j / LR_LRB) * 16 * LR_LRB + (j % LR_LRB);
-    for (int f = 0; f < 16; f++) b.d[f] = lr_ld(dsc + f * LR_LRB);
+    b.dsc = p.blob + p.base[r] + (size_t)(j / LR_LRB) * 16 * LR_LRB + (j % LR_LRB);
+    for (int f = 0; f < nd; f++) b.d[f] = lr_ld(b.dsc + f * LR_LRB);
     b.c0 = cb * LR_CW;
     b.hh = b.d[S_H] < 64 ? b.d[S_H] : 64;
     b.ww = b.d[S_W] < p.W ? b.d[S_W] : p.W;
@@ -409,7 +420,7 @@ LR_HD void lr_sgr_out(const LrPass& p, const LrStripe& b, int t, int nt = LR_THR
 // any order.
 
 struct LrFrame {
-    LrPass pl[3];   // each plane's pass (nreg 3: the self-guided kinds)
+    LrPass pl[3];   // each plane's pass (nreg 3: the self-guided kinds; 1: Wiener)
     int nplanes;
     int ncb[3];     // column blocks of a stripe of the plane: ceil(W / LR_CW)
     int item0[4];   // the first item of each plane: item0[p] + stripe * ncb + block
@@ -426,12 +437,13 @@ LR_HD int* lr_v3q(const LrStripe& b) { return lr_v3s(b) + LR_V3 * LR_TC; }
 LR_HD int* lr_v5s(const LrStripe& b) { return lr_v3q(b) + LR_V3 * LR_TC; }
 LR_HD int* lr_v5q(const LrStripe& b) { return lr_v5s(b) + LR_V5 * LR_TC; }
 
-// arguments the frame kernel takes: 0, or -1
-LR_HD int lr_frame_check(const LrFrame& f) {
+// arguments a frame kernel takes, every plane's pass with nreg regions: 0,
+// or -1
+LR_HD int lr_frame_check(const LrFrame& f, int nreg) {
     if (f.nplanes < 1 || f.nplanes > 3 || f.item0[0] != 0) return -1;
     for (int i = 0; i < f.nplanes; i++) {
         const LrPass& p = f.pl[i];
-        if (p.nreg != 3 || p.W < 1 || p.bpc < 8 || p.bpc > 12 || lr_blocks(p) < 0) return -1;
+        if (p.nreg != nreg || p.W < 1 || p.bpc < 8 || p.bpc > 12 || lr_blocks(p) < 0) return -1;
         if (f.ncb[i] != (p.W + LR_CW - 1) / LR_CW) return -1;
         if (f.item0[i + 1] - f.item0[i] != (p.ph > 0 ? lr_blocks(p) * f.ncb[i] : 0)) return -1;
     }
@@ -535,6 +547,135 @@ LR_HD void lr_sgr_tables_sep(const LrPass& p, const LrStripe& b, int t) {
         }
 }
 
+// --------------------- Wiener, every plane in one launch ---------------------
+//
+// The frame entry (rav1d_lr_wiener_frame): each plane's Wiener pass (nreg 1)
+// and the launch's work items laid out as LrFrame lays them (a (stripe,
+// column block) each, plane by plane), a block of LR_THREADS threads each.
+// An item with no output (a padding stripe slot, a column block past the
+// stripe's width) exits after its descriptor's geometry, before any load.
+// The earlier form's three serial launches of one wave each (a 4:2:0
+// frame's planes) become one. Each block: the row map (a thread a tile row,
+// only the h + 6 rows the stripe reads) and the column map (a thread a
+// tile column); the tile through the maps, a thread a column with its rows'
+// loads in flight together, while one more thread reads the six filter
+// parameters and builds the taps (once a block); the horizontal pass into
+// the clipped intermediate (70 x 32 words), a tap pair per symmetric
+// column pair; the vertical pass a thread an output column and a run of
+// LR_VRUN rows, the last seven intermediates in registers (each read once
+// from shared memory, not seven times), a warp a row on the store. The
+// taps' products are summed in another order than lr_wiener_hor /
+// lr_wiener_ver's, and the bpc-8 horizontal term 128 * x3 joins the centre
+// tap (128 - 2 (q0 + q1 + q2) at every bpc): int32 addition and
+// multiplication wrap mod 2^32, so the sums are the same words. The launch
+// reads only src, lpf and the blob and writes only out. 20,344 bytes of
+// static shared memory a block.
+
+enum {
+    LR_WGROUPS = LR_THREADS / LR_TC,                       // gather: 6 threads a column
+    LR_WRPT = (LR_ROWS + LR_WGROUPS - 1) / LR_WGROUPS,     // and 12 rows a thread
+    LR_VRUN = 64 / (LR_THREADS / LR_CW),                   // vertical pass: 8 rows a thread
+};
+
+// a Wiener frame block's shared memory (the steps below take it whole; of
+// lr_stripe's buffers they use none)
+struct LrWienerSm {
+    const int* rows[LR_ROWS];  // each tile row's source row
+    int cols[LR_TC];           // each tile column's source column
+    int taps[8];               // horizontal (outer to centre), then vertical
+    int tile[LR_ROWS * LR_TC];
+    int mid[LR_ROWS * LR_CW];  // the clipped horizontal pass
+};
+
+// step 1a: the maps, a thread a row (the h + 6 the stripe reads), then a
+// thread a column
+LR_HD void lr_wmaps(const LrPass& p, const LrStripe& b, LrWienerSm& sm, int t) {
+    if (t < b.hh + 6) sm.rows[t] = lr_src_row(p, b, t);
+    else if (t >= LR_ROWS && t < LR_ROWS + LR_TC) sm.cols[t - LR_ROWS] = lr_src_col(p, b, t - LR_ROWS);
+}
+
+// step 1b: the tile through the maps, a thread a column and every
+// LR_WGROUPS-th row, its loads issued together; the next thread reads the
+// parameters and builds the taps (lr_taps' values, the bpc-8 centre term
+// folded in)
+LR_HD void lr_wgather(const LrStripe& b, LrWienerSm& sm, int t) {
+    if (t == LR_WGROUPS * LR_TC) {
+        int q[6];
+        for (int k = 0; k < 6; k++) q[k] = lr_ld(b.dsc + (S_P0 + k) * LR_LRB);
+        for (int k = 0; k < 3; k++) {
+            sm.taps[k] = q[k];
+            sm.taps[4 + k] = q[3 + k];
+        }
+        sm.taps[3] = wsub(128, wmul(wadd(wadd(q[0], q[1]), q[2]), 2));
+        sm.taps[7] = wsub(128, wmul(wadd(wadd(q[3], q[4]), q[5]), 2));
+    }
+    if (t >= LR_WGROUPS * LR_TC) return;
+    const int c = t % LR_TC, r0 = t / LR_TC, x = sm.cols[c], nrow = b.hh + 6;
+    int v[LR_WRPT];
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int k = 0; k < LR_WRPT; k++) {
+        const int r = r0 + k * LR_WGROUPS;
+        v[k] = r < nrow ? lr_ld(sm.rows[r] + x) : 0;
+    }
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int k = 0; k < LR_WRPT; k++) {
+        const int r = r0 + k * LR_WGROUPS;
+        if (r < nrow) sm.tile[r * LR_TC + c] = v[k];
+    }
+}
+
+// step 2: the horizontal pass (ops/lr.py wiener_batch) over the h + 6 rows
+LR_HD void lr_whor(const LrPass& p, const LrStripe& b, LrWienerSm& sm, int t) {
+    const int rb = 3 + (p.bpc == 12 ? 2 : 0);
+    const int clip = (1 << (p.bpc + 1 + 7 - rb)) - 1;
+    const int f0 = sm.taps[0], f1 = sm.taps[1], f2 = sm.taps[2], f3 = sm.taps[3];
+    const int base = wadd(1 << (p.bpc + 6), 1 << (rb - 1));
+    for (int i = t; i < (b.hh + 6) * LR_CW; i += LR_THREADS) {
+        const int* x = sm.tile + (i / LR_CW) * LR_TC + i % LR_CW;
+        int acc = wadd(base, wmul(x[3], f3));
+        acc = wadd(acc, wmul(wadd(x[0], x[6]), f0));
+        acc = wadd(acc, wmul(wadd(x[1], x[5]), f1));
+        acc = wadd(acc, wmul(wadd(x[2], x[4]), f2));
+        sm.mid[i] = lr_clamp(acc >> rb, 0, clip);
+    }
+}
+
+// step 3: the vertical pass and the store: output column t % LR_CW, rows
+// LR_VRUN * (t / LR_CW) on, the window of seven intermediates in registers
+LR_HD void lr_wver(const LrPass& p, const LrStripe& b, const LrWienerSm& sm, int t) {
+    const int c = t % LR_CW, r0 = (t / LR_CW) * LR_VRUN;
+    if (b.c0 + c >= b.ww || r0 >= b.hh) return;
+    const int rb = 11 - (p.bpc == 12 ? 2 : 0);
+    const int base = wsub(1 << (rb - 1), 1 << (p.bpc + rb - 1));
+    const int pmax = (1 << p.bpc) - 1;
+    const int f0 = sm.taps[4], f1 = sm.taps[5], f2 = sm.taps[6], f3 = sm.taps[7];
+    const int* m = sm.mid + r0 * LR_CW + c;
+    int w0 = m[0], w1 = m[LR_CW], w2 = m[2 * LR_CW], w3 = m[3 * LR_CW], w4 = m[4 * LR_CW],
+        w5 = m[5 * LR_CW];
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int j = 0; j < LR_VRUN; j++) {
+        if (r0 + j >= b.hh) break;
+        const int w6 = m[(j + 6) * LR_CW];
+        int acc = wadd(base, wmul(w3, f3));
+        acc = wadd(acc, wmul(wadd(w0, w6), f0));
+        acc = wadd(acc, wmul(wadd(w1, w5), f1));
+        acc = wadd(acc, wmul(wadd(w2, w4), f2));
+        lr_store(p, b, r0 + j, b.c0 + c, lr_clamp(acc >> rb, 0, pmax));
+        w0 = w1;
+        w1 = w2;
+        w2 = w3;
+        w3 = w4;
+        w4 = w5;
+        w5 = w6;
+    }
+}
+
 #ifdef __CUDACC__
 
 __global__ void __launch_bounds__(LR_THREADS) lr_wiener_kernel(const __grid_constant__ LrPass p) {
@@ -577,6 +718,22 @@ __global__ void __launch_bounds__(LR_FRAME_THREADS)
     lr_sgr_out(p, b, threadIdx.x, LR_FRAME_THREADS);
 }
 
+__global__ void __launch_bounds__(LR_THREADS)
+    lr_wiener_frame_kernel(const __grid_constant__ LrFrame f) {
+    __shared__ LrWienerSm sm;
+    int s, cb;
+    const LrPass& p = f.pl[lr_item(f, blockIdx.x, &s, &cb)];
+    const LrStripe b = lr_stripe(p, s, cb, sm.tile, S_P0);
+    if (!lr_active(b)) return;  // the same for every thread of the block
+    lr_wmaps(p, b, sm, threadIdx.x);
+    __syncthreads();
+    lr_wgather(b, sm, threadIdx.x);
+    __syncthreads();
+    lr_whor(p, b, sm, threadIdx.x);
+    __syncthreads();
+    lr_wver(p, b, sm, threadIdx.x);
+}
+
 static int lr_launch(const void* kernel, const LrPass* f, void* stream) {
     const int ns = lr_blocks(*f);
     if (ns < 0 || f->W < 1 || f->bpc < 8 || f->bpc > 12) return -1;
@@ -598,13 +755,23 @@ extern "C" int rav1d_lr_sgr(const LrPass* f, void* stream) {
     return f->nreg != 3 ? -1 : lr_launch((const void*)lr_sgr_kernel, f, stream);
 }
 
+// Every Wiener stripe of every plane in one launch on `stream`: a block per
+// item (static shared memory).
+extern "C" int rav1d_lr_wiener_frame(const LrFrame* f, void* stream) {
+    if (lr_frame_check(*f, 1)) return -1;
+    const int items = f->item0[f->nplanes];
+    if (items == 0) return 0;
+    lr_wiener_frame_kernel<<<items, LR_THREADS, 0, (cudaStream_t)stream>>>(*f);
+    return (int)cudaGetLastError();
+}
+
 // Every self-guided stripe of every plane in one launch on `stream`: a block
 // per item, each with lr_frame_smem_words() of dynamic shared memory (the
 // limit raised once per device).
 static bool lr_smem_set[64];
 
 extern "C" int rav1d_lr_sgr_frame(const LrFrame* f, void* stream) {
-    if (lr_frame_check(*f)) return -1;
+    if (lr_frame_check(*f, 3)) return -1;
     const int items = f->item0[f->nplanes];
     if (items == 0) return 0;
     const int bytes = lr_frame_smem_words() * (int)sizeof(int);
@@ -623,6 +790,8 @@ extern "C" int rav1d_lr_sgr_frame(const LrFrame* f, void* stream) {
 }
 
 #else  // a host build of the same functions, for the CPU tests
+
+#include <string.h>
 
 #include <vector>
 
@@ -659,7 +828,7 @@ extern "C" int rav1d_lr_sgr_host(const LrPass* f) { return lr_host(*f, 1); }
 // turn (the shared words start as a pattern at each block). Returns 0, or
 // -1 for arguments the kernel does not take.
 extern "C" int rav1d_lr_sgr_frame_host(const LrFrame* f, int reverse) {
-    if (lr_frame_check(*f)) return -1;
+    if (lr_frame_check(*f, 3)) return -1;
     std::vector<int> sm(lr_frame_smem_words());
     const int items = f->item0[f->nplanes];
     for (int i = 0; i < items; i++) {
@@ -674,6 +843,29 @@ extern "C" int rav1d_lr_sgr_frame_host(const LrFrame* f, int reverse) {
         for (int t = 0; t < LR_FRAME_THREADS; t++) lr_vsums(b, t);
         for (int t = 0; t < LR_FRAME_THREADS; t++) lr_sgr_tables_sep(p, b, t);
         for (int t = 0; t < LR_FRAME_THREADS; t++) lr_sgr_out(p, b, t, LR_FRAME_THREADS);
+    }
+    return 0;
+}
+
+// rav1d_lr_wiener_frame without the stream: every item's block, in order or
+// (`reverse`) from the last to the first, each step for every thread in
+// turn (the shared words, the row map's pointers too, start as a pattern at
+// each block). Returns 0, or -1 for arguments the kernel does not take.
+extern "C" int rav1d_lr_wiener_frame_host(const LrFrame* f, int reverse) {
+    if (lr_frame_check(*f, 1)) return -1;
+    LrWienerSm sm;
+    const int items = f->item0[f->nplanes];
+    for (int i = 0; i < items; i++) {
+        const int item = reverse ? items - 1 - i : i;
+        int s, cb;
+        const LrPass& p = f->pl[lr_item(*f, item, &s, &cb)];
+        memset(&sm, 0x5a, sizeof sm);
+        const LrStripe b = lr_stripe(p, s, cb, sm.tile, S_P0);
+        if (!lr_active(b)) continue;
+        for (int t = 0; t < LR_THREADS; t++) lr_wmaps(p, b, sm, t);
+        for (int t = 0; t < LR_THREADS; t++) lr_wgather(b, sm, t);
+        for (int t = 0; t < LR_THREADS; t++) lr_whor(p, b, sm, t);
+        for (int t = 0; t < LR_THREADS; t++) lr_wver(p, b, sm, t);
     }
     return 0;
 }

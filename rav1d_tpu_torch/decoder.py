@@ -16,7 +16,9 @@ handshake. A picture's host planes are complete when it is handed out
 DecodeError once, on the next send_data or get_picture.
 
 The dense pass runs on a torch device (`Decoder(device=...)`, default the
-first CUDA card) through the port's engine (engine/), which owns the
+first CUDA card; every launch and wait on the card happens inside
+`torch.cuda.device` of it, on the caller's thread and on the ring's
+worker alike: `_on_card`) through the port's engine (engine/), which owns the
 upload buffer (engine/blob.py Uploader) and receives it explicitly from
 this class, at every bit depth (8, 10, 12), chroma layout (4:0:0, 4:2:0,
 4:2:2, 4:4:4) and with superres. The reference engine's own host gates
@@ -30,6 +32,7 @@ picture it decodes on the device for later frames to predict from
 
 from __future__ import annotations
 
+import contextlib
 import errno
 import sys
 import threading
@@ -325,6 +328,12 @@ class Decoder:
         (rav1d_get_picture: output_picture_ready(c, c.n_fc == 1))."""
         self._raise_cached_error()
         drain, self._drain = self._drain, True
+        with self._on_card():
+            return self._get_picture(drain)
+
+    def _get_picture(self, drain):
+        """get_picture's body (inside this decoder's device: it runs the
+        dense pass at delay 1 and completes fetches)."""
         try:
             self._gen_picture()
         except EAgain:
@@ -638,7 +647,7 @@ class Decoder:
         if self._frame_delay() > 1:
             self._submit_dense(f)
         else:
-            self._decode_dense(f)
+            self._dense_on_card(f)
 
         if frame_hdr.show_frame or self.output_invisible_frames:
             self._queue_out(f.sr_cur)
@@ -649,6 +658,21 @@ class Decoder:
         from .recon.frame import decode_frame_dense
 
         decode_frame_dense(f, self.uploader)
+
+    def _on_card(self):
+        """The context every launch and wait of this decoder runs in:
+        `torch.cuda.device(self.device)` on a CUDA device (the current
+        device is per thread, and the kernels' wrappers launch on it), else
+        none."""
+        if self.device is not None and self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _dense_on_card(self, f):
+        """The frame's dense pass inside this decoder's device, at every
+        frame delay: inline at delay 1, on the ring's worker above."""
+        with self._on_card():
+            self._decode_dense(f)
 
     # -- frame ring (dense-pass pipelining) ---------------------------------
 
@@ -681,11 +705,7 @@ class Decoder:
         and its picture is never handed out; frames that predict from it
         are corrupt, as in dav1d."""
         try:
-            if self.device is not None and self.device.type == "cuda":
-                with torch.cuda.device(self.device):
-                    self._decode_dense(f)
-            else:
-                self._decode_dense(f)
+            self._dense_on_card(f)
         except Exception as e:
             self._log(f"rav1d: dense pass failed: {e!r}")
             f.sr_cur._dense_failed = True

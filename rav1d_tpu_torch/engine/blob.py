@@ -15,6 +15,7 @@ and the pictures whose copy is not complete yet.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -88,10 +89,13 @@ class FetchPool:
     `depth` buffers exist: when none is free, the oldest pending picture is
     completed first (rav1d_tpu's FETCH_LAG rule), which waits only for a
     frame queued before the one that asks. One lock: the frame ring's
-    worker starts fetches while the decoder's thread completes them."""
+    worker starts fetches while the decoder's thread completes them. A
+    fetch completes inside `torch.cuda.device` of the pool's device,
+    whatever thread asks."""
 
     def __init__(self, device, depth):
-        self.pin = torch.device(device).type == "cuda"
+        self.device = torch.device(device)
+        self.pin = self.device.type == "cuda"
         self.depth = depth
         self.free = []
         self.count = 0  # buffers in existence, free or held
@@ -133,7 +137,9 @@ class FetchPool:
             else:
                 return
             try:
-                finish()
+                with (torch.cuda.device(self.device) if self.pin
+                      else contextlib.nullcontext()):
+                    finish()
             finally:  # only now: another thread's materialize waits here
                 del self.pending[i]
                 pic._pending_fetch = None

@@ -555,9 +555,9 @@ def filter_(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws, sr_geom=None):
     packed output: the whole luma plane then the (ach, acw) chroma planes,
     uint8 at 8 bits, int16 at 10 and 12). On the card the hand-written
     filter kernels (filter_kernels: two deblock launches, one CDEF launch,
-    one superres launch with sr_geom, one Wiener launch per plane with such
-    stripes, one self-guided launch if any plane has such stripes); on the
-    CPU the plain version `filter_plain`."""
+    one superres launch with sr_geom, one Wiener launch if any plane has
+    such stripes, one self-guided launch if any plane has such stripes); on
+    the CPU the plain version `filter_plain`."""
     kw = dict(geom=geom, bpc=bpc, layout_i=layout_i, lr_ws=lr_ws,
               sr_geom=sr_geom)
     if planes.device.type == "cpu":
@@ -614,8 +614,8 @@ def filter_kernels(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws,
     planes, one launch; with sr_geom, the upscale of every plane of the
     planes and the snapshot into a new tensor, one launch; loop
     restoration from the planes and the snapshot into a copy of the
-    planes, one Wiener launch per plane with such stripes and one
-    self-guided launch over every plane's; the packed output."""
+    planes, one Wiener launch and then one self-guided launch, each over
+    every plane's stripes of its kind; the packed output."""
     _, _, ach, acw, bh, bw, cur_h = geom
     ss_ver = cuda_filters.subsampling(layout_i)[1]
     kw = dict(bh=bh, bw=bw, layout_i=layout_i, bpc=bpc)
@@ -634,13 +634,11 @@ def filter_kernels(planes, dev, hdr, *, geom, bpc, layout_i, lr_ws,
         out = planes.clone()  # every stripe reads the planes before any write
         phs = tuple((vis_h + sv) >> sv for sv in (0, ss_ver, ss_ver))
         Ws = (lr_ws[0], lr_ws[1], lr_ws[1])
-        for pl, wiener, _ in lr:
-            if wiener:
-                k.lr_wiener(out[pl], planes[pl], pre_cdef[pl], dev, hdr, pl,
-                            ph=phs[pl], W=Ws[pl], bpc=bpc)
+        kw = dict(layout_i=layout_i, phs=phs, Ws=Ws, bpc=bpc)
+        if any(wiener for _, wiener, _ in lr):
+            k.lr_wiener_frame(out, planes, pre_cdef, dev, hdr, **kw)
         if any(sgr for _, _, sgr in lr):
-            k.lr_sgr_frame(out, planes, pre_cdef, dev, hdr, layout_i=layout_i,
-                           phs=phs, Ws=Ws, bpc=bpc)
+            k.lr_sgr_frame(out, planes, pre_cdef, dev, hdr, **kw)
         planes = out
     return planes, _pack_out(planes, ach, acw, bpc, layout_i != 0)
 

@@ -14,19 +14,22 @@ csrc/, one library per source) on the current stream:
 - `superres_frame(planes, pre, hdr, ...)`: csrc/superres.cu
   rav1d_superres_frame, the upscale of every plane of the post-CDEF
   planes and of the snapshot, into a new (2, 3, s_ah, s_aw) tensor;
-- `lr_wiener(out, src, lpf, dev, hdr, pl, ...)`: csrc/lr.cu
-  rav1d_lr_wiener, every Wiener stripe of plane `pl`, read from the
-  post-CDEF plane `src` and the pre-CDEF plane `lpf`, written to `out`;
+- `lr_wiener_frame(out, src, lpf, dev, hdr, ...)`: csrc/lr.cu
+  rav1d_lr_wiener_frame, every Wiener stripe of every plane of the (3, ah,
+  aw) planes, read from the post-CDEF planes `src` and the pre-CDEF planes
+  `lpf`, written to `out`;
 - `lr_sgr_frame(out, src, lpf, dev, hdr, ...)`: csrc/lr.cu
   rav1d_lr_sgr_frame, every self-guided stripe of every plane (all three
-  kinds) of the (3, ah, aw) planes, likewise.
+  kinds), likewise.
 
 `lf_pass_lines` (csrc/lf.cu rav1d_lf_pass, a line per block),
 `cdef_frame_global` (csrc/cdef.cu rav1d_cdef_frame, taps read from global
-memory) and `lr_sgr_plane` (csrc/lr.cu rav1d_lr_sgr, one launch per
-plane, each box sum straight from the tile) are the earlier forms of
-deblock, CDEF and the self-guided filter, on no decoder path: they stay
-for comparison on the card.
+memory), `lr_wiener_plane` (csrc/lr.cu rav1d_lr_wiener, one launch per
+plane, each tile pixel's source computed in place) and `lr_sgr_plane`
+(csrc/lr.cu rav1d_lr_sgr, one launch per plane, each box sum straight from
+the tile) are the earlier forms of deblock, CDEF and the two loop
+restoration filters, on no decoder path: they stay for comparison on the
+card.
 
 Their plain versions are engine/filters.py lf_dir_pass, cdef_pass,
 resize_plane (through engine/programs.py _superres), lr_wiener_pass and
@@ -37,7 +40,8 @@ it, and never fall back. `*_args` build a launch's arguments for any
 device (the CPU tests hand them to the sources' host builds). Counters:
 `lf_launches`, `cdef_launches`, `sr_launches`, `wiener_launches`,
 `sgr_launches`; the earlier forms' `lf_lines_launches`,
-`cdef_global_launches` and `sgr_plane_launches`.
+`cdef_global_launches`, `wiener_plane_launches` and
+`sgr_plane_launches`.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ lf_lines_launches = 0
 cdef_global_launches = 0
 sr_launches = 0
 wiener_launches = 0
+wiener_plane_launches = 0
 sgr_launches = 0
 sgr_plane_launches = 0
 
@@ -122,8 +127,8 @@ LR_CW = 32  # csrc/lr.cu: output columns of an item
 _ENTRIES = {"lf": ("lf.cu", ("rav1d_deblock", "rav1d_lf_pass")),
             "cdef": ("cdef.cu", ("rav1d_cdef", "rav1d_cdef_frame")),
             "superres": ("superres.cu", ("rav1d_superres_frame",)),
-            "lr": ("lr.cu", ("rav1d_lr_wiener", "rav1d_lr_sgr",
-                             "rav1d_lr_sgr_frame"))}
+            "lr": ("lr.cu", ("rav1d_lr_wiener", "rav1d_lr_wiener_frame",
+                             "rav1d_lr_sgr", "rav1d_lr_sgr_frame"))}
 
 
 def lib(name):
@@ -304,22 +309,15 @@ def superres_args(out, planes, pre, hdr, *, cur_h, sr_geom, layout_i, bpc):
 
 def lr_chunks(hdr, pl):
     """{kind: (descriptor base, chunks)} of plane pl's LR slots."""
-    return {k: (int(hdr[LR0 + 2 * (4 * pl + i)]),
-                int(hdr[LR0 + 2 * (4 * pl + i) + 1]))
-            for i, k in enumerate(KINDS)}
+    w = hdr[LR0 + 8 * pl : LR0 + 8 * pl + 8].tolist()
+    return {k: (w[2 * i], w[2 * i + 1]) for i, k in enumerate(KINDS)}
 
 
-def lr_args(out, src, lpf, dev, hdr, pl, kinds, *, ph, W, bpc):
-    """The LrPass of plane pl's slots `kinds` (("w",) or (0, 1, 2)): `out`
-    its restored copy, `src` the post-CDEF plane and `lpf` the pre-CDEF
-    plane, each (ah, aw); ph its visible rows; W the slot's tile width."""
-    _check(out, src, lpf, dev)
-    if not (out.shape == src.shape == lpf.shape) or out.dim() != 2:
-        raise ValueError("lr kernel: out, src and lpf must be (ah, aw) planes")
-    ah, aw = out.shape
+def _lr_pass(ptrs, dev, hdr, pl, kinds, *, ah, aw, ph, W, bpc):
+    """The LrPass of plane pl's slots `kinds` on the (out, src, lpf)
+    plane pointers `ptrs` of (ah, aw) int32 planes."""
     ch = lr_chunks(hdr, pl)
-    a = LrPass(out.data_ptr(), src.data_ptr(), lpf.data_ptr(), dev.data_ptr(),
-               ah, aw, ph, W, bpc, len(kinds))
+    a = LrPass(*ptrs, dev.data_ptr(), ah, aw, ph, W, bpc, len(kinds))
     first = 0
     for r, k in enumerate(kinds):
         base, n = ch[k]
@@ -333,27 +331,50 @@ def lr_args(out, src, lpf, dev, hdr, pl, kinds, *, ph, W, bpc):
     return a
 
 
-def lr_frame_args(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
-    """The LrFrame of a frame's self-guided stripes: `out` the planes'
-    restored copy, `src` the post-CDEF planes and `lpf` the pre-CDEF
-    planes, each (3, ah, aw); phs and Ws each plane's visible rows and
-    slot tile width. Its items: each plane's stripe slots (three kinds'
-    regions) times the column blocks of its W."""
+def _lr_planes_check(out, src, lpf, dev, dim):
+    _check(out, src, lpf, dev)
+    if not (out.shape == src.shape == lpf.shape) or out.dim() != dim:
+        raise ValueError("lr kernel: out, src and lpf must be "
+                         + ("(ah, aw) planes" if dim == 2 else
+                            "(3, ah, aw) planes"))
+
+
+def lr_args(out, src, lpf, dev, hdr, pl, kinds, *, ph, W, bpc):
+    """The LrPass of plane pl's slots `kinds` (("w",) or (0, 1, 2)): `out`
+    its restored copy, `src` the post-CDEF plane and `lpf` the pre-CDEF
+    plane, each (ah, aw); ph its visible rows; W the slot's tile width."""
+    _lr_planes_check(out, src, lpf, dev, 2)
+    ah, aw = out.shape
+    return _lr_pass((out.data_ptr(), src.data_ptr(), lpf.data_ptr()), dev,
+                    hdr, pl, kinds, ah=ah, aw=aw, ph=ph, W=W, bpc=bpc)
+
+
+def lr_frame_args(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc,
+                  kinds=(0, 1, 2)):
+    """The LrFrame of a frame's self-guided stripes (`kinds` (0, 1, 2)) or
+    Wiener stripes (("w",)): `out` the planes' restored copy, `src` the
+    post-CDEF planes and `lpf` the pre-CDEF planes, each (3, ah, aw); phs
+    and Ws each plane's visible rows and slot tile width. Its items: each
+    plane's stripe slots (its kinds' regions) times the column blocks of
+    its W. (Each plane's pointers are its tensor's plus the planes before
+    it: one check and no view a plane, as the launch's host time counts.)"""
+    _lr_planes_check(out, src, lpf, dev, 3)
+    _, ah, aw = out.shape
+    ptrs = (out.data_ptr(), src.data_ptr(), lpf.data_ptr())
     a = LrFrame()
     a.nplanes = 1 if layout_i == 0 else 3
     for p in range(a.nplanes):
-        a.pl[p] = lr_args(out[p], src[p], lpf[p], dev, hdr, p, (0, 1, 2),
-                          ph=phs[p], W=Ws[p], bpc=bpc)
+        a.pl[p] = _lr_pass([q + 4 * p * ah * aw for q in ptrs], dev, hdr, p,
+                           kinds, ah=ah, aw=aw, ph=phs[p], W=Ws[p], bpc=bpc)
         a.ncb[p] = -(-Ws[p] // LR_CW)
-        a.item0[p + 1] = a.item0[p] + (a.pl[p].first[3] * a.ncb[p]
+        a.item0[p + 1] = a.item0[p] + (a.pl[p].first[len(kinds)] * a.ncb[p]
                                        if phs[p] > 0 else 0)
     return a
 
 
 def lr_planes(hdr, layout_i):
     """[(plane, Wiener stripes?, self-guided stripes?)] of the planes with
-    LR stripes: each takes one Wiener launch if it has such stripes (and
-    the frame one self-guided launch if any plane has)."""
+    LR stripes."""
     out = []
     for pl in range(1 if layout_i == 0 else 3):
         ch = lr_chunks(hdr, pl)
@@ -364,10 +385,10 @@ def lr_planes(hdr, layout_i):
 
 
 def lr_launches(hdr, layout_i):
-    """(Wiener launches, self-guided launches) of a frame: one a plane
-    with Wiener stripes, one if any plane has self-guided stripes."""
+    """(Wiener launches, self-guided launches) of a frame: one if any
+    plane has Wiener stripes, one if any plane has self-guided stripes."""
     planes = lr_planes(hdr, layout_i)
-    return (sum(w for _, w, _ in planes),
+    return (int(any(w for _, w, _ in planes)),
             int(any(s for _, _, s in planes)))
 
 
@@ -436,12 +457,23 @@ def superres_frame(planes, pre, hdr, *, cur_h, sr_geom, layout_i, bpc):
     return out
 
 
-def lr_wiener(out, src, lpf, dev, hdr, pl, *, ph, W, bpc):
-    """Every Wiener stripe of plane pl into `out`: one launch."""
+def lr_wiener_frame(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):
+    """Every Wiener stripe of every plane into `out` (3, ah, aw): one
+    launch."""
     global wiener_launches
+    a = lr_frame_args(out, src, lpf, dev, hdr, layout_i=layout_i, phs=phs,
+                      Ws=Ws, bpc=bpc, kinds=("w",))
+    _launch("lr", "rav1d_lr_wiener_frame", a, out)
+    wiener_launches += 1
+
+
+def lr_wiener_plane(out, src, lpf, dev, hdr, pl, *, ph, W, bpc):
+    """Every Wiener stripe of plane pl into `out` through the earlier
+    form, rav1d_lr_wiener: one launch."""
+    global wiener_plane_launches
     a = lr_args(out, src, lpf, dev, hdr, pl, ("w",), ph=ph, W=W, bpc=bpc)
     _launch("lr", "rav1d_lr_wiener", a, out)
-    wiener_launches += 1
+    wiener_plane_launches += 1
 
 
 def lr_sgr_frame(out, src, lpf, dev, hdr, *, layout_i, phs, Ws, bpc):

@@ -4,15 +4,17 @@ engine's, exactly.
 csrc/lf.cu, csrc/cdef.cu and csrc/lr.cu compiled for the host with g++:
 their host entries (rav1d_deblock_host and the earlier form's
 rav1d_lf_pass_host, rav1d_cdef_host and the earlier rav1d_cdef_frame_host,
-rav1d_lr_wiener_host, rav1d_lr_sgr_frame_host and the earlier per-plane
-rav1d_lr_sgr_host) walk the thread blocks of a
+rav1d_lr_wiener_frame_host, rav1d_lr_sgr_frame_host and the earlier
+per-plane rav1d_lr_wiener_host and rav1d_lr_sgr_host) walk the thread
+blocks of a
 launch with the kernels' own step functions, thread by thread, each
 barrier a loop boundary (a thread's registers kept across it), shared
 words and registers pre-filled with a pattern, on the arguments
 ops/cuda/filters.py builds for the launch (`*_args`). The kernels
 themselves build and run only on the card, where chip_smoke.py holds them
-to their plain versions. Checked, the deblock, CDEF and self-guided cases
-for both forms ("new": the decoder path's entries; "earlier"):
+to their plain versions. Checked, the deblock, CDEF, Wiener and
+self-guided cases for both forms ("new": the decoder path's entries;
+"earlier"):
 
 - deblock (`deblock_args`, `lf_args` over a hand-built blob): one
   direction's pass over all three planes against engine/filters.py
@@ -43,12 +45,13 @@ for both forms ("new": the decoder path's entries; "earlier"):
   10 and 12 bits, on stripes at the top, bottom, left and right of the
   frame, with S_W < W, S_W = W and S_W > W and S_H < 64, lpf rows from
   the pre-CDEF plane; 66 narrow stripes in two descriptor chunks; the
-  self-guided kinds through the one-launch frame entry (blocks forwards
-  and backwards) and the earlier per-plane one: three 4:4:4 planes also
-  against sgr_batch, 4:0:0 (chroma stripes in the blob to ignore), 4:2:2
-  and 4:2:0, with a column range past the plane, lpf rows from cat row
-  ph, no left context at x0 > 0, S_W > W at a W of 48, and pixels up to
-  2^16 where the int32 arithmetic wraps;
+  Wiener stripes and the self-guided kinds each through their one-launch
+  frame entry (blocks forwards and backwards) and the earlier per-plane
+  one: three 4:4:4 planes also against wiener_batch and sgr_batch, 4:0:0
+  (chroma stripes in the blob to ignore), 4:2:2 and 4:2:0, with a column
+  range past the plane, lpf rows from cat row ph, no left context at x0 >
+  0, S_W > W at a W of 48, and (self-guided) pixels up to 2^16 where the
+  int32 arithmetic wraps;
 - the kernels' constant tables and rav1d_cdef's packed direction tables
   against engine/consts.py and ops/cdef.py;
 - engine/programs.py filter_kernels through the host entries (and
@@ -118,8 +121,10 @@ def host_kernels(d):
                libs["lr"].rav1d_lr_table_host):
         fn.argtypes = [_VOID]
         fn.restype = ctypes.c_int
-    libs["lr"].rav1d_lr_sgr_frame_host.argtypes = [_VOID, ctypes.c_int]
-    libs["lr"].rav1d_lr_sgr_frame_host.restype = ctypes.c_int
+    for fn in (libs["lr"].rav1d_lr_sgr_frame_host,
+               libs["lr"].rav1d_lr_wiener_frame_host):
+        fn.argtypes = [_VOID, ctypes.c_int]
+        fn.restype = ctypes.c_int
     return HostKernels(libs)
 
 
@@ -134,16 +139,17 @@ FORMS = ["new", "earlier"]
 class HostKernels:
     """ops/cuda/filters.py's launch wrappers with the host entries in place
     of the launches; `n` counts the calls per kernel. `form` "earlier"
-    runs the earlier forms' entries for deblock, CDEF and the self-guided
-    filter (lf_pass_lines, cdef_frame_global, lr_sgr_plane for each plane
-    in place of lr_sgr_frame); `group` sets the deblock band; `reverse`
-    runs the one-launch self-guided entry's blocks from the last."""
+    runs the earlier forms' entries for deblock, CDEF and the two loop
+    restoration filters (lf_pass_lines, cdef_frame_global, lr_wiener_plane
+    and lr_sgr_plane for each plane in place of lr_wiener_frame and
+    lr_sgr_frame); `group` sets the deblock band; `reverse` runs the
+    one-launch loop restoration entries' blocks from the last."""
 
     def __init__(self, libs, form="new", group=None, reverse=False):
         self.libs, self.form, self.group = libs, form, group
         self.reverse = reverse
         self.n = dict.fromkeys(("lf", "cdef", "sr", "wiener", "sgr",
-                                "sgr_plane"), 0)
+                                "wiener_plane", "sgr_plane"), 0)
 
     def of(self, form, group=None, reverse=False):
         """The same libraries through another form."""
@@ -177,29 +183,39 @@ class HostKernels:
                   FK.superres_args(out, planes, pre, hdr, **kw), "sr")
         return out
 
-    def lr_wiener(self, out, src, lpf, dev, hdr, pl, **kw):
+    def lr_wiener_plane(self, out, src, lpf, dev, hdr, pl, **kw):
         self._run("lr", "rav1d_lr_wiener_host",
                   FK.lr_args(out, src, lpf, dev, hdr, pl, ("w",), **kw),
-                  "wiener")
+                  "wiener_plane")
 
     def lr_sgr_plane(self, out, src, lpf, dev, hdr, pl, **kw):
         self._run("lr", "rav1d_lr_sgr_host",
                   FK.lr_args(out, src, lpf, dev, hdr, pl, (0, 1, 2), **kw),
                   "sgr_plane")
 
-    def lr_sgr_frame(self, out, src, lpf, dev, hdr, *, layout_i, phs, Ws,
-                     bpc):
+    def _lr_frame(self, sgr, out, src, lpf, dev, hdr, *, layout_i, phs, Ws,
+                  bpc):
         if self.form == "earlier":  # one launch per plane with stripes
-            for pl, _, sgr in FK.lr_planes(hdr, layout_i):
-                if sgr:
-                    self.lr_sgr_plane(out[pl], src[pl], lpf[pl], dev, hdr,
-                                      pl, ph=phs[pl], W=Ws[pl], bpc=bpc)
+            plane = self.lr_sgr_plane if sgr else self.lr_wiener_plane
+            for pl, w, s in FK.lr_planes(hdr, layout_i):
+                if s if sgr else w:
+                    plane(out[pl], src[pl], lpf[pl], dev, hdr, pl,
+                          ph=phs[pl], W=Ws[pl], bpc=bpc)
             return
         a = FK.lr_frame_args(out, src, lpf, dev, hdr, layout_i=layout_i,
-                             phs=phs, Ws=Ws, bpc=bpc)
-        assert self.libs["lr"].rav1d_lr_sgr_frame_host(
-            ctypes.byref(a), int(self.reverse)) == 0
-        self.n["sgr"] += 1
+                             phs=phs, Ws=Ws, bpc=bpc,
+                             kinds=(0, 1, 2) if sgr else ("w",))
+        entry = ("rav1d_lr_sgr_frame_host" if sgr
+                 else "rav1d_lr_wiener_frame_host")
+        assert getattr(self.libs["lr"], entry)(ctypes.byref(a),
+                                               int(self.reverse)) == 0
+        self.n["sgr" if sgr else "wiener"] += 1
+
+    def lr_wiener_frame(self, *a, **kw):
+        self._lr_frame(False, *a, **kw)
+
+    def lr_sgr_frame(self, *a, **kw):
+        self._lr_frame(True, *a, **kw)
 
 
 class Blob:
@@ -648,16 +664,11 @@ def _lr_check(host, bpc, kind, d, form="new"):
     want = pf[:-1].view(LR_AH, LR_AW)
     np.testing.assert_array_equal(want.numpy().ravel(), np.asarray(jout))
     got = _t(src)
-    kw = dict(ph=LR_PH, W=LR_W, bpc=bpc)
-    if kind == "w":
-        host.lr_wiener(got, _t(src), _t(lpf), blob.dev(), blob.hdr, 0, **kw)
-    elif form == "earlier":
-        host.lr_sgr_plane(got, _t(src), _t(lpf), blob.dev(), blob.hdr, 0,
-                          **kw)
-    else:  # the frame entry over one plane (4:0:0)
-        host.lr_sgr_frame(got[None], _t(src)[None], _t(lpf)[None],
-                          blob.dev(), blob.hdr, layout_i=0, phs=(LR_PH,),
-                          Ws=(LR_W,), bpc=bpc)
+    # the earlier form's entry, or the frame entry over one plane (4:0:0)
+    k = host.of(form)
+    (k.lr_wiener_frame if kind == "w" else k.lr_sgr_frame)(
+        got[None], _t(src)[None], _t(lpf)[None], blob.dev(), blob.hdr,
+        layout_i=0, phs=(LR_PH,), Ws=(LR_W,), bpc=bpc)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     changed = want.numpy() != src
     for x0, y0, w, h in d[:4].T:
@@ -667,9 +678,9 @@ def _lr_check(host, bpc, kind, d, form="new"):
         assert not changed[56:120, 64 + LR_W : 168].any()
 
 
-# the self-guided kinds through both forms (the one-launch frame entry and
-# the earlier per-plane entry); Wiener has one
-LR_FORMS = [("w", "new")] + [(k, f) for k in (0, 1, 2) for f in FORMS]
+# every kind through both forms (the one-launch frame entries and the
+# earlier per-plane entries)
+LR_FORMS = [(k, f) for k in ("w", 0, 1, 2) for f in FORMS]
 
 
 @pytest.mark.parametrize("kind,form", LR_FORMS,
@@ -681,8 +692,11 @@ def test_lr_stripes(host, bpc, kind, form):
 
 
 def test_lr_two_chunks(host):
-    """66 narrow stripes: the second descriptor chunk, the region walk."""
-    _lr_check(host, 10, "w", _lr_case(np.random.default_rng(3), "w", True))
+    """66 narrow stripes: the second descriptor chunk, the region walk,
+    through the Wiener frame entry and the earlier per-plane one."""
+    for form in FORMS:
+        _lr_check(host, 10, "w", _lr_case(np.random.default_rng(3), "w", True),
+                  form)
 
 
 # the planes of the frame cases: (vw, ph) of luma and chroma by layout
@@ -694,25 +708,31 @@ def _lr_planes_geom(layout):
             for p in range(n)]
 
 
-def _sgr_frame_case(layout, bpc, seed, big=False):
-    """Self-guided stripes of all three kinds in every plane of a layout,
-    none sharing a pixel: per plane and kind one at the top, where the
-    plane is tall enough one in the middle with lpf rows on both sides,
-    and one of 10 rows at the bottom right (4:0:0: in the chroma slots too,
-    as 4:2:0 would have them, for the launch to ignore); in luma a column
-    range past the plane and a stripe at row 2 (lpf rows from cat row ph)
-    with no left context, in the first chroma plane a stripe wider than
-    its W of 48. `big`: pixels of
-    up to 2^16, where the squares, the box sums of squares and the scaled
-    variance wrap past 2^31. Returns (blob, src, lpf,
-    {(plane, kind): (16, n) descriptors}, phs, Ws)."""
+# the extra stripes of the frame cases, by (plane, kind): a column range
+# past the plane ("range"), a stripe at row 2 (lpf rows from cat row ph)
+# with no left context at x0 > 0 ("row2"), S_W > W ("wide")
+SGR_EXTRAS = {(0, 0): ("range",), (0, 1): ("row2",), (1, 2): ("wide",)}
+WIENER_EXTRAS = {(0, "w"): ("range", "row2"), (1, "w"): ("wide",)}
+
+
+def _lr_frame_case(layout, bpc, seed, kinds, extras, Ws, big=False):
+    """Stripes of each of `kinds` in every plane of a layout, none sharing
+    a pixel: per plane and kind one at the top, where the plane is tall
+    enough one in the middle with lpf rows on both sides, and one of 10
+    rows at the bottom right (4:0:0: in the chroma slots too, as 4:2:0
+    would have them, for the launch to ignore); and `extras` (SGR_EXTRAS,
+    WIENER_EXTRAS): in luma a column range past the plane and a stripe at
+    row 2 with no left context, in the first chroma plane a stripe wider
+    than its W (Ws[1]). `big`: pixels of up to 2^16, where the squares,
+    the box sums of squares and the scaled variance wrap past 2^31.
+    Returns (blob, src, lpf, {(plane, kind): (16, LRB) descriptors},
+    phs)."""
     rng = np.random.default_rng(seed)
     blob = Blob()
     geo = _lr_planes_geom(PL.I420 if layout == PL.I400 else layout)
-    Ws = (LR_W, 48, 48)
     descs = {}
     for p, (vw, ph) in enumerate(geo):
-        for kind in (0, 1, 2):
+        for ki, kind in enumerate(kinds):
             def stripe(x0, y0, w, h):  # _stripe on this plane
                 hl, hr = x0 > 0, x0 + w < vw
                 top = (y0, y0) if y0 == 0 else (ph + y0 - 2, ph + y0 - 1)
@@ -722,19 +742,20 @@ def _sgr_frame_case(layout, bpc, seed, big=False):
                                           else below + 1)))
                 return [x0, y0, w, h, x0 - 3 * hl, x0 + w - 1 + 3 * hr,
                         *top, *bot, *_lr_params(rng, kind)]
-            x = 16 * kind
+            x = 16 * ki
             cols = [stripe(x, 0, 16, 56 if ph > 120 else 40)]
             if ph > 120:
                 cols.append(stripe(x + 48, 56, 16, 64))
-            cols.append(stripe(vw - 24 * (kind + 1), ph - 10, 24, 10))
-            if (p, kind) == (0, 0):  # up to the plane's last column, with a
-                cols.append(stripe(LR_AW - 24, 10, 24, 6))  # column range
-                cols[-1][5] = LR_AW + 2  # past it
-            if (p, kind) == (0, 1):  # lpf rows from cat row ph on; no left
-                cols.append(stripe(104, 2, 16, 6))  # context at x0 > 0
-                cols[-1][4] = 104
-            if (p, kind) == (1, 2):  # S_W > W where W is no multiple of 32
-                cols.append(stripe(48, 8, Ws[1] + 4, 8))
+            cols.append(stripe(vw - 24 * (ki + 1), ph - 10, 24, 10))
+            for extra in extras.get((p, kind), ()):
+                if extra == "range":  # up to the plane's last column, with
+                    cols.append(stripe(LR_AW - 24, 10, 24, 6))  # a column
+                    cols[-1][5] = LR_AW + 2  # range past it
+                elif extra == "row2":  # lpf rows from cat row ph on; no
+                    cols.append(stripe(104, 2, 16, 6))  # left context at
+                    cols[-1][4] = 104  # x0 > 0
+                else:  # S_W > W
+                    cols.append(stripe(48, 8, Ws[1] + 4, 8))
             d = np.asarray(cols, np.int32).T
             chunks = np.zeros((16, LRB), np.int32)
             chunks[:, : d.shape[1]] = d
@@ -751,15 +772,21 @@ def _sgr_frame_case(layout, bpc, seed, big=False):
         src = src * 193 + rng.integers(0, 1 << 12, src.shape)
         lpf = lpf * 151 + rng.integers(0, 1 << 12, lpf.shape)
     phs = tuple(ph for _, ph in geo)
-    return blob, src, lpf, descs, phs, Ws
+    return blob, src, lpf, descs, phs
 
 
-def _sgr_frame_check(host, layout, bpc, seed, jax_too=False, big=False):
-    """One rav1d_lr_sgr_frame_host call over every plane against each
-    plane's three plain lr_sgr_pass calls (and rav1d_tpu's
-    lr_sgr_pass_raw, `jax_too`), and against the earlier per-plane
-    entry."""
-    blob, src, lpf, descs, phs, Ws = _sgr_frame_case(layout, bpc, seed, big)
+def _lr_frame_check(host, layout, bpc, seed, kinds, Ws, jax_too=False,
+                    big=False):
+    """One frame entry's host call over every plane (the self-guided one
+    for `kinds` (0, 1, 2), the Wiener one for ("w",)), its items in order
+    and in reverse, against each plane's plain lr_sgr_pass /
+    lr_wiener_pass calls (and rav1d_tpu's lr_sgr_pass_raw /
+    lr_wiener_pass_raw, `jax_too`), and against the earlier per-plane
+    entry. Returns the pixels the plain passes changed."""
+    sgr = kinds != ("w",)
+    blob, src, lpf, descs, phs = _lr_frame_case(
+        layout, bpc, seed, kinds, SGR_EXTRAS if sgr else WIENER_EXTRAS, Ws,
+        big)
     n = len(_lr_planes_geom(layout))
     want = _t(src)
     for p in range(n):
@@ -767,12 +794,19 @@ def _sgr_frame_check(host, layout, bpc, seed, jax_too=False, big=False):
         pf = torch.cat([_t(src[p]).reshape(-1),
                         torch.zeros(1, dtype=torch.int32)])
         jout = jnp.asarray(src[p].ravel())
-        for kind in (0, 1, 2):
-            FL.lr_sgr_pass(pf, _t(cat), _t(descs[p, kind]), Ws[p], kind, bpc,
-                           LR_AW)
-            if jax_too:
-                jout = _JSGR(jout, cat, descs[p, kind], Ws[p], kind, bpc,
-                             LR_AW)
+        for kind in kinds:
+            if sgr:
+                FL.lr_sgr_pass(pf, _t(cat), _t(descs[p, kind]), Ws[p], kind,
+                               bpc, LR_AW)
+                if jax_too:
+                    jout = _JSGR(jout, cat, descs[p, kind], Ws[p], kind, bpc,
+                                 LR_AW)
+            else:
+                FL.lr_wiener_pass(pf, _t(cat), _t(descs[p, kind]), Ws[p],
+                                  bpc, LR_AW)
+                if jax_too:
+                    jout = _JWIENER(jout, cat, descs[p, kind], Ws[p], bpc,
+                                    LR_AW)
         want[p] = pf[:-1].view(LR_AH, LR_AW)
         if jax_too:
             np.testing.assert_array_equal(want[p].numpy().ravel(),
@@ -781,9 +815,34 @@ def _sgr_frame_check(host, layout, bpc, seed, jax_too=False, big=False):
     kw = dict(layout_i=int(layout), phs=phs, Ws=Ws, bpc=bpc)
     for k in (host, host.of("new", reverse=True), host.of("earlier")):
         got = _t(src)
-        k.lr_sgr_frame(got, _t(src), _t(lpf), blob.dev(), blob.hdr, **kw)
+        (k.lr_sgr_frame if sgr else k.lr_wiener_frame)(
+            got, _t(src), _t(lpf), blob.dev(), blob.hdr, **kw)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert FK.lr_launches(blob.hdr, int(layout)) == (0, 1)
+    assert FK.lr_launches(blob.hdr, int(layout)) == ((0, 1) if sgr
+                                                     else (1, 0))
+    return want.numpy() != src
+
+
+def _sgr_frame_check(host, layout, bpc, seed, jax_too=False, big=False):
+    """The self-guided frame entry over every plane (_lr_frame_check), the
+    chroma planes' W 48."""
+    _lr_frame_check(host, layout, bpc, seed, (0, 1, 2), (LR_W, 48, 48),
+                    jax_too, big)
+
+
+def _wiener_frame_check(host, layout, bpc, seed, Ws, jax_too=False):
+    """The Wiener frame entry over every plane (_lr_frame_check): every
+    plane changes but its rows past ph, and the S_W > W stripe's columns
+    past W stay as they were."""
+    changed = _lr_frame_check(host, layout, bpc, seed, ("w",), Ws, jax_too)
+    geo = _lr_planes_geom(layout)
+    n = len(geo)
+    for p, (_, ph) in enumerate(geo):
+        assert changed[p].any() and not changed[p, ph:].any()
+    if n > 1:  # the S_W > W stripe: its first W columns only
+        assert changed[1, 8:16, 48 : 48 + Ws[1]].any()
+        assert not changed[1, 8:16, 48 + Ws[1] : 52 + Ws[1]].any()
+    assert not changed[n:].any()
 
 
 def test_lr_sgr_frame_three_planes(host):
@@ -805,6 +864,23 @@ def test_lr_sgr_frame_layouts(host, layout):
     """The one-launch entry over 4:0:0 (one plane), 4:2:2 chroma (full
     height, half width) and 4:2:0 chroma planes."""
     _sgr_frame_check(host, layout, 8 + 2 * int(layout), 22 + int(layout))
+
+
+def test_lr_wiener_frame_three_planes(host):
+    """Wiener stripes in all three planes of a 4:4:4 frame in one launch,
+    against the plain passes and rav1d_tpu's wiener_batch (at the W of
+    test_lr_stripes' compile)."""
+    _wiener_frame_check(host, PL.I444, 10, 31, (LR_W,) * 3, jax_too=True)
+
+
+@pytest.mark.parametrize("layout", [PL.I400, PL.I422, PL.I420],
+                         ids=lambda v: v.name)
+def test_lr_wiener_frame_layouts(host, layout):
+    """The one-launch Wiener entry over 4:0:0 (one plane; chroma stripes in
+    the blob to ignore), 4:2:2 chroma (full height, half width) and 4:2:0
+    chroma planes, chroma's W of 48 no multiple of 32."""
+    _wiener_frame_check(host, layout, 8 + 2 * int(layout), 32 + int(layout),
+                        (LR_W, 48, 48))
 
 
 def test_constant_tables(host):
@@ -907,9 +983,10 @@ def test_filter_program_matches_plain(host, name):
     sr = int(frame.kw["sr_geom"] is not None)
     assert sr == (name == "8bit-420-superres")
     assert {k: host.n[k] - n0[k] for k in n0} == dict(
-        lf=2, cdef=1, sr=sr, wiener=w, sgr=s, sgr_plane=0)
-    assert s == int(any(p for _, _, p in FK.lr_planes(frame.pk.hdr,
-                                                         frame.layout)))
+        lf=2, cdef=1, sr=sr, wiener=w, sgr=s, wiener_plane=0, sgr_plane=0)
+    lr = FK.lr_planes(frame.pk.hdr, frame.layout)
+    assert (w, s) == (int(any(p for _, p, _ in lr)),
+                      int(any(p for _, _, p in lr)))
     assert FL.calls == c0
     assert w + s > 0 or name == "10bit-422-lf-tools"
 
@@ -937,7 +1014,7 @@ def test_cpu_filter_runs_the_plain_version():
     (engine/filters.py calls) and no wrapper launches or counts."""
     frame = frame_of("8bit-420-s10")
     launches = (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
-                FK.sgr_launches)
+                FK.sgr_launches, FK.wiener_plane_launches)
     c0 = FL.calls
     planes, packed = P.filter_(frame.planes.clone(), frame.dev, frame.pk.hdr,
                                **frame.kw)
@@ -947,7 +1024,7 @@ def test_cpu_filter_runs_the_plain_version():
     lr = plain_lr_calls(frame.pk.hdr, frame.layout)
     assert FL.calls - c0 == 2 * (6 + 1 + lr)  # filter_ and frame.plain
     assert (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
-            FK.sgr_launches) == launches
+            FK.sgr_launches, FK.wiener_plane_launches) == launches
 
 
 def test_wrappers_take_cuda_tensors_only():
@@ -964,7 +1041,8 @@ def test_wrappers_take_cuda_tensors_only():
     def counts():
         return (FK.lf_launches, FK.cdef_launches, FK.wiener_launches,
                 FK.sgr_launches, FK.lf_lines_launches,
-                FK.cdef_global_launches, FK.sgr_plane_launches)
+                FK.cdef_global_launches, FK.wiener_plane_launches,
+                FK.sgr_plane_launches)
 
     before = counts()
     calls = [
@@ -973,8 +1051,11 @@ def test_wrappers_take_cuda_tensors_only():
         lambda: FK.lf_pass_lines(planes, dev, hdr, True, **k),
         lambda: FK.cdef_frame(planes, planes.clone(), dev, hdr, **k),
         lambda: FK.cdef_frame_global(planes, planes.clone(), dev, hdr, **k),
-        lambda: FK.lr_wiener(planes[0], planes[0], planes[0], dev, hdr, 0,
-                             **lw),
+        lambda: FK.lr_wiener_plane(planes[0], planes[0], planes[0], dev, hdr,
+                                   0, **lw),
+        lambda: FK.lr_wiener_frame(planes, planes, planes, dev, hdr,
+                                   layout_i=frame.layout, phs=(vis_h,) * 3,
+                                   Ws=kw["lr_ws"][:1] * 3, bpc=8),
         lambda: FK.lr_sgr_plane(planes[0], planes[0], planes[0], dev, hdr, 0,
                                 **lw),
         lambda: FK.lr_sgr_frame(planes, planes, planes, dev, hdr,

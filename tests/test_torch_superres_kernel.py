@@ -241,7 +241,7 @@ def test_filter_program_superres_matches_plain(host):
     np.testing.assert_array_equal(got_packed.numpy(), packed.numpy())
     w, s = FK.lr_launches(frame.pk.hdr, frame.layout)
     assert {k: host.n[k] - n0[k] for k in n0} == dict(
-        lf=2, cdef=1, sr=1, wiener=w, sgr=s, sgr_plane=0)
+        lf=2, cdef=1, sr=1, wiener=w, sgr=s, wiener_plane=0, sgr_plane=0)
     assert FL.calls == c0
 
 
