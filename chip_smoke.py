@@ -1,9 +1,10 @@
 """Drive rav1d_tpu_torch's intra and inter paths, at every bit depth and
 chroma layout and with superres, once on a CUDA card, end to end.
 
-    python3 chip_smoke.py [--test-data DIR]
+    python3 chip_smoke.py [--test-data DIR] [--only uhd]
 
-Phases (any failure exits non-zero before the last line):
+Phases (any failure exits non-zero before the last line; `--only uhd`
+runs the set-up and phase 6 alone):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
    kernel and the 8x8 DCT_DCT kernel; csrc/wave.cu: the intra wavefront's
    frame kernel, its barrier-only twin and the level kernel; csrc/inter.cu:
@@ -27,7 +28,7 @@ Phases (any failure exits non-zero before the last line):
    and the superres kernel against programs._superres (resize_plane)
    on random planes at 8, 10 and 12 bits in every layout at denominators
    9-16 (filter_kernel_phase); bit-identical required;
-Each stream of phases 3-7 runs through stream_on_card: the port's host
+Each stream of phases 3-8 runs through stream_on_card: the port's host
 path (Decoder(host_path=True), captured) must give the committed digests
 (rav1d_tpu_torch/smoke_digests.json) where there are some; on each engine
 frame's blob, packed from that capture, the residual program (one itx
@@ -102,24 +103,36 @@ forms' traced phases in clock cycles (inter_trace).
    "formats": a 10-bit 4:2:0 key + two inter frames and a 12-bit 4:4:4
    picture, whose blobs hold word coefficients (the itx kernel's 10/12-bit
    branch);
-6. formats: at 640x360, still pictures at 8, 10 and 12 bits in 4:0:0,
+6. 2160p (uhd_phase): the committed 3840x2160 streams of
+   smoke_digests.json "uhd", a 10-bit 4:2:0 still in one tile (the format
+   of the JAX bench's 4k_10bit_intra) and an 8-bit key frame and two
+   inter frames in four tile columns, captured on the engine (its decode
+   held to the digests), with the checks of phases 3-5 on every frame
+   (wave_plain on the still only) and each frame's own launches; on the
+   still and the first inter frame each of the seven kernels' device time
+   a launch (the median of five torch.profiler windows, with the launches
+   each saw), its plain version and its bound, the wave kernel's
+   barrier-only floor, the upload's zero fill and copy alone; in the
+   decodes the host side (the staging wait, write_into, the wave span's
+   host call, garbage collections);
+7. formats: at 640x360, still pictures at 8, 10 and 12 bits in 4:0:0,
    4:2:2 and 4:4:4, 10-bit inter sequences in 4:2:2 (segy10 must carry
    tiles), 4:4:4 (segy00) and 4:0:0, and an 8-bit superres inter sequence,
    whose fourth frame the planner sends to the host path (scaled
    references);
-7. headers: at 640x360, an 8-bit and a 10-bit sequence with the header
+8. headers: at 640x360, an 8-bit and a 10-bit sequence with the header
    tools of synth.Tools on (2x2 tiles, segmentation with a lossless
    segment, so the frame blobs carry WHT blocks, delta q and delta lf,
    loop filter deltas, TX_MODE_LARGEST with the reduced transform set;
    128-px superblocks in the 8-bit one, 64-px LR units in the 10-bit
    one), no frame falling back;
-8. residual: the multi-device residual (parallel/resid.py) on an NCCL
+9. residual: the multi-device residual (parallel/resid.py) on an NCCL
    process group of one rank (file:// init) over the first still
    picture's captured coefficient store: sharded_residual_plane, one itx
    launch per non-WHT size group and no plain transform call, must equal
    single_device_residual_plane (the plain transforms on the card); both
    timed with CUDA events beside the frame's resid program;
-9. CLI: rav1d_tpu_torch.cli.main(["-i", <a 640x360 IVF file of an 8-bit
+10. CLI: rav1d_tpu_torch.cli.main(["-i", <a 640x360 IVF file of an 8-bit
    inter sequence>, "--verify", <its host-path MD5>, "--frametimes",
    <file>]) in process must return 0, with one itx launch per frame; the
    per-frame times are printed (the decode also makes one inter launch
@@ -127,7 +140,7 @@ forms' traced phases in clock cycles (inter_trace).
    frame with wave items, no level launch and no class_step call, and its
    filter launches; each of its filter_ calls, recorded, must equal
    filter_plain, and each of its inter programs inter_plain);
-10. pipeline: the frame ring (pipeline_phase): the 1080p 8-bit and 10-bit
+11. pipeline: the frame ring (pipeline_phase): the 1080p 8-bit and 10-bit
    inter sequences, the 8-bit 640x360 header-tools sequence (2x2 tiles),
    the 640x360 superres sequence (its fourth frame falls back to the host
    path and reads engine-decoded references on the ring's worker) and a
@@ -147,16 +160,16 @@ forms' traced phases in clock cycles (inter_trace).
    CUDA-event stages; then, on a machine with two cards or more, the
    640x360 inter sequence decoded on cuda:1 at delay 1 while card 0 is
    current, to the host path's MD5s (second_card_phase);
-11. timing: on the blobs of phases 3 and 5, the frame launch and
+12. timing: on the blobs of phases 3 and 5, the frame launch and
    resid_plain (CUDA events), and torch.profiler windows over resid calls
    and over each class of the frame launched alone, which give the
    kernel's device time apart from its launch;
-12. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
+13. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
    entry point driven once at N=16384 with the launch count reset before
    and read after, then the kernel against idct8x8_batch_plain,
    bit-identical at N=256 for bpc 8/10/12 (1/8 of the blocks full-range
    int32) and at N=16384, where both are timed;
-13. vectors: with `--test-data DIR` naming a dav1d-test-data directory,
+14. vectors: with `--test-data DIR` naming a dav1d-test-data directory,
    two conformance streams against their meson MD5s, and the first frames
    of the bench's inter stream (16) and of its 10-bit stream
    318_tx_4x4.ivf (8, bench.py's frame limit) against the port's host
@@ -185,6 +198,7 @@ counts an FMA as two operations), and as its last line
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
@@ -877,7 +891,9 @@ def timing_phase(blobs):
 
 def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
                    slots=(), interintra=False, blobs=None, wave_check=None,
-                   time_wave=False, time_inter=False, time_filter=False):
+                   time_wave=False, time_inter=False, time_filter=False,
+                   on_frame=None, on_decode=None, capture_on_card=False,
+                   spy=None):
     """One stream through the port on the card. The host path (captured:
     each frame's plan, and the MD5s; its time includes the capture) must
     give the committed digests `want` where they are given, and its
@@ -896,9 +912,18 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     fallbacks only, no upload of a host reference plane, one itx launch per
     engine frame, one inter launch per engine inter frame, one wave frame
     launch per engine frame with wave items and no level launch, the
-    frames' filter launches (filter_want), and no call of
-    the plain transforms, of inter_plain or of class_step. Returns (itx
-    launches, max |err| of ra, the captured [(f, plan)])."""
+    frames' filter launches (filter_want), each frame's own launches in
+    its own decode step, and no call of the plain transforms, of
+    inter_plain or of class_step. With `capture_on_card` the capture runs
+    on the engine (synth.capture_frames on `dev`, each frame's dense pass
+    on its captured plan) in place of the host path, and its MD5s must be
+    `want`. `on_frame(key, frame)` is called on each
+    engine frame's checked inputs (a dict: f, plan, pk, d, ra, the wave
+    input planes and keywords, the filter input fin and keywords fkw, the
+    plain wavefront's ms or None); `on_decode(i, ms)` after the decoder's
+    frame i; the decode runs inside the context manager `spy` if one is
+    given. Returns (itx launches, max |err| of ra, the captured [(f,
+    plan)])."""
     import torch
 
     import rav1d_tpu_torch as T
@@ -914,15 +939,16 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
 
     t0 = time.perf_counter()
     host = []
-    frames = synth.capture_frames(packets, host)
+    frames = synth.capture_frames(packets, host,
+                                  device=dev if capture_on_card else None)
     host_ms = (time.perf_counter() - t0) * 1e3
-    log(f"{label}: host path (with capture) {len(host)} frames "
-        f"{host_ms:.1f} ms  md5 {host}"
+    log(f"{label}: {'engine' if capture_on_card else 'host path'} (with "
+        f"capture) {len(host)} frames {host_ms:.1f} ms  md5 {host}"
         + ("" if want is None else
            f"  {'==' if host == want else '!='} committed digests"))
-    if want is not None and host != want:
-        raise AssertionError(f"{label}: host path differs from the "
-                             "committed digests")
+    if (want is not None or capture_on_card) and host != want:
+        raise AssertionError(f"{label}: the capture's decode differs from "
+                             "the committed digests")
     planned = tuple(i for i, (_, plan) in enumerate(frames) if plan is None)
     if planned != tuple(fallbacks):
         raise AssertionError(f"{label}: the planner sends frames {planned} "
@@ -952,6 +978,7 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     # frame's buffer sizes)
     worst = nframes = ninter = 0
     engine_frames = []  # (hdr, layout_i, superres?) of each engine frame
+    per_frame = {}  # frame: its launches in the decode, by counter
     for i, (f, plan) in enumerate(frames):
         pk = None if plan is None else pack_frame(f, plan)
         if pk is None:
@@ -1010,6 +1037,13 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
         fin = P.wave(planes, ra, d, pk.hdr, pk.waves, **kw)
         filter_check(f"{label} frame {i}", fin, d, pk.hdr, fkw)
         engine_frames.append((pk.hdr, fkw["layout_i"], pk.need_sr))
+        per_frame[i] = dict(filter_want(engine_frames[-1:]), itx=1,
+                            wave=int(bool(WK.levels(pk.waves))), level=0,
+                            inter=int(pk.srcs is not None))
+        if on_frame is not None:
+            on_frame(key, dict(f=f, plan=plan, pk=pk, d=d, ra=ra,
+                               planes=planes, kw=kw, fin=fin, fkw=fkw,
+                               plain_ms=p_ms))
         if time_wave or time_filter:
             FILT["rows"][key] = filter_timing(key, fin, d, pk, fkw)
             FILT["forms"][key] = filter_forms(key, fin, d, pk, fkw)
@@ -1030,28 +1064,42 @@ def stream_on_card(dev, label, packets, *, want=None, fallbacks=(),
     dec = T.Decoder(T.Settings(apply_grain=False, max_frame_delay=1),
                     device=dev)
     got, fell = [], []
-    for i, data in enumerate(packets):  # frame by frame: stage_ms per frame
-        run.reset_stats()
-        fb = T.engine.stats["fallback"]
-        t0 = time.perf_counter()
-        got += synth.decode_md5s(dec, [data])
-        ms = (time.perf_counter() - t0) * 1e3
-        if T.engine.stats["fallback"] > fb:
-            fell.append(i)
-        log(f"  port frame {i}: {ms:.1f} ms wall  md5 {got[-1]}  "
-            f"{'==' if got[-1:] == host[i : i + 1] else '!='} host"
-            + ("  (host path: the planner's gate)" if i in fell else ""))
-        if f"{label} frame {i}" in FILT["rows"]:
-            FILT["rows"][f"{label} frame {i}"]["stage_ms"] = \
-                run.stage_ms["filter"]
-        if f"{label} frame {i}" in INTER["rows"]:
-            INTER["rows"][f"{label} frame {i}"]["stage_ms"] = \
-                run.stage_ms["inter"]
-        rest = ms - sum(v for k, v in run.stage_ms.items() if k != "programs")
-        log("    stage_ms " + json.dumps({k: round(v, 3)
-                                          for k, v in run.stage_ms.items()})
-            + f"  rest {rest:.1f} ms (wall minus the stages: OBU parsing, "
-            "the syntax pass, the planner, Python)")
+
+    def counts():
+        return dict(filter_counts(), itx=I.launches, wave=WK.launches,
+                    level=WK.level_launches, inter=IK.launches)
+
+    with contextlib.nullcontext() if spy is None else spy:
+        for i, data in enumerate(packets):  # a frame a step: stage_ms
+            run.reset_stats()
+            fb = T.engine.stats["fallback"]
+            c0 = counts()
+            t0 = time.perf_counter()
+            got += synth.decode_md5s(dec, [data])
+            ms = (time.perf_counter() - t0) * 1e3
+            if T.engine.stats["fallback"] > fb:
+                fell.append(i)
+            step = {k: v - c0[k] for k, v in counts().items()}
+            if step != per_frame.get(i, dict.fromkeys(step, 0)):
+                raise AssertionError(f"{label} frame {i}: launches {step}, "
+                                     f"not {per_frame.get(i)}")
+            if on_decode is not None:
+                on_decode(i, ms)
+            log(f"  port frame {i}: {ms:.1f} ms wall  md5 {got[-1]}  "
+                f"{'==' if got[-1:] == host[i : i + 1] else '!='} host"
+                + ("  (host path: the planner's gate)" if i in fell else ""))
+            if f"{label} frame {i}" in FILT["rows"]:
+                FILT["rows"][f"{label} frame {i}"]["stage_ms"] = \
+                    run.stage_ms["filter"]
+            if f"{label} frame {i}" in INTER["rows"]:
+                INTER["rows"][f"{label} frame {i}"]["stage_ms"] = \
+                    run.stage_ms["inter"]
+            rest = ms - sum(v for k, v in run.stage_ms.items()
+                            if k != "programs")
+            log("    stage_ms " + json.dumps(
+                {k: round(v, 3) for k, v in run.stage_ms.items()})
+                + f"  rest {rest:.1f} ms (wall minus the stages: OBU "
+                "parsing, the syntax pass, the planner, Python)")
     launches = I.launches
     plain_calls = kernels.calls
     stats = dict(T.engine.stats)
@@ -2412,6 +2460,410 @@ def high_bitdepth_phase(dev):
     return launches, worst, blobs
 
 
+UHD_W, UHD_H = 3840, 2160
+# the 2160p phase's results: per timed frame its kernels' rows and its
+# upload's device half; the launches in the decodes and the largest
+# difference from the plain versions per kernel; the decodes' host sides
+# (HostSpy); the phase's seconds; the timed frames' labels ("still",
+# "main")
+UHD = {"rows": {}, "launches": {}, "err": {}, "host": [], "seconds": 0.0}
+# the seven kernels on the 2160p path: (key, profiler names, entry, source,
+# the TPU kernel it replaces, the stream whose timed frame the kernels
+# line reads)
+UHD_KERNELS = (
+    ("itx", ("itx_frame_kernel",), "rav1d_itx_frame", "itx.cu",
+     "rav1d_tpu/ops/pallas/itx_all.py:110", "still"),
+    ("wave", ("wave_frame_kernel",), "rav1d_wave_frame", "wave.cu",
+     "rav1d_tpu/engine/mega.py:213", "still"),
+    ("inter", ("inter_batch_kernel",), "rav1d_inter_batches", "inter.cu",
+     "rav1d_tpu/engine/mega.py:466", "inter"),
+    ("lf", ("lf_rows_kernel", "lf_cols_kernel"), "rav1d_deblock", "lf.cu",
+     "rav1d_tpu/engine/filters.py:34", "still"),
+    ("cdef", ("cdef_area_kernel",), "rav1d_cdef", "cdef.cu",
+     "rav1d_tpu/engine/filters.py:84", "still"),
+    ("wiener", ("lr_wiener_frame_kernel",), "rav1d_lr_wiener_frame", "lr.cu",
+     "rav1d_tpu/engine/filters.py:246", "still"),
+    ("sgr", ("lr_sgr_frame_kernel",), "rav1d_lr_sgr_frame", "lr.cu",
+     "rav1d_tpu/engine/filters.py:253", "still"),
+)
+
+
+def launch_readings(fn, names, reps, readings=5):
+    """{name: (median device ms a launch, launches the profiler saw,
+    launches made)} of the kernels whose names contain each of `names`,
+    over `readings` torch.profiler windows of `reps` calls of fn each (fn
+    takes the reading's call number); a reading is each window's mean per
+    launch that it saw, so a window that drops launches' records does not
+    shrink it. None where no window saw a launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    got = {n: [] for n in names}
+    seen = dict.fromkeys(names, 0)
+    made = dict.fromkeys(names, 0)
+    for r in range(readings):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for k in range(reps):
+                fn(1 + r * reps + k)
+            torch.cuda.synchronize()
+        for n in names:
+            us = cnt = 0
+            for e in prof.key_averages():
+                if (getattr(e, "device_type", None) == DeviceType.CUDA
+                        and n in e.key):
+                    t = getattr(e, "device_time_total", None)
+                    us += e.cuda_time_total if t is None else t
+                    cnt += e.count
+            made[n] += reps
+            seen[n] += cnt
+            if cnt and us:
+                got[n].append(us / cnt / 1e3)
+
+    def median(v):
+        v = sorted(v)
+        return (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2 if v else None
+
+    return {n: (median(got[n]), seen[n], made[n]) for n in names}
+
+
+def upload_parts(pk, psz, bpc, dev, reps=5):
+    """The device half of a frame's upload (engine/blob.py Uploader.upload)
+    alone, ms a call (CUDA events, the median of `reps`): the zero fill of
+    the blob's capacity (torch.zeros) and the host-to-device copy of the
+    used prefix from the pinned staging buffer; the host half (the staging
+    wait and pack.write_into) is read inside the decodes (HostSpy)."""
+    import torch
+
+    from rav1d_tpu_torch.engine.blob import bucket_pow2, det_cap_words
+
+    n = pk.blob.pos
+    cap = bucket_pow2(max(n, pk.hdr.size, det_cap_words(psz, bpc)))
+    buf = torch.empty(n, dtype=torch.int32, pin_memory=True)
+    pk.write_into(buf.numpy())
+    d = torch.zeros(cap, dtype=torch.int32, device=dev)
+
+    def zero():
+        torch.zeros(cap, dtype=torch.int32, device=dev)
+
+    def copy():
+        d[:n].copy_(buf, non_blocking=True)
+
+    zs = sorted(cuda_ms(zero, 1) for _ in range(reps))
+    cs = sorted(cuda_ms(copy, 1) for _ in range(reps))
+    return dict(words=n, cap=cap, zero_fill=zs[reps // 2], h2d=cs[reps // 2])
+
+
+class HostSpy:
+    """While installed, the host side of each decoded frame, on the host
+    clock (perf_counter, ms), summed until `take`: each engine/blob.py
+    Uploader._buffer call ("wait": the wait for the previous frame's copy
+    to leave the staging buffer, or the allocation of a larger one), each
+    FramePack.write_into call from Uploader.upload ("write_into": the
+    host's copy of the blob into the staging buffer), each
+    programs.wave call ("wave_host": the palette scatter and the wave
+    kernel's arguments and launch, what engine/run.py's wave span charges
+    besides the kernel), and the interpreter's garbage collections
+    ("gc_ms" by generation, "gc_in_wave": those inside programs.wave)."""
+
+    def __enter__(self):
+        import gc
+
+        from rav1d_tpu_torch.engine import programs as P
+        from rav1d_tpu_torch.engine.blob import Uploader
+        from rav1d_tpu_torch.engine.pack import FramePack
+
+        self.gc, self.P, self.U, self.F = gc, P, Uploader, FramePack
+        self.real = (Uploader._buffer, FramePack.write_into, P.wave)
+        real_buffer, real_write, real_wave = self.real
+        self.cur, self.t_gc, self.in_wave = self._new(), None, False
+
+        def add(k, t0):
+            self.cur[k] += (time.perf_counter() - t0) * 1e3
+
+        def _buffer(up, n):
+            t0 = time.perf_counter()
+            try:
+                return real_buffer(up, n)
+            finally:
+                add("wait", t0)
+                self.in_upload = True
+
+        def write_into(pk, buf):
+            t0 = time.perf_counter()
+            try:
+                return real_write(pk, buf)
+            finally:
+                if self.in_upload:  # Uploader.upload's, not a test's
+                    add("write_into", t0)
+                    self.in_upload = False
+
+        def wave(*a, **kw):
+            t0 = time.perf_counter()
+            self.in_wave = True
+            try:
+                return real_wave(*a, **kw)
+            finally:
+                self.in_wave = False
+                add("wave_host", t0)
+
+        def on_gc(phase, info):
+            if phase == "start":
+                self.t_gc = time.perf_counter()
+            elif self.t_gc is not None:
+                ms = (time.perf_counter() - self.t_gc) * 1e3
+                self.cur["gc_ms"][str(info["generation"])] += ms
+                if self.in_wave:
+                    self.cur["gc_in_wave"] += ms
+
+        self.in_upload = False
+        self.on_gc = on_gc
+        gc.callbacks.append(on_gc)
+        Uploader._buffer, FramePack.write_into, P.wave = (_buffer, write_into,
+                                                          wave)
+        return self
+
+    @staticmethod
+    def _new():
+        return dict(wait=0.0, write_into=0.0, wave_host=0.0,
+                    gc_ms={"0": 0.0, "1": 0.0, "2": 0.0}, gc_in_wave=0.0)
+
+    def take(self):
+        """What was summed since the last take, rounded."""
+        out, self.cur = self.cur, self._new()
+        out["gc_ms"] = {k: round(v, 3) for k, v in out["gc_ms"].items()}
+        return {k: (v if isinstance(v, dict) else round(v, 3))
+                for k, v in out.items()}
+
+    def __exit__(self, *exc):
+        self.gc.callbacks.remove(self.on_gc)
+        (self.U._buffer, self.F.write_into, self.P.wave) = self.real
+
+
+def uhd_timing(key, fr):
+    """On one 2160p engine frame's checked inputs (stream_on_card's
+    on_frame), for each kernel of UHD_KERNELS (the inter kernel on an
+    inter frame): its device time a launch (launch_readings:
+    torch.profiler, the median of five windows' means, with the launches
+    each saw and made), every call on its own input (the in-place kernels
+    on fresh copies), its plain version's time on the same input (CUDA
+    events; the plain wavefront's from stream_on_card where it ran), and
+    its bound from this frame's data (itx_frame_work, wave_work,
+    inter_work, filter_work); the wave kernel's barrier-only floor
+    (device time); and the upload's device half (upload_parts). Rows into
+    UHD["rows"][key]."""
+    import torch
+
+    from rav1d_tpu_torch.engine import programs as P
+    from rav1d_tpu_torch.ops.cuda import filters as FK
+    from rav1d_tpu_torch.ops.cuda import inter as IK
+    from rav1d_tpu_torch.ops.cuda import itx as I
+    from rav1d_tpu_torch.ops.cuda import wave as WK
+
+    f, plan, pk, d, ra = fr["f"], fr["plan"], fr["pk"], fr["d"], fr["ra"]
+    planes, kw, fin, fkw = fr["planes"], fr["kw"], fr["fin"], fr["fkw"]
+    ah, aw, bpc = plan.ah, plan.aw, f.cur.bpc
+    hdr = pk.hdr
+    n0 = (I.launches, WK.launches, IK.launches, FK.lf_launches,
+          FK.cdef_launches, FK.wiener_launches, FK.sgr_launches)
+    reps = 3
+    row = {}
+    kernel_names = {k: names for k, names, *_ in UHD_KERNELS}
+
+    def put(kern, fn, plain_ms, nbytes, ops, **extra):
+        names = kernel_names[kern]
+        got = launch_readings(fn, names, reps)
+        ms = [got[n][0] for n in names]
+        b_ms, b_by = bound(nbytes, ops)
+        row[kern] = dict(ms=None if None in ms else sum(ms),
+                         seen={n: got[n][1] for n in names},
+                         made={n: got[n][2] for n in names},
+                         plain_ms=plain_ms, nbytes=nbytes, ops=ops,
+                         bound=b_ms, bound_by=b_by, **extra)
+
+    words = pk.words()
+    buf = torch.zeros(6 * ah * aw, dtype=torch.int32, device=d.device)
+    put("itx", lambda _: I.itx_frame(d, hdr, pk.tx_valid, buf, aw, bpc),
+        cuda_ms(lambda: P.resid_plain(d, hdr, pk.tx_valid, ah=ah, aw=aw,
+                                      bpc=bpc), 1),
+        *itx_frame_work(words, hdr, pk.tx_valid, bpc))
+    pf = P.palette_pf(planes, d, hdr)
+    wk = wave_kw(kw)
+    bar = launch_readings(
+        lambda _: WK.barrier_frame(pf, ra, d, hdr, pk.waves, **wk),
+        ["wave_barrier_kernel"], reps)["wave_barrier_kernel"]
+    put("wave", lambda _: P.wave(planes, ra, d, hdr, pk.waves, **kw),
+        fr["plain_ms"], *wave_work(pk, kw["ss_hor"], kw["ss_ver"]),
+        levels=len(WK.levels(pk.waves)), grid=WK.grid(pk.waves),
+        barrier_ms=bar[0], barrier_seen=bar[1])
+    if pk.srcs is not None:
+        (sY, sC), g = inter_inputs(f, plan, pk, d)
+        args = (ra, d, hdr, pk.inter_runs, sY, sC)
+
+        def zeros():
+            return torch.zeros((3, ah, aw), dtype=torch.int32,
+                               device=d.device)
+
+        xs = [zeros() for _ in range(1 + 5 * reps)]
+        call = fresh(zeros, 2)
+        plain = cuda_ms(lambda: call(lambda x: P.inter_plain(x, *args, **g)),
+                        1)
+        put("inter", lambda i: P.inter(xs[i], *args, **g), plain,
+            *inter_work(pk, g),
+            tiles=sum(r.n for v in pk.inter_runs.values() for r in v))
+        del xs
+    # the filters, each on its stage's input: deblock on the wave
+    # program's output (fresh copies: it works in place), CDEF on the
+    # kernels' deblocked planes, loop restoration on CDEF's output and the
+    # deblocked snapshot
+    k = dict(bh=f.bh, bw=f.bw, layout_i=fkw["layout_i"], bpc=bpc)
+    work = filter_work(pk, fkw)
+    pieces = plain_pieces_ms(
+        lambda: P.filter_plain(fin.clone(), d, hdr, **fkw))
+    ins = [fin.clone() for _ in range(1 + 5 * reps)]
+
+    def lf(i):
+        FK.lf_pass(ins[i], d, hdr, False, **k)
+        FK.lf_pass(ins[i], d, hdr, True, **k)
+
+    put("lf", lf, pieces["lf"], *work["lf"])
+    del ins
+    x = fin.clone()
+    FK.lf_pass(x, d, hdr, False, **k)
+    FK.lf_pass(x, d, hdr, True, **k)
+    pre = x.clone()
+    out = pre.clone()
+    put("cdef", lambda _: FK.cdef_frame(out, pre, d, hdr, **k),
+        pieces["cdef"], *work["cdef"])
+    FK.cdef_frame(x, pre, d, hdr, **k)
+    vis_h = fkw["geom"][6]
+    ss_ver = FK.subsampling(fkw["layout_i"])[1]
+    lk = dict(layout_i=fkw["layout_i"], bpc=bpc,
+              phs=tuple((vis_h + sv) >> sv for sv in (0, ss_ver, ss_ver)),
+              Ws=(fkw["lr_ws"][0],) + (fkw["lr_ws"][1],) * 2)
+    w_n, s_n = FK.lr_launches(hdr, fkw["layout_i"])
+    for key_, entry, n_ in (("wiener", FK.lr_wiener_frame, w_n),
+                            ("sgr", FK.lr_sgr_frame, s_n)):
+        if n_:
+            out = x.clone()
+            put(key_, lambda _, e=entry: e(out, x, pre, d, hdr, **lk),
+                pieces[key_], *work[key_])
+    # these launches are outside the decodes, whose counts are reset
+    (I.launches, WK.launches, IK.launches, FK.lf_launches, FK.cdef_launches,
+     FK.wiener_launches, FK.sgr_launches) = n0
+    up = upload_parts(pk, ah * aw, bpc, d.device)
+
+    def txt(v, fmt="%.5f ms"):
+        return "not measured" if v is None else fmt % v
+
+    for kk, r in row.items():
+        extra = ""
+        if kk == "wave":
+            per = None if r["ms"] is None else r["ms"] * 1e3 / r["levels"]
+            extra = (f", {r['levels']} levels, grid {r['grid']} blocks, "
+                     f"{txt(per, '%.3f us')} a level; barrier-only floor "
+                     f"{txt(r['barrier_ms'])} (saw {r['barrier_seen']} "
+                     "launches)")
+        if kk == "inter":
+            extra = f", {r['tiles']} tiles"
+        log(f"  uhd {key} {kk}: device {txt(r['ms'])} a launch (median of "
+            f"five torch.profiler windows; launches seen {r['seen']} of "
+            f"{r['made']}), plain {txt(r['plain_ms'], '%.1f ms')}, bound "
+            f"{r['bound']:.5f} ms ({r['bound_by']}: {r['nbytes']} bytes, "
+            f"{r['ops']} ops){extra}")
+    log(f"  uhd {key} upload's device half: {json.dumps(up)}")
+    UHD["rows"][key] = dict(row, upload=up)
+
+
+def uhd_phase(dev):
+    """The 2160p path (smoke_digests.json "uhd"): (a) a 3840x2160 10-bit
+    4:2:0 still in one tile, the format of the JAX bench's 4k_10bit_intra
+    configuration, and (b) a 3840x2160 8-bit 4:2:0 key frame and two inter
+    frames with every inter tool in four tile columns, through
+    stream_on_card, captured on the engine (the capture's decode held to
+    the committed digests: rav1d_tpu's host path's, a CPU test holds
+    them), with no fallback and no host reference upload: resid, inter
+    and filter_ held to their plain versions on every frame, each frame's
+    own launches in the decode. The plain wavefront runs once, on (a) (a
+    2160p frame takes tens of seconds); the MD5s hold the wave kernel on
+    the other frames. Timed
+    (uhd_timing) on (a) and on (b)'s first inter frame: each of the seven
+    kernels' device time a launch, its plain version, its bound, the wave
+    kernel's barrier-only floor and the upload's device half; inside the
+    decodes (HostSpy) the host side: the upload's host half, the wave
+    span's host call and the interpreter's garbage collections. Returns
+    (itx launches, max |err| of ra)."""
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine import run
+
+    t0 = time.perf_counter()
+    with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
+        digests = json.load(fh)
+    uhd = digests["uhd"]
+    if (uhd["width"], uhd["height"]) != (UHD_W, UHD_H):
+        raise AssertionError("smoke_digests.json's uhd streams are for "
+                             "another picture size")
+    launches = worst = 0
+    n_w0, n_i0, n_f0 = WAVE["launches"], INTER["launches"], dict(
+        FILT["launches"])
+    for name in sorted(uhd["streams"]):
+        inter = uhd["streams"][name]["kind"] == "inter_sequence"
+        label = f"{name} {UHD_W}x{UHD_H}"
+        timed = f"{label} frame {1 if inter else 0}"
+        UHD["main" if inter else "still"] = timed
+
+        def on_frame(key, fr, timed=timed):
+            if key == timed:
+                uhd_timing(key, fr)
+
+        def on_decode(i, ms, label=label):
+            UHD["host"].append(dict(spy.take(), frame=f"{label} frame {i}",
+                                    wall_ms=round(ms, 1),
+                                    stage_ms={k: round(v, 3) for k, v in
+                                              run.stage_ms.items()}))
+
+        spy = HostSpy()
+        n, err, _ = stream_on_card(
+            dev, label, synth.uhd_stream(digests, name),
+            want=uhd["streams"][name]["md5"],
+            wave_check=() if inter else (0,), on_frame=on_frame,
+            on_decode=on_decode, capture_on_card=True, spy=spy)
+        launches += n
+        worst = max(worst, err)
+    for r in UHD["host"]:
+        log(f"  uhd host side of the decode: {json.dumps(r)}")
+    UHD["launches"] = dict(
+        itx=launches, wave=WAVE["launches"] - n_w0,
+        inter=INTER["launches"] - n_i0,
+        **{k: FILT["launches"][k] - n_f0[k]
+           for k in ("lf", "cdef", "wiener", "sgr")})
+    UHD["err"] = dict(itx=worst, wave=WAVE["err"], inter=INTER["err"],
+                      lf=0, cdef=0, wiener=0, sgr=0)
+    UHD["seconds"] = time.perf_counter() - t0
+    log(f"uhd: launches in the decodes {json.dumps(UHD['launches'])}; the "
+        f"phase took {UHD['seconds']:.1f} s")
+    return launches, worst
+
+
+def uhd_kernels():
+    """The kernels line's 2160p entries: the inter kernel's on (b)'s
+    first inter frame, the others' on (a)."""
+    out = []
+    for key, _, entry, src, replaces, stream in UHD_KERNELS:
+        r = UHD["rows"][UHD["main" if stream == "inter" else "still"]][key]
+        out.append({
+            "name": f"{entry} {UHD_W}x{UHD_H}", "route": "cuda",
+            "source": "rav1d_tpu_torch/csrc/" + src, "replaces": replaces,
+            "launches": UHD["launches"][key], "max_abs_err": UHD["err"][key],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+            "bound_by": r["bound_by"], "library_ms": None,
+        })
+    return out
+
+
 FMT_W, FMT_H = 640, 360
 
 
@@ -3054,6 +3506,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--test-data", help="a dav1d-test-data directory for "
                     "the vector phase (skipped without it)")
+    ap.add_argument("--only", choices=("uhd",), help="run the set-up and "
+                    "this phase alone (its kernels' entries and the last "
+                    "line as usual)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3095,11 +3550,19 @@ def main():
                                      "Used", "stack frame")):
                 log("  " + ln.replace("ptxas info    :", "").strip())
 
+    if args.only == "uhd":
+        uhd_phase(dev)
+        imported_check()
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        log(gpu_line())
+        log(json.dumps({"kernels": uhd_kernels()}))
+        last_line()
+        return
     worst = kernel_phase(dev)
     filter_kernel_phase(dev)
     launches, worst_ra, blobs, still = slice_phase(dev)
     worst = max(worst, worst_ra)
-    for phase in (inter_phase, high_bitdepth_phase, formats_phase,
+    for phase in (inter_phase, high_bitdepth_phase, uhd_phase, formats_phase,
                   headers_phase):
         n, err, *got = phase(dev)
         launches += n
@@ -3116,12 +3579,7 @@ def main():
     rows = timing_phase(blobs)
     i8 = idct8x8_phase(dev)
     vector_phase(dev, args.test_data)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    ref = sorted(m for m in sys.modules
-                 if m == "rav1d_tpu" or m.startswith("rav1d_tpu."))
-    if ref:
-        raise AssertionError(f"modules of rav1d_tpu were imported: {ref}")
+    imported_check()
 
     means = {}  # bpc: per-frame means (launch, device, plain, bytes, ops)
     for bpc in (8, 10, 12):
@@ -3339,9 +3797,26 @@ def main():
             # prediction bit-exactly
             "library_ms": None,
         })
+    kernels += uhd_kernels()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())  # again here, where the end of a long log keeps it
     log(json.dumps({"kernels": kernels}))
+    last_line()
+
+
+def imported_check():
+    """Neither JAX nor any module of rav1d_tpu may have been imported."""
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    ref = sorted(m for m in sys.modules
+                 if m == "rav1d_tpu" or m.startswith("rav1d_tpu."))
+    if ref:
+        raise AssertionError(f"modules of rav1d_tpu were imported: {ref}")
+
+
+def last_line():
+    import torch
+
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

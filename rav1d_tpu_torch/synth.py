@@ -690,6 +690,21 @@ def smoke_stream(digests, name):
     return [still_picture(*args, **kw)]
 
 
+def uhd_stream(digests, name):
+    """The packets of stream `name` of smoke_digests.json's "uhd": a
+    still_picture or an inter_sequence at that section's picture size
+    (3840x2160), with the entry's seed, bit depth, layout and tile columns
+    and rows (log2)."""
+    uhd = digests["uhd"]
+    e = uhd["streams"][name]
+    args = (uhd["width"], uhd["height"], e["seed"])
+    kw = dict(bpc=e["bpc"], layout=PixelLayout[e["layout"]],
+              tools=Tools(tiles=tuple(e["tiles"])))
+    if e["kind"] == "inter_sequence":
+        return inter_sequence(*args, **kw)
+    return [still_picture(*args, **kw)]
+
+
 def write_ivf(path, packets, w, h):
     """Write `packets` (one temporal unit each) to an IVF file at `path`:
     the 32-byte DKIF header (version 0, fourcc AV01, w x h, time base
@@ -762,14 +777,18 @@ def decode_md5s(dec, packets, eagain=None):
     return out
 
 
-def capture_frames(packets, md5s=None):
+def capture_frames(packets, md5s=None, device=None):
     """Decode on the port's host path and return each frame's context as
     its dense pass starts (syntax done, work items materialized), with the
     planner's plan (None where the planner sends the frame to the host):
     [(f, plan)]. Each frame's dense pass then runs on the host as usual;
-    the pictures' MD5s are appended to the list `md5s` if one is given."""
+    the pictures' MD5s are appended to the list `md5s` if one is given.
+    With `device`, the dense passes run on the engine there instead (at
+    frame delay 1), each on the plan captured, so the planner runs once a
+    frame; a frame that the planner or the packer declines runs on the
+    host path, as in any engine decode."""
     from .decoder import Decoder, Settings
-    from .engine.plan import build_plan
+    from .engine import plan as PL
     from .recon.frame import materialize_work_items
 
     got = []
@@ -777,11 +796,21 @@ def capture_frames(packets, md5s=None):
     class _Capture(Decoder):
         def _decode_dense(self, f):
             materialize_work_items(f)
-            got.append((f, build_plan(f._dense_args[0], f)))
-            super()._decode_dense(f)
+            plan = PL.build_plan(f._dense_args[0], f)
+            got.append((f, plan))
+            real = PL.build_plan
+            PL.build_plan = lambda t, f_: plan  # engine.run_dense's planner
+            try:
+                super()._decode_dense(f)
+            finally:
+                PL.build_plan = real
 
-    out = decode_md5s(_Capture(Settings(apply_grain=False), host_path=True),
-                      packets)
+    if device is None:
+        dec = _Capture(Settings(apply_grain=False), host_path=True)
+    else:
+        dec = _Capture(Settings(apply_grain=False, max_frame_delay=1),
+                       device=device)
+    out = decode_md5s(dec, packets)
     if md5s is not None:
         md5s += out
     return got

@@ -17,7 +17,8 @@ importing them. Checked here:
     as rav1d_tpu's host path, on still pictures and on an inter stream;
 (e) the 1080p digests chip_smoke.py holds the card to
     (rav1d_tpu_torch/smoke_digests.json: the still pictures and the inter
-    sequence) are rav1d_tpu's host path's.
+    sequence) are rav1d_tpu's host path's; so are its 2160p ones ("uhd",
+    marked slow: -m slow).
 
 Objects never cross between the packages: the comparisons are of bytes,
 plain values and digests. Tolerance: exact.
@@ -88,10 +89,10 @@ SEAMS = {
 }
 
 
-def ref_md5s(packets):
+def ref_md5s(packets, **settings):
     return synth.decode_md5s(
-        rav1d_tpu.Decoder(rav1d_tpu.Settings(apply_grain=False)), packets,
-        eagain=rav1d_tpu.EAgain)
+        rav1d_tpu.Decoder(rav1d_tpu.Settings(apply_grain=False, **settings)),
+        packets, eagain=rav1d_tpu.EAgain)
 
 
 def host_md5s(packets):
@@ -341,9 +342,20 @@ with open(os.path.join(PORT, "smoke_digests.json")) as _fh:
     DIGESTS = json.load(_fh)
 
 
+# the 3840x2160 streams: 30-90 s each on rav1d_tpu's host path
+UHD_CASES = [pytest.param("uhd:" + name, marks=pytest.mark.slow)
+             for name in sorted(DIGESTS["uhd"]["streams"])]
+
+
 @pytest.mark.parametrize("seed", sorted(DIGESTS["md5"]) + ["inter"]
-                         + sorted(DIGESTS["formats"]))
+                         + sorted(DIGESTS["formats"]) + UHD_CASES)
 def test_smoke_digests_are_the_reference_host_paths(seed):
+    if seed.startswith("uhd:"):  # synth.uhd_stream, tiles on one thread
+        name = seed[len("uhd:"):]
+        packets = synth.uhd_stream(DIGESTS, name)
+        assert ref_md5s(packets, n_threads=1) == \
+            DIGESTS["uhd"]["streams"][name]["md5"]
+        return
     if seed == "inter":  # synth.inter_sequence: one MD5 per frame
         inter = DIGESTS["inter"]
         packets = synth.inter_sequence(DIGESTS["width"], DIGESTS["height"],
