@@ -1,17 +1,18 @@
 """Drive rav1d_tpu_torch's intra and inter paths, at every bit depth and
 chroma layout and with superres, once on a CUDA card, end to end.
 
-    python3 chip_smoke.py [--test-data DIR] [--only uhd]
+    python3 chip_smoke.py [--test-data DIR] [--only uhd|grain]
 
 Phases (any failure exits non-zero before the last line; `--only uhd`
-runs the set-up and phase 6 alone):
+runs the set-up and phase 6 alone, `--only grain` phase 12):
 1. set-up: build the hand-written kernels (csrc/itx.cu: the itx frame
    kernel and the 8x8 DCT_DCT kernel; csrc/wave.cu: the intra wavefront's
    frame kernel, its barrier-only twin and the level kernel; csrc/inter.cu:
    the inter program's batched kernel, its earlier per-tile form and both
    traced builds; csrc/lf.cu, cdef.cu, superres.cu and lr.cu: the post
    filters' deblock, CDEF, superres upscale, Wiener and self-guided
-   kernels (one launch a frame, and the earlier one a plane); nvcc,
+   kernels (one launch a frame, and the earlier one a plane); csrc/fg.cu:
+   the film grain kernel; nvcc,
    sm_90a, one process per source, all started together) and print
    ptxas's registers, stack frames and spills. The port's native syntax library
    (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
@@ -160,16 +161,32 @@ forms' traced phases in clock cycles (inter_trace).
    CUDA-event stages; then, on a machine with two cards or more, the
    640x360 inter sequence decoded on cuda:1 at delay 1 while card 0 is
    current, to the host path's MD5s (second_card_phase);
-12. timing: on the blobs of phases 3 and 5, the frame launch and
+12. grain (grain_phase): the committed streams of smoke_digests.json
+   "grain" (synth.grain_stream: film grain parameters on): at 1920x1080
+   an 8-bit 4:2:0 still, an 8-bit 4:2:0 key frame and two inter frames
+   whose grain parameters are loaded from a reference (update_grain = 0),
+   10-bit 4:2:2, 12-bit 4:4:4 and 8-bit 4:0:0 stills and a 1919-wide
+   8-bit 4:2:0 still; a 3840x2160 10-bit 4:2:0 still. Each decoded with
+   apply_grain on at the default frame delay, to the committed MD5s, no
+   fallback, one film grain launch (csrc/fg.cu rav1d_fg_frame) per grained
+   picture and no call of the host grain (recon/fg_apply.py); each grained
+   picture equal to apply_grain on the host on its own grain-free planes,
+   the kernel equal to grain_frame_plain on its device planes; on the
+   1080p 8-bit still and the 2160p still, the grain step part by part
+   (grain_timing: the host tables, the device part and its copy to the
+   host, the whole step; the kernel's device time a launch and its bare
+   launches) beside host apply_grain, the plain version and the kernel's
+   bound;
+13. timing: on the blobs of phases 3 and 5, the frame launch and
    resid_plain (CUDA events), and torch.profiler windows over resid calls
    and over each class of the frame launched alone, which give the
    kernel's device time apart from its launch;
-13. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
+14. idct8x8: the 8x8 DCT_DCT batch (ops/itx8.py; on no decoder path): its
    entry point driven once at N=16384 with the launch count reset before
    and read after, then the kernel against idct8x8_batch_plain,
    bit-identical at N=256 for bpc 8/10/12 (1/8 of the blocks full-range
    int32) and at N=16384, where both are timed;
-14. vectors: with `--test-data DIR` naming a dav1d-test-data directory,
+15. vectors: with `--test-data DIR` naming a dav1d-test-data directory,
    two conformance streams against their meson MD5s, and the first frames
    of the bench's inter stream (16) and of its 10-bit stream
    318_tx_4x4.ivf (8, bench.py's frame limit) against the port's host
@@ -2864,6 +2881,271 @@ def uhd_kernels():
     return out
 
 
+GRAIN = {"rows": {}, "launches": {}, "err": 0, "pictures": 0,
+         "seconds": 0.0}
+# the streams whose first grained picture is timed, and the kernels line's
+# entry each gives
+GRAIN_TIMED = {"still-8bit-420": "rav1d_fg_frame",
+               "still-10bit-420-uhd": f"rav1d_fg_frame {UHD_W}x{UHD_H}"}
+_FG_OPS = {0: 10, 1: 20}  # int32 operations a grained luma / chroma pixel
+_FG_OVERLAP_OPS = 10  # more a pixel in an overlap
+
+
+def grain_work(t, planes):
+    """(bytes, int32 operations) of one rav1d_fg_frame launch: every
+    padded plane read once and written once, the tables read once; the
+    grained pixels' arithmetic, and the overlaps' (this picture's
+    parameters: the planes with grain, the overlap flag)."""
+    nbytes = 2 * sum(p.numel() * p.element_size() for p in planes) + (
+        t.lut.nbytes + t.scaling.nbytes + t.rand.nbytes)
+    ops = 0
+    for pl in range(t.nplanes):
+        if t.plane_scaling[pl] < 0:
+            continue
+        sx, sy = (0, 0) if pl == 0 else t.ss
+        vh, vw = (t.h + sy) >> sy, (t.w + sx) >> sx
+        ops += vh * vw * _FG_OPS[min(pl, 1)]
+        if t.overlap:
+            cols = ((vw - 1) // (32 >> sx)) * (2 >> sx)
+            rows = ((vh - 1) // (32 >> sy)) * (2 >> sy)
+            ops += _FG_OVERLAP_OPS * (cols * vh + rows * vw)
+    return nbytes, ops
+
+
+def grain_timing(label, pic, dev, host_grain):
+    """The grain step of one picture on the card, part by part. In each of
+    three steps taken apart (host clock, waited for): the host tables
+    (engine/grain.py tables), then the device part (source_planes,
+    grain_planes: the wrapper, its table upload and launch; to_host: the
+    copy to the host); the whole step (engine/grain.py apply, host clock,
+    three readings); the kernel's device time a launch (launch_readings:
+    the median of five torch.profiler windows, with the launches each
+    saw) and its bare launches, built once, without the wrapper (CUDA
+    events, 50 launches; they must give the wrapper's planes); the
+    wrapper's call (CUDA events); grain_frame_plain on the card (CUDA
+    events); recon/fg_apply.py apply_grain on the host on the same
+    picture (two readings). Medians. Returns the row."""
+    import ctypes
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from rav1d_tpu_torch.engine import grain as G
+    from rav1d_tpu_torch.ops import fg as FG
+    from rav1d_tpu_torch.ops.cuda import grain as GK
+
+    def wall(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    parts = {"tables": [], "device": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = G.tables(pic)
+        t1 = time.perf_counter()
+        out = G.grain_planes(G.source_planes(pic, dev), t)
+        G.to_host(out, pic.bpc)
+        parts["tables"].append((t1 - t0) * 1e3)
+        parts["device"].append((time.perf_counter() - t1) * 1e3)
+    src = G.source_planes(pic, dev)
+    nbytes, ops = grain_work(t, src)
+    b_ms, b_by = bound(nbytes, ops)
+    dev_ms, seen, made = launch_readings(
+        lambda k: GK.grain_frame(src, t), ("fg_frame_kernel",), 20)[
+            "fg_frame_kernel"]
+    buf, offsets = GK.table_bytes(t)
+    tables = torch.from_numpy(buf).to(dev)
+    bare = [torch.empty_like(p) for p in src]
+    a = GK.grain_args(bare, src, tables, offsets, t)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        if GK.lib().rav1d_fg_frame(ctypes.byref(a), stream):
+            raise RuntimeError("rav1d_fg_frame: the launch failed")
+
+    bare_ms = cuda_ms(launch, 50)
+    if not all(torch.equal(x, y) for x, y in zip(bare, out)):
+        raise AssertionError(f"grain {label}: the bare launches != the "
+                             "wrapper's planes")
+
+    def host():
+        return host_grain(dataclasses.replace(
+            pic, y=pic.y.copy(), u=None if pic.u is None else pic.u.copy(),
+            v=None if pic.v is None else pic.v.copy()))
+
+    row = dict(
+        tables_ms=statistics.median(parts["tables"]),
+        device_part_ms=statistics.median(parts["device"]),
+        copy_ms=wall(lambda: G.to_host(out, pic.bpc), 5),
+        step_ms=wall(lambda: G.apply(pic, dev), 3),
+        dev_ms=dev_ms, seen=seen, made=made, bare_ms=bare_ms,
+        call_ms=cuda_ms(lambda: GK.grain_frame(src, t), 20),
+        plain_ms=cuda_ms(lambda: FG.grain_frame_plain(src, t), 3),
+        host_ms=wall(host, 2),
+        bound=b_ms, bound_by=b_by, nbytes=nbytes, ops=ops)
+    log(f"  grain timing {label}: host tables {row['tables_ms']:.3f} ms, "
+        f"then the device part (upload, launch, copy back) "
+        f"{row['device_part_ms']:.3f} ms, of it the copy "
+        f"{row['copy_ms']:.3f} ms; the whole step (engine/grain.py apply) "
+        f"{row['step_ms']:.3f} ms against host fg_apply.apply_grain "
+        f"{row['host_ms']:.1f} ms; kernel device "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.5f} ms")
+        + f" a launch ({seen} of {made} launches seen), bare launches "
+        f"{bare_ms:.5f} ms, the wrapper's call {row['call_ms']:.4f} ms "
+        f"(CUDA events); grain_frame_plain {row['plain_ms']:.3f} ms; bound "
+        f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes, {ops} operations)")
+    return row
+
+
+def grain_phase(dev):
+    """Film grain on the decoder's output path (smoke_digests.json
+    "grain": synth.grain_stream's streams, with synth.Tools(film_grain=
+    True)): at 1920x1080 an 8-bit 4:2:0 still, an 8-bit 4:2:0 key frame
+    and two inter frames that load their grain parameters from a
+    reference (update_grain = 0), 10-bit 4:2:2, 12-bit 4:4:4 and 8-bit
+    4:0:0 stills and an 8-bit 4:2:0 still 1919 columns wide; and the JAX
+    bench's format, a 3840x2160 10-bit 4:2:0 still. Each is decoded by
+    Decoder(Settings(apply_grain=True), device=dev) at the default frame
+    delay: its MD5s must be the committed ones (the port's host path's),
+    with no fallback, one rav1d_fg_frame launch per grained picture
+    (ops/cuda/grain.py launches, reset before each decode and read after)
+    and no call of the host grain (recon/fg_apply.py apply_grain). Each
+    grained picture must equal apply_grain run on the host on that
+    picture's own grain-free planes (the visible planes: at an odd width
+    the step has made the grain-free luma plane's padding column a copy
+    of the last one, as apply_grain does, after its output took that
+    column as it was), and the kernel must equal grain_frame_plain on the
+    picture's device planes (every padded plane). The first
+    grained picture of the 1080p 8-bit still and of the 2160p still is
+    timed (grain_timing)."""
+    import dataclasses
+
+    import torch
+
+    import rav1d_tpu_torch as T
+    from rav1d_tpu_torch import synth
+    from rav1d_tpu_torch.engine import grain as G
+    from rav1d_tpu_torch.ops import fg as FG
+    from rav1d_tpu_torch.ops.cuda import grain as GK
+    from rav1d_tpu_torch.recon import fg_apply
+
+    t0 = time.perf_counter()
+    with open(os.path.join(HERE, "rav1d_tpu_torch", "smoke_digests.json")) as fh:
+        digests = json.load(fh)
+    real = fg_apply.apply_grain
+    host_calls = []
+
+    class Recorder(T.Decoder):
+        """Keeps each (grain-free, grained) picture it hands out."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.pairs = []
+
+        def _apply_grain(self, pic):
+            out = super()._apply_grain(pic)
+            self.pairs.append((pic, out))
+            return out
+
+    fg_apply.apply_grain = lambda pic: host_calls.append(pic) or real(pic)
+    try:
+        for name, e in sorted(digests["grain"]["streams"].items()):
+            label = f"{name} {e['width']}x{e['height']}"
+            packets = synth.grain_stream(digests, name)
+            T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
+            GK.launches = 0
+            host_calls.clear()
+            dec = Recorder(T.Settings(apply_grain=True), device=dev)
+            t1 = time.perf_counter()
+            md5s = synth.decode_md5s(dec, packets)
+            wall_ms = (time.perf_counter() - t1) * 1e3
+            launches, stats = GK.launches, dict(T.engine.stats)
+            dec.close()
+            log(f"grain {label}: {len(md5s)} pictures in {wall_ms:.1f} ms, "
+                f"{len(dec.pairs)} grained, rav1d_fg_frame launches "
+                f"{launches}, host grain calls {len(host_calls)}, engine "
+                f"stats {stats}; md5 {md5s} "
+                f"{'==' if md5s == e['md5'] else '!='} committed digests")
+            if md5s != e["md5"]:
+                raise AssertionError(f"grain {label}: MD5s differ from the "
+                                     "committed digests")
+            if (not dec.pairs or launches != len(dec.pairs) or host_calls
+                    or stats["fallback"] or stats["frames"] != len(packets)):
+                raise AssertionError(f"grain {label}: {launches} launches "
+                                     f"for {len(dec.pairs)} grained "
+                                     f"pictures, {len(host_calls)} host "
+                                     f"grain calls, engine stats {stats}")
+            GRAIN["launches"][name] = launches
+            GRAIN["pictures"] += len(dec.pairs)
+            for i, (pic, out) in enumerate(dec.pairs):
+                ref = real(dataclasses.replace(
+                    pic, y=pic.y.copy(),
+                    u=None if pic.u is None else pic.u.copy(),
+                    v=None if pic.v is None else pic.v.copy()))
+                if list(out.iter_plane_rows()) != list(ref.iter_plane_rows()):
+                    raise AssertionError(f"grain {label} picture {i}: != "
+                                         "apply_grain on the host")
+                t = G.tables(pic)
+                src = G.source_planes(pic, dev)
+                got = GK.grain_frame(src, t)
+                want = FG.grain_frame_plain(src, t)
+                torch.cuda.synchronize()
+                err = max(int((a.to(torch.int32) - b.to(torch.int32))
+                              .abs().max()) for a, b in zip(got, want))
+                GRAIN["err"] = max(GRAIN["err"], err)
+                if err:
+                    raise AssertionError(f"grain {label} picture {i}: the "
+                                         f"kernel != grain_frame_plain (max "
+                                         f"|err| {err})")
+            log(f"  grain {label}: every grained picture == apply_grain on "
+                f"the host on its own grain-free planes, and the kernel == "
+                f"grain_frame_plain on its device planes")
+            if name in GRAIN_TIMED:
+                GRAIN["rows"][name] = grain_timing(label, dec.pairs[0][0],
+                                                   dev, real)
+    finally:
+        fg_apply.apply_grain = real
+    GRAIN["seconds"] = time.perf_counter() - t0
+    log(f"grain: launches in the decodes {json.dumps(GRAIN['launches'])} for "
+        f"{GRAIN['pictures']} grained pictures; the phase took "
+        f"{GRAIN['seconds']:.1f} s")
+
+
+def grain_kernels():
+    """The kernels line's grain entries: the 1080p 8-bit still's and the
+    2160p still's first grained picture, the launches of all the grain
+    decodes (of the 2160p still's alone for its entry); the kernel's
+    time is its device time, or its bare launches' where the profiler
+    recorded none."""
+    out = []
+    for name, entry in GRAIN_TIMED.items():
+        r = GRAIN["rows"][name]
+        out.append({
+            "name": entry, "route": "cuda",
+            "source": "rav1d_tpu_torch/csrc/fg.cu",
+            "replaces": "rav1d_tpu/ops/tpu/fg.py:19",
+            "launches": (GRAIN["launches"][name] if "uhd" in name
+                         else sum(GRAIN["launches"].values())),
+            "max_abs_err": GRAIN["err"],
+            "ms": r["bare_ms"] if r["dev_ms"] is None else r["dev_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+            "bound_by": r["bound_by"],
+            # no PyTorch call computes AV1's film grain: its grain tables
+            # gathered at per-block random offsets and blended at the
+            # block edges
+            "library_ms": None,
+        })
+    return out
+
+
 FMT_W, FMT_H = 640, 360
 
 
@@ -3506,9 +3788,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--test-data", help="a dav1d-test-data directory for "
                     "the vector phase (skipped without it)")
-    ap.add_argument("--only", choices=("uhd",), help="run the set-up and "
-                    "this phase alone (its kernels' entries and the last "
-                    "line as usual)")
+    ap.add_argument("--only", choices=("uhd", "grain"), help="run the "
+                    "set-up and this phase alone (its kernels' entries and "
+                    "the last line as usual)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3519,6 +3801,7 @@ def main():
     from rav1d_tpu_torch.native import syntax as native_syntax
     from rav1d_tpu_torch.ops.cuda import build
     from rav1d_tpu_torch.ops.cuda import filters as FK
+    from rav1d_tpu_torch.ops.cuda import grain as GK
     from rav1d_tpu_torch.ops.cuda import inter as IK
     from rav1d_tpu_torch.ops.cuda import itx as I
     from rav1d_tpu_torch.ops.cuda import wave as WK
@@ -3535,27 +3818,31 @@ def main():
     log(f"syntax backend: native C ({os.path.relpath(so, HERE)})")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as ex:  # one nvcc per source, together
-        for fut in [ex.submit(I.lib), ex.submit(WK.lib), ex.submit(IK.lib)] + [
+    with ThreadPoolExecutor(8) as ex:  # one nvcc per source, together
+        for fut in [ex.submit(I.lib), ex.submit(WK.lib), ex.submit(IK.lib),
+                    ex.submit(GK.lib)] + [
                 ex.submit(FK.lib, n) for n in ("lf", "cdef", "superres",
                                                "lr")]:
             fut.result()
-    log(f"set-up: itx, idct8x8, wave, inter, deblock, CDEF, superres and "
-        f"loop restoration kernels built and loaded in "
+    log(f"set-up: itx, idct8x8, wave, inter, deblock, CDEF, superres, loop "
+        f"restoration and film grain kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s; the inter kernel's grid "
         f"{IK.grid()} blocks (the earlier form's {IK.grid(IK.EARLIER)})")
-    for name in ("itx", "wave", "inter", "lf", "cdef", "superres", "lr"):
+    for name in ("itx", "wave", "inter", "lf", "cdef", "superres", "lr",
+                 "fg"):
         for ln in build.LOGS.get(name, "").splitlines():  # ptxas -v
             if any(k in ln for k in ("entry function", "Function properties",
                                      "Used", "stack frame")):
                 log("  " + ln.replace("ptxas info    :", "").strip())
 
-    if args.only == "uhd":
-        uhd_phase(dev)
+    if args.only is not None:
+        phase, entries = {"uhd": (uhd_phase, uhd_kernels),
+                          "grain": (grain_phase, grain_kernels)}[args.only]
+        phase(dev)
         imported_check()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(gpu_line())
-        log(json.dumps({"kernels": uhd_kernels()}))
+        log(json.dumps({"kernels": entries()}))
         last_line()
         return
     worst = kernel_phase(dev)
@@ -3576,6 +3863,7 @@ def main():
     launches += second_card_phase()
     WAVE["launches"] += PIPE["wave"]
     INTER["launches"] += PIPE["inter"]
+    grain_phase(dev)
     rows = timing_phase(blobs)
     i8 = idct8x8_phase(dev)
     vector_phase(dev, args.test_data)
@@ -3797,7 +4085,7 @@ def main():
             # prediction bit-exactly
             "library_ms": None,
         })
-    kernels += uhd_kernels()
+    kernels += uhd_kernels() + grain_kernels()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())  # again here, where the end of a long log keeps it
     log(json.dumps({"kernels": kernels}))

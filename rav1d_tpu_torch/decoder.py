@@ -404,10 +404,18 @@ class Decoder:
     # -- grain -------------------------------------------------------------
 
     def _apply_grain(self, pic: Picture) -> Picture:
-        from .recon import fg_apply
+        """A new picture with `pic`'s film grain (called inside this
+        decoder's card, after the picture's fetch): on the engine's device
+        through engine/grain.py (one rav1d_fg_frame launch on a card, the
+        plain version on the CPU), on the host path by recon/fg_apply.py."""
+        if self.device is None:
+            from .recon import fg_apply
 
-        pic.materialize()
-        return fg_apply.apply_grain(pic)
+            pic.materialize()
+            return fg_apply.apply_grain(pic)
+        from .engine import grain
+
+        return grain.apply(pic, self.device)
 
     # -- show_existing_frame path ------------------------------------------
 

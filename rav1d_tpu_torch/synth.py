@@ -64,7 +64,12 @@ class Tools:
       reduced_tx_set = 1;
     - lr_unit_shift: lr_unit_shift and, at 4:2:0, lr_uv_shift (1: 128-px
       luma units, 64-px chroma units at 4:2:0; 0 with 64-px superblocks:
-      64-px units on every plane).
+      64-px units on every plane);
+    - film_grain: film_grain_params_present, and film_grain_params() in
+      every frame (_film_grain): random points, AR coefficients and
+      shifts, chroma multipliers, overlap and range clip; inter_sequence's
+      frame 1 may skip grain or load it from a reference, its frame 2
+      always loads it (update_grain = 0).
     """
 
     sb128: bool = False
@@ -75,6 +80,7 @@ class Tools:
     lf_deltas: bool = False
     tx_mode_largest: bool = False
     lr_unit_shift: int = 1
+    film_grain: bool = False
 
 
 DEFAULT_TOOLS = Tools()
@@ -182,7 +188,7 @@ def _profile(bpc, layout):
 
 
 def _seq_header(w, h, *, reduced, bpc, superres, layout=PixelLayout.I420,
-                inter_tools=False, sb128=False):
+                inter_tools=False, sb128=False, film_grain=False):
     profile = _profile(bpc, layout)
     b = _Bits()
     b.put(profile, 3)  # seq_profile
@@ -245,7 +251,7 @@ def _seq_header(w, h, *, reduced, bpc, superres, layout=PixelLayout.I420,
         if ss_x and ss_y:
             b.put(0, 2)  # chroma_sample_position
         b.put(0, 1)  # separate_uv_delta_q
-    b.put(0, 1)  # film_grain_params_present
+    b.put(1 if film_grain else 0, 1)  # film_grain_params_present
     b.trailing()
     return b.bytes()
 
@@ -409,6 +415,74 @@ def _put_gmv(b, kind, params):
     b.subexp(t1, 0, 12)
 
 
+def _film_grain(b, rng, layout, *, inter=False, apply=True, update=True,
+                ref_slots=()):
+    """film_grain_params() (obu.py _parse_film_grain) of a shown frame:
+    apply_grain, a random grain_seed and, on an inter frame, update_grain;
+    without an update, film_grain_params_ref_idx, one of `ref_slots`.
+    Otherwise random parameters within what the syntax allows: up to 14
+    luma points and 10 points a chroma plane (x rising; both chroma planes
+    with points or neither at 4:2:0, none at 4:2:0 without luma points),
+    chroma_scaling_from_luma a quarter of the time, any scaling shift, AR
+    lag 0-3 with coefficients over their whole range, AR and grain scale
+    shifts, chroma multipliers and offsets, overlap_flag and
+    clip_to_restricted_range."""
+    b.put(1 if apply else 0, 1)  # apply_grain
+    if not apply:
+        return
+    b.put(int(rng.integers(0, 1 << 16)), 16)  # grain_seed
+    if inter:
+        b.put(1 if update else 0, 1)  # update_grain
+        if not update:
+            b.put(int(rng.choice(ref_slots)), 3)  # film_grain_params_ref_idx
+            return
+
+    def points(n):
+        xs = np.sort(rng.choice(256, size=n, replace=False))
+        for x, y in zip(xs, rng.integers(0, 256, size=n)):
+            b.put(int(x), 8)  # point_{y,cb,cr}_value
+            b.put(int(y), 8)  # point_{y,cb,cr}_scaling
+
+    num_y = max(int(rng.integers(-2, 15)), 0)
+    b.put(num_y, 4)  # num_y_points
+    points(num_y)
+    mono = layout == PixelLayout.I400
+    cfl = False
+    if not mono:
+        cfl = bool(rng.integers(0, 4) == 0)
+        b.put(1 if cfl else 0, 1)  # chroma_scaling_from_luma
+    num_uv = [0, 0]
+    if not (mono or cfl or (layout == PixelLayout.I420 and num_y == 0)):
+        num_uv[0] = int(rng.integers(0, 11))
+        if layout == PixelLayout.I420:  # both planes with points or neither
+            num_uv[1] = int(rng.integers(1, 11)) if num_uv[0] else 0
+        else:
+            num_uv[1] = int(rng.integers(0, 11))
+        for n in num_uv:
+            b.put(n, 4)  # num_cb_points, num_cr_points
+            points(n)
+    b.put(int(rng.integers(0, 4)), 2)  # grain_scaling_minus_8
+    lag = int(rng.integers(0, 4))
+    b.put(lag, 2)  # ar_coeff_lag
+    num_pos = 2 * lag * (lag + 1)
+    if num_y:
+        for c in rng.integers(0, 256, size=num_pos):
+            b.put(int(c), 8)  # ar_coeffs_y_plus_128
+    for n in num_uv:
+        if n or cfl:
+            for c in rng.integers(0, 256, size=num_pos + (1 if num_y else 0)):
+                b.put(int(c), 8)  # ar_coeffs_{cb,cr}_plus_128
+    b.put(int(rng.integers(0, 4)), 2)  # ar_coeff_shift_minus_6
+    b.put(int(rng.integers(0, 4)), 2)  # grain_scale_shift
+    for n in num_uv:
+        if n:
+            b.put(int(rng.integers(0, 256)), 8)  # {cb,cr}_mult
+            b.put(int(rng.integers(0, 256)), 8)  # {cb,cr}_luma_mult
+            b.put(int(rng.integers(0, 512)), 9)  # {cb,cr}_offset
+    b.put(int(rng.integers(0, 2)), 1)  # overlap_flag
+    b.put(int(rng.integers(0, 2)), 1)  # clip_to_restricted_range
+
+
 def _skip_mode_allowed(ref_hints, cur):
     """obu.py _parse_skip_mode's test, for order hints that do not wrap."""
     before = [x for x in ref_hints if x < cur]
@@ -454,6 +528,8 @@ def _frame_obu(w, h, rng, *, reduced, key, q, payload_bytes, superres,
         b.put(0, 1)  # disable_frame_end_update_cdf
     _frame_tail(b, w, h, rng, key=key, q=q, layout=layout, intrabc=intrabc,
                 tools=tools)
+    if tools.film_grain:
+        _film_grain(b, rng, layout, inter=not key, ref_slots=(0,))
     b.align()  # byte_alignment() before the tile group
     return _obu(OBU_FRAME, _tile_group(b, w, h, rng, payload_bytes, tools))
 
@@ -481,7 +557,8 @@ def still_picture(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
     rng = np.random.default_rng(seed)
     q = int(rng.integers(60, 160))
     seq = _seq_header(w, h, reduced=True, bpc=bpc, superres=superres,
-                      layout=layout, sb128=tools.sb128)
+                      layout=layout, sb128=tools.sb128,
+                      film_grain=tools.film_grain)
     payload = max(w * h // 2, 256)
     frame = _frame_obu(w, h, rng, reduced=True, key=True, q=q,
                        payload_bytes=payload, superres=superres,
@@ -508,13 +585,14 @@ def key_then_inter(w, h, seed):
 
 def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
                      refidx, slot_hints, error_resilient, filt, gmv, layout,
-                     superres=None, tools=DEFAULT_TOOLS):
+                     superres=None, tools=DEFAULT_TOOLS, grain=None):
     """An inter frame of inter_sequence: no primary reference frame,
     switchable motion modes, reference_select, `filt` the frame's
     interpolation filter (None: switchable per block), `gmv` seven
     _put_gmv arguments, `slot_hints` the order hints of the eight slots,
     `superres` None where the sequence disables superres, else the
-    frame's use_superres; `tools` a Tools."""
+    frame's use_superres; `tools` a Tools; `grain` _film_grain's apply,
+    update and ref_slots where tools.film_grain is on."""
     b = _Bits()
     b.put(0, 1)  # show_existing_frame
     b.put(1, 2)  # frame_type: INTER
@@ -550,6 +628,8 @@ def _inter_frame_obu(w, h, rng, *, q, payload_bytes, order_hint, refresh,
     _frame_tail(b, w, h, rng, key=False, q=q, layout=layout, inter=dict(
         skip_mode=1 if skip else None,
         warped=None if error_resilient else 1, gmv=gmv), tools=tools)
+    if tools.film_grain:
+        _film_grain(b, rng, layout, inter=True, **grain)
     b.align()
     return _obu(OBU_FRAME, _tile_group(b, w, h, rng, payload_bytes, tools))
 
@@ -582,12 +662,25 @@ def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
     rng = np.random.default_rng(seed)
     payload = max(w * h // 2, 256)
     seq = _seq_header(w, h, reduced=False, bpc=bpc, superres=superres,
-                      layout=layout, inter_tools=True, sb128=tools.sb128)
+                      layout=layout, inter_tools=True, sb128=tools.sb128,
+                      film_grain=tools.film_grain)
     key = _frame_obu(w, h, rng, reduced=False, key=True,
                      q=int(rng.integers(60, 160)), payload_bytes=payload,
                      superres=superres, layout=layout, order_hint=0,
                      intrabc=intrabc, tools=tools)
     sr = False if superres else None
+    g1 = g2 = g3 = None
+    if tools.film_grain:
+        # frame 1: grain three times in four, its parameters new or loaded
+        # from the key frame; frames 2 and 3 (references 0, 4, 1, 5, 2, 6,
+        # 3) load frame 1's (slots 0-3) or, where it has none, the key
+        # frame's (slots 4-6); frame 3 may also update
+        apply1 = bool(rng.integers(0, 4))
+        g1 = dict(apply=apply1, update=bool(rng.integers(0, 2)),
+                  ref_slots=(0, 1, 2, 3, 4, 5, 6))
+        later = (0, 4, 1, 5, 2, 6, 3) if apply1 else (4, 5, 6)
+        g2 = dict(update=False, ref_slots=later)
+        g3 = dict(update=bool(rng.integers(0, 2)), ref_slots=later)
     ident = ("identity", ())
     gmv1 = [("rotzoom", (-70, 45, 60, -25)), ident, ident, ident,
             ("rotzoom", (33, -20, -40, 30)), ident, ident]
@@ -595,7 +688,7 @@ def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
                           payload_bytes=payload, order_hint=1, refresh=0x0F,
                           refidx=(0, 1, 2, 3, 4, 5, 6), slot_hints=[0] * 8,
                           error_resilient=0, filt=None, gmv=gmv1,
-                          layout=layout, superres=sr, tools=tools)
+                          layout=layout, superres=sr, tools=tools, grain=g1)
     gmv2 = [ident, ("rotzoom", (50, 20, -30, -45)), ident, ident, ident,
             ident, ident]
     f2 = _inter_frame_obu(w, h, rng, q=int(rng.integers(60, 160)),
@@ -603,7 +696,7 @@ def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
                           refidx=(0, 4, 1, 5, 2, 6, 3),
                           slot_hints=[1, 1, 1, 1, 0, 0, 0, 0],
                           error_resilient=1, filt=BILINEAR, gmv=gmv2,
-                          layout=layout, superres=sr, tools=tools)
+                          layout=layout, superres=sr, tools=tools, grain=g2)
     out = [_obu(OBU_TD, b"") + _obu(OBU_SEQ_HDR, seq) + key,
            _obu(OBU_TD, b"") + f1, _obu(OBU_TD, b"") + f2]
     if superres:
@@ -612,7 +705,8 @@ def inter_sequence(w, h, seed, *, bpc=8, layout=PixelLayout.I420,
                               refresh=0x00, refidx=(0, 4, 1, 5, 2, 6, 3),
                               slot_hints=[1, 1, 1, 1, 0, 0, 0, 0],
                               error_resilient=1, filt=None, gmv=[ident] * 7,
-                              layout=layout, superres=True, tools=tools)
+                              layout=layout, superres=True, tools=tools,
+                              grain=g3)
         out.append(_obu(OBU_TD, b"") + f3)
     if layout == PixelLayout.I422:
         out = _fit_422(out, payload, seed)
@@ -700,6 +794,20 @@ def uhd_stream(digests, name):
     args = (uhd["width"], uhd["height"], e["seed"])
     kw = dict(bpc=e["bpc"], layout=PixelLayout[e["layout"]],
               tools=Tools(tiles=tuple(e["tiles"])))
+    if e["kind"] == "inter_sequence":
+        return inter_sequence(*args, **kw)
+    return [still_picture(*args, **kw)]
+
+
+def grain_stream(digests, name):
+    """The packets of stream `name` of smoke_digests.json's "grain": a
+    still_picture or an inter_sequence with film grain parameters
+    (Tools(film_grain=True)), at the entry's picture size, seed, bit depth
+    and layout."""
+    e = digests["grain"]["streams"][name]
+    args = (e["width"], e["height"], e["seed"])
+    kw = dict(bpc=e["bpc"], layout=PixelLayout[e["layout"]],
+              tools=Tools(film_grain=True))
     if e["kind"] == "inter_sequence":
         return inter_sequence(*args, **kw)
     return [still_picture(*args, **kw)]
