@@ -12,7 +12,7 @@ runs the set-up and phase 6 alone, `--only grain` phase 12):
    traced builds; csrc/lf.cu, cdef.cu, superres.cu and lr.cu: the post
    filters' deblock, CDEF, superres upscale, Wiener and self-guided
    kernels (one launch a frame, and the earlier one a plane); csrc/fg.cu:
-   the film grain kernel; nvcc,
+   the film grain kernel, its earlier form and both traced builds; nvcc,
    sm_90a, one process per source, all started together) and print
    ptxas's registers, stack frames and spills. The port's native syntax library
    (csrc/host/, built into rav1d_tpu_torch/build/ when the port is
@@ -169,14 +169,18 @@ forms' traced phases in clock cycles (inter_trace).
    8-bit 4:2:0 still; a 3840x2160 10-bit 4:2:0 still. Each decoded with
    apply_grain on at the default frame delay, to the committed MD5s, no
    fallback, one film grain launch (csrc/fg.cu rav1d_fg_frame) per grained
-   picture and no call of the host grain (recon/fg_apply.py); each grained
-   picture equal to apply_grain on the host on its own grain-free planes,
-   the kernel equal to grain_frame_plain on its device planes; on the
-   1080p 8-bit still and the 2160p still, the grain step part by part
+   picture, none of the earlier form (rav1d_fg_frame_earlier) and no call
+   of the host grain (recon/fg_apply.py); each grained picture equal to
+   apply_grain on the host on its own grain-free planes, both forms of the
+   kernel equal to grain_frame_plain on its device planes; on the 1080p
+   8-bit still and the 2160p still, the grain step part by part
    (grain_timing: the host tables, the device part and its copy to the
-   host, the whole step; the kernel's device time a launch and its bare
-   launches) beside host apply_grain, the plain version and the kernel's
-   bound;
+   host, the whole step; both forms in turns, each one's device time a
+   launch, bare launches, wrapper's call and traced build (grain_trace:
+   blocks a SM, staging against pixel work, the slowest block); the
+   wrapper's call split into its parts beside the earlier call's parts
+   (grain_call_split); the device part split (grain_step_split)) beside
+   host apply_grain, the plain version and the kernel's bound;
 13. timing: on the blobs of phases 3 and 5, the frame launch and
    resid_plain (CUDA events), and torch.profiler windows over resid calls
    and over each class of the frame launched alone, which give the
@@ -2881,21 +2885,25 @@ def uhd_kernels():
     return out
 
 
-GRAIN = {"rows": {}, "launches": {}, "err": 0, "pictures": 0,
-         "seconds": 0.0}
+GRAIN = {"rows": {}, "launches": {}, "err": 0, "err_earlier": 0,
+         "pictures": 0, "own": 0, "seconds": 0.0}
 # the streams whose first grained picture is timed, and the kernels line's
 # entry each gives
-GRAIN_TIMED = {"still-8bit-420": "rav1d_fg_frame",
-               "still-10bit-420-uhd": f"rav1d_fg_frame {UHD_W}x{UHD_H}"}
+GRAIN_TIMED = {"still-8bit-420": "",
+               "still-10bit-420-uhd": f" {UHD_W}x{UHD_H}"}
+# each form: its wrapper's name, its C entry, its kernel's name
+GRAIN_FORMS = {"new": ("grain_frame", "rav1d_fg_frame", "fg_tiles_kernel"),
+               "earlier": ("grain_frame_earlier", "rav1d_fg_frame_earlier",
+                           "fg_frame_kernel")}
 _FG_OPS = {0: 10, 1: 20}  # int32 operations a grained luma / chroma pixel
 _FG_OVERLAP_OPS = 10  # more a pixel in an overlap
 
 
 def grain_work(t, planes):
-    """(bytes, int32 operations) of one rav1d_fg_frame launch: every
-    padded plane read once and written once, the tables read once; the
-    grained pixels' arithmetic, and the overlaps' (this picture's
-    parameters: the planes with grain, the overlap flag)."""
+    """(bytes, int32 operations) of one film grain launch: every padded
+    plane read once and written once, the tables read once; the grained
+    pixels' arithmetic, and the overlaps' (this picture's parameters: the
+    planes with grain, the overlap flag)."""
     nbytes = 2 * sum(p.numel() * p.element_size() for p in planes) + (
         t.lut.nbytes + t.scaling.nbytes + t.rand.nbytes)
     ops = 0
@@ -2912,19 +2920,216 @@ def grain_work(t, planes):
     return nbytes, ops
 
 
+def _median_ms(fn, reps):
+    """The median host-clock time of fn in ms over `reps` calls, the card
+    idle before each."""
+    import statistics
+
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _args_by_field(out, src, tables, offsets, t):
+    """The FgFrame built field by field through ctypes, as the wrapper
+    built it before its one-call pack (ops/cuda/grain.py grain_args): the
+    earlier call's argument part, for its split."""
+    from rav1d_tpu_torch.ops.cuda import grain as GK
+
+    a = GK.FgFrame()
+    base = tables.data_ptr()
+    for pl, (o, s) in enumerate(zip(out, src)):
+        a.out[pl] = o.data_ptr()
+        a.src[pl] = s.data_ptr()
+        a.ph[pl], a.pw[pl] = s.shape
+        a.sc[pl] = t.plane_scaling[pl]
+    a.lut, a.scaling, a.rand = (base + o for o in offsets)
+    a.bpc, a.nplanes = t.bpc, t.nplanes
+    a.sx, a.sy = t.ss
+    a.w, a.h = t.w, t.h
+    a.n_rows, a.n_cols = t.rand.shape
+    a.overlap, a.scaling_shift, a.cfl = int(t.overlap), t.scaling_shift, int(t.cfl)
+    for uv in range(2):
+        a.uv_mult[uv] = t.uv_mult[uv]
+        a.uv_luma_mult[uv] = t.uv_luma_mult[uv]
+        a.uv_offset[uv] = t.uv_offset[uv]
+    for k, (lo, hi) in enumerate(t.clip):
+        a.lo[k], a.hi[k] = lo, hi
+    return a
+
+
+def grain_call_split(src, t, dev, reps=30):
+    """The wrapper's call part by part (host clock, ms, the median of
+    `reps`, the card idle before each): the current call (ops/cuda/
+    grain.py grain_frame: write_tables into the reused page-locked buffer,
+    the device allocation of the tables and the output planes, the
+    tables' copy with its event's record and wait, the planes' views,
+    grain_args, the C entry alone on built arguments) and the earlier call's parts as its
+    wrapper took them (table_bytes into a new buffer, its pin_memory, its
+    copy, torch.empty of the output planes, the argument struct field by
+    field); each whole call too."""
+    import ctypes
+
+    import torch
+
+    from rav1d_tpu_torch.ops.cuda import grain as GK
+
+    so = GK.lib()
+    dev = src[0].device
+    stage = GK.stage(dev)
+    dtype = src[0].dtype
+    esz = src[0].element_size()
+    n_tab, _ = GK.table_layout(t)
+    o0 = (n_tab + 255 & -256) // esz
+    total = o0 + sum(p.numel() for p in src)
+    stream = torch.cuda.current_stream(dev)
+    flat = torch.empty(total, dtype=dtype, device=dev)
+    host, n, offsets = stage.write(t)
+
+    def views():
+        out, o = [], o0
+        for p in src:
+            h, w = p.shape
+            out.append(flat.as_strided((h, w), (w, 1), o))
+            o += h * w
+        return out
+
+    out = views()
+    a = GK.grain_args(out, src, flat, offsets, t)
+
+    def launch():  # the tables' copy and the launch
+        if so.rav1d_fg_frame(ctypes.byref(a), host, n, stream.cuda_stream):
+            raise RuntimeError("rav1d_fg_frame: the launch failed")
+
+    def write():  # the next reading waits for nothing: the card is idle
+        stage.copied(stream)
+        stage.write(t)
+
+    buf, offs = GK.table_bytes(t)
+    pinned = torch.from_numpy(buf).pin_memory()
+    now = dict(
+        write_tables=_median_ms(lambda: GK.write_tables(t, stage.view), reps),
+        stage_write=_median_ms(write, reps),
+        empty=_median_ms(lambda: torch.empty(total, dtype=dtype, device=dev),
+                         reps),
+        views=_median_ms(views, reps),
+        grain_args=_median_ms(lambda: GK.grain_args(out, src, flat, offsets,
+                                                    t), reps),
+        c_entry=_median_ms(launch, reps),
+        event_record=_median_ms(lambda: stage.copied(stream), reps),
+        call=_median_ms(lambda: GK.grain_frame(src, t), reps))
+    earlier = dict(
+        table_bytes=_median_ms(lambda: GK.table_bytes(t), reps),
+        pin_memory=_median_ms(lambda: torch.from_numpy(buf).pin_memory(), reps),
+        copy=_median_ms(lambda: pinned.to(dev, non_blocking=True), reps),
+        empty=_median_ms(lambda: torch.empty(sum(p.numel() for p in src),
+                                             dtype=dtype, device=dev), reps),
+        args_by_field=_median_ms(lambda: _args_by_field(out, src, flat, offs,
+                                                        t), reps))
+    earlier["parts_sum"] = sum(earlier.values()) + now["c_entry"]
+    return now, earlier
+
+
+def grain_step_split(pic, dev, out, reps=5):
+    """The grain step's device part (engine/grain.py apply after its
+    tables) part by part, host clock, ms, medians of `reps`:
+    source_planes (and whether it uploaded: a picture without device
+    planes), the call (grain_planes, until it returns), the copy to the
+    host through the card's reused page-locked buffer (HostCopy.fill: the
+    copies and their wait) and the copy out of it into new arrays; and,
+    apart, what the earlier to_host paid instead: a fresh page-locked
+    buffer of the planes' size (torch.empty(pin_memory=True), each kept,
+    as the pictures kept theirs, so none comes back from the caching host
+    allocator) and its copies and wait."""
+    import numpy as np
+    import torch
+
+    from rav1d_tpu_torch.engine import grain as G
+
+    t = G.tables(pic)
+    hc = G.host_copy(out[0].device)
+    dt = np.uint16 if pic.bpc > 8 else np.uint8
+    views = hc.fill(out)
+    nbytes = sum(p.numel() * p.element_size() for p in out)
+
+    held = []  # the fresh buffers, kept until the readings are done
+
+    def fresh():
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        held.append(buf)
+        o = 0
+        for p in out:
+            n = p.numel() * p.element_size()
+            buf[o : o + n].view(p.dtype).view(p.shape).copy_(p, non_blocking=True)
+            o += n
+        torch.cuda.synchronize()
+
+    dev_planes = getattr(pic, "_dev_planes", None) or {}
+    row = dict(
+        uploaded=not all(pl in dev_planes for pl in range(t.nplanes)),
+        source_planes=_median_ms(lambda: G.source_planes(pic, dev), reps),
+        call=_median_ms(lambda: G.grain_planes(G.source_planes(pic, dev), t),
+                        reps),
+        fill=_median_ms(lambda: hc.fill(out), reps),
+        copy_out=_median_ms(lambda: [h.numpy().view(dt).copy()
+                                     for h in views], reps),
+        to_host=_median_ms(lambda: G.to_host(out, pic.bpc), reps),
+        pinned_alloc=_median_ms(lambda: held.append(torch.empty(
+            nbytes, dtype=torch.uint8, pin_memory=True)), reps),
+        fresh_pinned_copy=_median_ms(fresh, reps), nbytes=nbytes)
+    held.clear()
+    return row
+
+
+def grain_trace(clk):
+    """A traced film grain launch's stamps (blocks, csrc/fg.cu FG_ST_*:
+    SM, clock64 start and end, staging cycles, tiles, stagings, global
+    timer ns at start and end) summed up: the blocks, the SMs they ran on
+    and the most blocks an SM ran, the blocks with nothing to do, the
+    stagings, the staging cycles' share of the blocks' cycles and their
+    mean a staging, the blocks' cycles (mean; the slowest block, its SM
+    and tiles), the global timer's span from the first block's start to
+    the last block's end and the spread of the blocks' starts."""
+    import numpy as np
+
+    c = clk.cpu().numpy().astype(np.int64)
+    sm, busy = c[:, 0], c[:, 2] - c[:, 1]
+    slow = int(busy.argmax())
+    per_sm = np.bincount(sm)
+    return dict(
+        blocks=len(c), sms=int((per_sm > 0).sum()),
+        blocks_per_sm_max=int(per_sm.max()),
+        dead=int((c[:, 4] == 0).sum()), stagings=int(c[:, 5].sum()),
+        stage_share=round(float(c[:, 3].sum() / max(busy.sum(), 1)), 4),
+        stage_mean=round(float(c[:, 3].sum() / max(c[:, 5].sum(), 1)), 1),
+        cycles_mean=round(float(busy.mean()), 1), cycles_max=int(busy.max()),
+        slowest_sm=int(sm[slow]), slowest_tiles=int(c[slow, 4]),
+        span_ns=int(c[:, 7].max() - c[:, 6].min()),
+        start_spread_ns=int(c[:, 6].max() - c[:, 6].min()))
+
+
 def grain_timing(label, pic, dev, host_grain):
     """The grain step of one picture on the card, part by part. In each of
     three steps taken apart (host clock, waited for): the host tables
     (engine/grain.py tables), then the device part (source_planes,
     grain_planes: the wrapper, its table upload and launch; to_host: the
     copy to the host); the whole step (engine/grain.py apply, host clock,
-    three readings); the kernel's device time a launch (launch_readings:
-    the median of five torch.profiler windows, with the launches each
-    saw) and its bare launches, built once, without the wrapper (CUDA
-    events, 50 launches; they must give the wrapper's planes); the
-    wrapper's call (CUDA events); grain_frame_plain on the card (CUDA
-    events); recon/fg_apply.py apply_grain on the host on the same
-    picture (two readings). Medians. Returns the row."""
+    three readings); both forms of the kernel in turns (new, earlier,
+    earlier, new) on the same input, each equal to grain_frame_plain: the
+    device time a launch (launch_readings: the median of five
+    torch.profiler windows, with the launches each saw), the bare launches
+    built once without the wrapper (CUDA events, 50 launches; they must
+    give the wrapper's planes), the wrapper's call (CUDA events), and each
+    form's traced build (grain_trace); the wrapper's call and the device
+    part split (grain_call_split, grain_step_split); grain_frame_plain on
+    the card (CUDA events); recon/fg_apply.py apply_grain on the host on
+    the same picture (two readings). Medians. Returns the row."""
     import ctypes
     import dataclasses
     import statistics
@@ -2956,52 +3161,104 @@ def grain_timing(label, pic, dev, host_grain):
         parts["tables"].append((t1 - t0) * 1e3)
         parts["device"].append((time.perf_counter() - t1) * 1e3)
     src = G.source_planes(pic, dev)
+    plain = FG.grain_frame_plain(src, t)
     nbytes, ops = grain_work(t, src)
     b_ms, b_by = bound(nbytes, ops)
-    dev_ms, seen, made = launch_readings(
-        lambda k: GK.grain_frame(src, t), ("fg_frame_kernel",), 20)[
-            "fg_frame_kernel"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
     buf, offsets = GK.table_bytes(t)
     tables = torch.from_numpy(buf).to(dev)
-    bare = [torch.empty_like(p) for p in src]
-    a = GK.grain_args(bare, src, tables, offsets, t)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    forms = {}
+    for form, (wrapper, entry, kernel) in GRAIN_FORMS.items():
+        got = getattr(GK, wrapper)(src, t)
+        torch.cuda.synchronize()
+        err = max(int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+                  for a, b in zip(got, plain))
+        if err:
+            raise AssertionError(f"grain {label}: the {form} form != "
+                                 f"grain_frame_plain (max |err| {err})")
+        bare = [torch.empty_like(p) for p in src]
+        a = GK.grain_args(bare, src, tables, offsets, t)
+        forms[form] = dict(got=got, bare=bare, args=a,
+                           entry=getattr(GK.lib(), entry), kernel=kernel,
+                           wrapper=getattr(GK, wrapper), dev=[], seen=0,
+                           made=0, bare_ms=[], call_ms=[])
+    for form in ("new", "earlier", "earlier", "new"):
+        f = forms[form]
+        ms, seen, made = launch_readings(
+            lambda k, f=f: f["wrapper"](src, t), (f["kernel"],), 10)[
+                f["kernel"]]
+        f["seen"] += seen
+        f["made"] += made
+        if ms is not None:
+            f["dev"].append(ms)
 
-    def launch():
-        if GK.lib().rav1d_fg_frame(ctypes.byref(a), stream):
-            raise RuntimeError("rav1d_fg_frame: the launch failed")
+        def launch(f=f):  # the tables are on the card already
+            if f["entry"](ctypes.byref(f["args"]), None, 0, stream):
+                raise RuntimeError(f"{form}: the launch failed")
 
-    bare_ms = cuda_ms(launch, 50)
-    if not all(torch.equal(x, y) for x, y in zip(bare, out)):
-        raise AssertionError(f"grain {label}: the bare launches != the "
-                             "wrapper's planes")
+        f["bare_ms"].append(cuda_ms(launch, 50))
+        f["call_ms"].append(cuda_ms(lambda f=f: f["wrapper"](src, t), 20))
+    for form, f in forms.items():
+        if not all(torch.equal(x, y) for x, y in zip(f["bare"], f["got"])):
+            raise AssertionError(f"grain {label}: the {form} form's bare "
+                                 "launches != its wrapper's planes")
+        traced, clk = GK.trace_frame(src, t, form=form)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(traced, f["got"])):
+            raise AssertionError(f"grain {label}: the {form} form's traced "
+                                 "build != its wrapper's planes")
+        f["trace"] = grain_trace(clk)
+    call_now, call_earlier = grain_call_split(src, t, dev)
+    step = grain_step_split(pic, dev, out)
 
     def host():
         return host_grain(dataclasses.replace(
             pic, y=pic.y.copy(), u=None if pic.u is None else pic.u.copy(),
             v=None if pic.v is None else pic.v.copy()))
 
+    def mid(v):
+        return statistics.median(v) if v else None
+
     row = dict(
         tables_ms=statistics.median(parts["tables"]),
         device_part_ms=statistics.median(parts["device"]),
         copy_ms=wall(lambda: G.to_host(out, pic.bpc), 5),
         step_ms=wall(lambda: G.apply(pic, dev), 3),
-        dev_ms=dev_ms, seen=seen, made=made, bare_ms=bare_ms,
-        call_ms=cuda_ms(lambda: GK.grain_frame(src, t), 20),
+        forms={form: dict(dev_ms=mid(f["dev"]), seen=f["seen"],
+                          made=f["made"], bare_ms=mid(f["bare_ms"]),
+                          call_ms=mid(f["call_ms"]), readings=f["dev"],
+                          trace=f["trace"]) for form, f in forms.items()},
+        call_split=call_now, earlier_call_split=call_earlier,
+        step_split=step,
         plain_ms=cuda_ms(lambda: FG.grain_frame_plain(src, t), 3),
         host_ms=wall(host, 2),
         bound=b_ms, bound_by=b_by, nbytes=nbytes, ops=ops)
+
+    def txt(v, d=5):
+        return "not measured" if v is None else f"{v:.{d}f} ms"
+
     log(f"  grain timing {label}: host tables {row['tables_ms']:.3f} ms, "
         f"then the device part (upload, launch, copy back) "
         f"{row['device_part_ms']:.3f} ms, of it the copy "
         f"{row['copy_ms']:.3f} ms; the whole step (engine/grain.py apply) "
         f"{row['step_ms']:.3f} ms against host fg_apply.apply_grain "
-        f"{row['host_ms']:.1f} ms; kernel device "
-        + ("not measured" if dev_ms is None else f"{dev_ms:.5f} ms")
-        + f" a launch ({seen} of {made} launches seen), bare launches "
-        f"{bare_ms:.5f} ms, the wrapper's call {row['call_ms']:.4f} ms "
-        f"(CUDA events); grain_frame_plain {row['plain_ms']:.3f} ms; bound "
-        f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes, {ops} operations)")
+        f"{row['host_ms']:.1f} ms; grain_frame_plain {row['plain_ms']:.3f} "
+        f"ms; bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, {ops} "
+        f"operations)")
+    for form, r in row["forms"].items():
+        log(f"  grain timing {label} {form} form: device "
+            f"{txt(r['dev_ms'])} a launch (readings "
+            f"{[round(v, 5) for v in r['readings']]}, {r['seen']} of "
+            f"{r['made']} launches seen), bare launches "
+            f"{txt(r['bare_ms'])}, the wrapper's call "
+            f"{txt(r['call_ms'], 4)} (CUDA events); == grain_frame_plain; "
+            f"trace {json.dumps(r['trace'])}")
+    log(f"  grain call split {label} (host clock, ms): now "
+        f"{json.dumps({k: round(v, 4) for k, v in call_now.items()})}; "
+        f"the earlier call's parts "
+        f"{json.dumps({k: round(v, 4) for k, v in call_earlier.items()})}")
+    log(f"  grain step split {label} (host clock, ms): "
+        f"{json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in step.items()})}")
     return row
 
 
@@ -3016,16 +3273,18 @@ def grain_phase(dev):
     Decoder(Settings(apply_grain=True), device=dev) at the default frame
     delay: its MD5s must be the committed ones (the port's host path's),
     with no fallback, one rav1d_fg_frame launch per grained picture
-    (ops/cuda/grain.py launches, reset before each decode and read after)
-    and no call of the host grain (recon/fg_apply.py apply_grain). Each
+    (ops/cuda/grain.py launches, reset before each decode and read after),
+    no launch of the earlier form (earlier_launches) and no call of the
+    host grain (recon/fg_apply.py apply_grain). Each
     grained picture must equal apply_grain run on the host on that
     picture's own grain-free planes (the visible planes: at an odd width
     the step has made the grain-free luma plane's padding column a copy
     of the last one, as apply_grain does, after its output took that
-    column as it was), and the kernel must equal grain_frame_plain on the
-    picture's device planes (every padded plane). The first
-    grained picture of the 1080p 8-bit still and of the 2160p still is
-    timed (grain_timing)."""
+    column as it was), and both forms of the kernel must equal
+    grain_frame_plain on the picture's device planes (every padded plane).
+    The first grained picture of the 1080p 8-bit still and of the 2160p
+    still is timed (grain_timing). The earlier form's launches outside the
+    decodes are its own run's (GRAIN["own"])."""
     import dataclasses
 
     import torch
@@ -3056,32 +3315,38 @@ def grain_phase(dev):
             return out
 
     fg_apply.apply_grain = lambda pic: host_calls.append(pic) or real(pic)
+    GK.earlier_launches = 0
     try:
         for name, e in sorted(digests["grain"]["streams"].items()):
             label = f"{name} {e['width']}x{e['height']}"
             packets = synth.grain_stream(digests, name)
             T.engine.stats.update(frames=0, fallback=0, ref_uploads=0)
             GK.launches = 0
+            earlier = GK.earlier_launches
             host_calls.clear()
             dec = Recorder(T.Settings(apply_grain=True), device=dev)
             t1 = time.perf_counter()
             md5s = synth.decode_md5s(dec, packets)
             wall_ms = (time.perf_counter() - t1) * 1e3
             launches, stats = GK.launches, dict(T.engine.stats)
+            earlier = GK.earlier_launches - earlier
             dec.close()
             log(f"grain {label}: {len(md5s)} pictures in {wall_ms:.1f} ms, "
                 f"{len(dec.pairs)} grained, rav1d_fg_frame launches "
-                f"{launches}, host grain calls {len(host_calls)}, engine "
+                f"{launches} (earlier form {earlier}), host grain calls "
+                f"{len(host_calls)}, engine "
                 f"stats {stats}; md5 {md5s} "
                 f"{'==' if md5s == e['md5'] else '!='} committed digests")
             if md5s != e["md5"]:
                 raise AssertionError(f"grain {label}: MD5s differ from the "
                                      "committed digests")
-            if (not dec.pairs or launches != len(dec.pairs) or host_calls
-                    or stats["fallback"] or stats["frames"] != len(packets)):
+            if (not dec.pairs or launches != len(dec.pairs) or earlier
+                    or host_calls or stats["fallback"]
+                    or stats["frames"] != len(packets)):
                 raise AssertionError(f"grain {label}: {launches} launches "
                                      f"for {len(dec.pairs)} grained "
-                                     f"pictures, {len(host_calls)} host "
+                                     f"pictures, {earlier} of the earlier "
+                                     f"form, {len(host_calls)} host "
                                      f"grain calls, engine stats {stats}")
             GRAIN["launches"][name] = launches
             GRAIN["pictures"] += len(dec.pairs)
@@ -3095,54 +3360,63 @@ def grain_phase(dev):
                                          "apply_grain on the host")
                 t = G.tables(pic)
                 src = G.source_planes(pic, dev)
-                got = GK.grain_frame(src, t)
                 want = FG.grain_frame_plain(src, t)
-                torch.cuda.synchronize()
-                err = max(int((a.to(torch.int32) - b.to(torch.int32))
-                              .abs().max()) for a, b in zip(got, want))
-                GRAIN["err"] = max(GRAIN["err"], err)
-                if err:
-                    raise AssertionError(f"grain {label} picture {i}: the "
-                                         f"kernel != grain_frame_plain (max "
-                                         f"|err| {err})")
+                for key, fn in (("err", GK.grain_frame),
+                                ("err_earlier", GK.grain_frame_earlier)):
+                    got = fn(src, t)
+                    torch.cuda.synchronize()
+                    err = max(int((a.to(torch.int32) - b.to(torch.int32))
+                                  .abs().max()) for a, b in zip(got, want))
+                    GRAIN[key] = max(GRAIN[key], err)
+                    if err:
+                        raise AssertionError(
+                            f"grain {label} picture {i}: {fn.__name__} != "
+                            f"grain_frame_plain (max |err| {err})")
             log(f"  grain {label}: every grained picture == apply_grain on "
-                f"the host on its own grain-free planes, and the kernel == "
-                f"grain_frame_plain on its device planes")
+                f"the host on its own grain-free planes, and both forms of "
+                f"the kernel == grain_frame_plain on its device planes")
             if name in GRAIN_TIMED:
                 GRAIN["rows"][name] = grain_timing(label, dec.pairs[0][0],
                                                    dev, real)
     finally:
         fg_apply.apply_grain = real
+    GRAIN["own"] = GK.earlier_launches
     GRAIN["seconds"] = time.perf_counter() - t0
     log(f"grain: launches in the decodes {json.dumps(GRAIN['launches'])} for "
-        f"{GRAIN['pictures']} grained pictures; the phase took "
-        f"{GRAIN['seconds']:.1f} s")
+        f"{GRAIN['pictures']} grained pictures; the earlier form's own run "
+        f"{GRAIN['own']} launches; the phase took {GRAIN['seconds']:.1f} s")
 
 
 def grain_kernels():
-    """The kernels line's grain entries: the 1080p 8-bit still's and the
-    2160p still's first grained picture, the launches of all the grain
-    decodes (of the 2160p still's alone for its entry); the kernel's
-    time is its device time, or its bare launches' where the profiler
-    recorded none."""
+    """The kernels line's grain entries, both forms: the 1080p 8-bit
+    still's and the 2160p still's first grained picture; the new form's
+    launches of all the grain decodes (of the 2160p still's alone for its
+    entry), the earlier form's of its own run; each form's time is its
+    device time, or its bare launches' where the profiler recorded
+    none."""
     out = []
-    for name, entry in GRAIN_TIMED.items():
-        r = GRAIN["rows"][name]
-        out.append({
-            "name": entry, "route": "cuda",
-            "source": "rav1d_tpu_torch/csrc/fg.cu",
-            "replaces": "rav1d_tpu/ops/tpu/fg.py:19",
-            "launches": (GRAIN["launches"][name] if "uhd" in name
-                         else sum(GRAIN["launches"].values())),
-            "max_abs_err": GRAIN["err"],
-            "ms": r["bare_ms"] if r["dev_ms"] is None else r["dev_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
-            "bound_by": r["bound_by"],
-            # no PyTorch call computes AV1's film grain: its grain tables
-            # gathered at per-block random offsets and blended at the
-            # block edges
-            "library_ms": None,
-        })
+    for form, (_, entry, _) in GRAIN_FORMS.items():
+        for name, suffix in GRAIN_TIMED.items():
+            r = GRAIN["rows"][name]
+            f = r["forms"][form]
+            launches = GRAIN["own"] if form == "earlier" else (
+                GRAIN["launches"][name] if "uhd" in name
+                else sum(GRAIN["launches"].values()))
+            out.append({
+                "name": entry + suffix, "route": "cuda",
+                "source": "rav1d_tpu_torch/csrc/fg.cu",
+                "replaces": "rav1d_tpu/ops/tpu/fg.py:19",
+                "launches": launches,
+                "max_abs_err": GRAIN["err" if form == "new"
+                                     else "err_earlier"],
+                "ms": f["bare_ms"] if f["dev_ms"] is None else f["dev_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+                "bound_by": r["bound_by"],
+                # no PyTorch call computes AV1's film grain: its grain
+                # tables gathered at per-block random offsets and blended
+                # at the block edges
+                "library_ms": None,
+            })
     return out
 
 

@@ -20,7 +20,8 @@ picture's planes on the device (the engine's output, `_dev_planes`, or
 its host planes uploaded where it has none), one launch of csrc/fg.cu
 rav1d_fg_frame on a CUDA device (ops/cuda/grain.py grain_frame) or
 ops/fg.py grain_frame_plain on the CPU, and the result copied into a new
-Picture's host planes; the picture itself stays grain-free, the
+Picture's host planes (from a card through its reused page-locked buffer,
+`HostCopy`, into new arrays); the picture itself stays grain-free, the
 reference for later frames. As recon/fg_apply.py does, at an odd width
 with subsampled chroma the grain-free luma plane's padding column w
 becomes a copy of column w - 1 (the kernels read column w - 1 for it).
@@ -29,6 +30,7 @@ becomes a copy of column w - 1 (the kernels read column w - 1 for it).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -141,22 +143,65 @@ def grain_planes(planes, t):
     return FG.grain_frame_plain(planes, t)
 
 
-def to_host(planes, bpc):
-    """numpy copies of planes (uint8, or uint16 above 8 bits): from the
-    card through one page-locked buffer, waited for."""
-    if planes[0].device.type == "cuda":
-        buf = torch.empty(sum(p.numel() for p in planes),
-                          dtype=planes[0].dtype, pin_memory=True)
+class HostCopy:
+    """The reused host buffer (page-locked on a card) that a card's
+    grained planes are copied through to the host, and its lock. The
+    planes handed out are copies out of it, never views: the next
+    picture's copy rewrites the buffer (engine/blob.py FetchPool copies out
+    of its buffers by the same rule)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pin = self.device.type == "cuda"
+        self.buf = None
+        self.lock = threading.Lock()
+
+    def fill(self, planes):
+        """Views of the buffer holding a copy of `planes`, the device's
+        copy waited for (under the lock, or in a single thread)."""
+        sizes = [p.numel() * p.element_size() for p in planes]
+        if self.buf is None or self.buf.numel() < sum(sizes):
+            self.buf = None  # the old buffer goes before the new one
+            self.buf = torch.empty(sum(sizes), dtype=torch.uint8,
+                                   pin_memory=self.pin)
         host, o = [], 0
-        for p in planes:
-            h = buf[o : o + p.numel()].view(p.shape)
-            h.copy_(p, non_blocking=True)
+        for p, n in zip(planes, sizes):
+            h = self.buf[o : o + n].view(p.dtype).view(p.shape)
+            h.copy_(p, non_blocking=self.pin)
             host.append(h)
-            o += p.numel()
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(planes[0].device))
-        ev.synchronize()
-        planes = host
+            o += n
+        if self.pin:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            ev.synchronize()
+        return host
+
+    def planes(self, planes, bpc):
+        """numpy copies of `planes` (uint8, or uint16 above 8 bits)."""
+        dt = np.uint16 if bpc > 8 else np.uint8
+        with self.lock:
+            return [h.numpy().view(dt).copy() for h in self.fill(planes)]
+
+
+_HOST = {}
+_HOST_LOCK = threading.Lock()
+
+
+def host_copy(device):
+    """The HostCopy of a card."""
+    dev = torch.device(device)
+    with _HOST_LOCK:
+        h = _HOST.get(dev)
+        if h is None:
+            h = _HOST[dev] = HostCopy(dev)
+    return h
+
+
+def to_host(planes, bpc):
+    """numpy copies of planes (uint8, or uint16 above 8 bits): from a card
+    through its HostCopy, waited for; CPU planes as they are."""
+    if planes[0].device.type == "cuda":
+        return host_copy(planes[0].device).planes(planes, bpc)
     out = [p.numpy() for p in planes]
     return [a.view(np.uint16) if bpc > 8 else a for a in out]
 

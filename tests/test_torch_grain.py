@@ -12,11 +12,22 @@ Checked:
   identity matrix, luma or chroma without points (copied), the clip-only
   case (chroma_scaling_from_luma and restricted range, no points), and a
   picture wide enough for two blocks of kernel columns;
-- csrc/fg.cu compiled for the host with g++ (rav1d_fg_frame_host walks
-  the launch's blocks with the kernel's step functions, thread by thread)
-  against grain_frame_plain on the same cases, its output pre-filled with
-  a pattern; the kernel itself builds and runs only on the card, where
-  chip_smoke.py holds it to grain_frame_plain;
+- csrc/fg.cu compiled for the host with g++, both forms: the new one
+  (rav1d_fg_frame_host walks the persistent grid's blocks, each block's
+  tiles and each tile's steps with the kernel's step functions, thread by
+  thread, each barrier a loop boundary) on the H100's grid and on grids
+  of one and two blocks (a block takes several tiles and crosses planes,
+  staging each plane's tables once), and the earlier one
+  (rav1d_fg_frame_earlier_host), against grain_frame_plain on the same
+  cases, the output pre-filled with a pattern; the arguments each form
+  refuses (the new one also a plane base or stride that is not a multiple
+  of 16 bytes); the kernels themselves build and run only on the card,
+  where chip_smoke.py holds them to grain_frame_plain;
+- the wrapper's host side: grain_args packs every FgFrame field; the
+  reused table buffer (TableStage) is rewritten only after the event
+  recorded behind its last copy has completed (a recording stand-in for
+  torch.cuda.Event); engine/grain.py HostCopy hands out copies, never
+  views of its reused buffer;
 - synth's film grain parameters (Tools(film_grain=True)) parsed by the
   port's obu.py as by rav1d_tpu's, across seeds covering every branch:
   no grain, new parameters, parameters loaded from a reference
@@ -34,13 +45,14 @@ Checked:
   recorder, the dense pass by a stub, the device step by the plain
   version): every grain step runs inside cuda:1, one a grained picture,
   and rav1d_tpu_torch's host grain (recon/fg_apply.py) is never called;
-- the kernel's wrapper raises on CPU tensors and counts nothing.
+- the kernels' wrappers raise on CPU tensors and count nothing.
 
 Inputs are seeded with numpy. Tolerance: exact.
 """
 
 import copy
 import ctypes
+import dataclasses
 import functools
 import os
 import subprocess
@@ -251,37 +263,183 @@ def lib(tmp_path_factory):
                     "-fPIC", "-o", so, os.path.join(CSRC, "fg.cu")],
                    check=True)
     lib = ctypes.CDLL(so)
-    lib.rav1d_fg_frame_host.argtypes = [ctypes.c_void_p]
-    lib.rav1d_fg_frame_host.restype = ctypes.c_int
+    lib.rav1d_fg_frame_host.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.rav1d_fg_frame_earlier_host.argtypes = [ctypes.c_void_p]
+    lib.rav1d_fg_tiles.argtypes = [ctypes.c_void_p]
+    for fn in (lib.rav1d_fg_frame_host, lib.rav1d_fg_frame_earlier_host,
+               lib.rav1d_fg_tiles):
+        fn.restype = ctypes.c_int
     return lib
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_host_kernel_matches_plain(lib, name):
+HOST_GRID = 2 * 132  # the new form's grid on an H100: two blocks an SM
+
+
+def host_args(name):
+    """(the FgFrame, the output planes pre-filled with a pattern,
+    grain_frame_plain's planes) of a case; the source planes and the
+    tables in freshly allocated tensors (every base 16-byte aligned)."""
     pic, t, plain, _ = case(name)
-    src = [torch.from_numpy(np.ascontiguousarray(
-        a.view(np.int16) if t.bpc > 8 else a))
-        for a in (pic.y, pic.u, pic.v)[: t.nplanes]]
+    src = [torch.from_numpy(a.view(np.int16) if t.bpc > 8 else a).clone()
+           for a in (pic.y, pic.u, pic.v)[: t.nplanes]]
     out = [torch.full_like(s, 0x5A) for s in src]
     buf, offsets = GK.table_bytes(t)
-    tables = torch.from_numpy(buf)
+    tables = torch.from_numpy(buf).clone()
     a = GK.grain_args(out, src, tables, offsets, t)
-    assert lib.rav1d_fg_frame_host(ctypes.byref(a)) == 0
+    return a, out, plain, (src, tables)
+
+
+def run_host(lib, form, a, grid=HOST_GRID):
+    if form == "new":
+        return lib.rav1d_fg_frame_host(ctypes.byref(a), grid)
+    return lib.rav1d_fg_frame_earlier_host(ctypes.byref(a))
+
+
+@pytest.mark.parametrize("form", ["new", "earlier"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_host_kernel_matches_plain(lib, name, form):
+    a, out, plain, _ = host_args(name)
+    assert run_host(lib, form, a) == 0
+    for got, want in zip(out, plain):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("grid", [1, 2])
+@pytest.mark.parametrize("name", ["420-8bit-wide", "422-12bit-no-luma-points",
+                                  "444-10bit-no-overlap-odd"])
+def test_host_kernel_small_grid(lib, name, grid):
+    """The new form on a grid of one or two blocks: each block walks
+    several tiles and crosses planes (with three planes, one of two
+    contiguous ranges holds two planes' tiles), staging each plane's
+    tables once it enters it; the 420-8bit-wide luma plane also has
+    tiles of padding rows only, which stage nothing."""
+    a, out, plain, _ = host_args(name)
+    tiles = lib.rav1d_fg_tiles(ctypes.byref(a))
+    assert a.nplanes == 3 and tiles >= 2 * grid + 1
+    assert run_host(lib, "new", a, grid) == 0
     for got, want in zip(out, plain):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_host_kernel_refuses_bad_arguments(lib):
-    pic, t, _, _ = case("420-8bit-odd")
-    src = [torch.from_numpy(a) for a in (pic.y, pic.u, pic.v)]
-    buf, offsets = GK.table_bytes(t)
-    a = GK.grain_args([s.clone() for s in src], src, torch.from_numpy(buf),
-                      offsets, t)
-    for field, value in (("bpc", 9), ("n_cols", t.rand.shape[1] + 1),
+    a, _, _, keep = host_args("420-8bit-odd")
+    for field, value in (("bpc", 9), ("n_cols", a.n_cols + 1),
                          ("scaling_shift", 7), ("nplanes", 2)):
         b = GK.FgFrame.from_buffer_copy(a)
         setattr(b, field, value)
-        assert lib.rav1d_fg_frame_host(ctypes.byref(b)) == -1, field
+        for form in ("new", "earlier"):
+            assert run_host(lib, form, b) == -1, (field, form)
+    # the new form reads and writes 16 bytes a row: a stride or a plane
+    # base that is not a multiple of 16 bytes is refused
+    for field, pl, step in (("pw", 0, 8), ("pw", 1, 4), ("src", 1, 8),
+                            ("out", 2, 4), ("src", 0, 1)):
+        b = GK.FgFrame.from_buffer_copy(a)
+        getattr(b, field)[pl] += step
+        assert run_host(lib, "new", b) == -1, (field, pl, step)
+    b = GK.FgFrame.from_buffer_copy(a)
+    b.pw[0] += 8  # the earlier form reads pixel by pixel: it takes it
+    out = [torch.full((a.ph[pl], b.pw[pl]), 0x5A, dtype=torch.uint8)
+           for pl in range(3)]
+    src = [torch.zeros_like(o) for o in out]
+    for pl in range(3):
+        b.out[pl], b.src[pl] = out[pl].data_ptr(), src[pl].data_ptr()
+    assert run_host(lib, "earlier", b) == 0
+    del keep
+
+
+def test_grain_args_fill_every_field():
+    a, out, _, (src, tables) = host_args("422-10bit-odd-identity")
+    _, t, _, _ = case("422-10bit-odd-identity")
+    assert GK._ARGS.size == ctypes.sizeof(GK.FgFrame)
+    _, offsets = GK.table_layout(t)
+    assert list(a.out) == [o.data_ptr() for o in out]
+    assert list(a.src) == [s.data_ptr() for s in src]
+    assert [a.lut, a.scaling, a.rand] == [tables.data_ptr() + o
+                                          for o in offsets]
+    assert (a.bpc, a.nplanes, a.sx, a.sy, a.w, a.h) == (
+        10, 3, 1, 0, t.w, t.h)
+    assert list(a.ph) == [s.shape[0] for s in src]
+    assert list(a.pw) == [s.shape[1] for s in src]
+    assert tuple(a.sc) == t.plane_scaling
+    assert (a.n_rows, a.n_cols) == t.rand.shape
+    assert (a.overlap, a.scaling_shift, a.cfl) == (
+        int(t.overlap), t.scaling_shift, int(t.cfl))
+    assert (tuple(a.uv_mult), tuple(a.uv_luma_mult), tuple(a.uv_offset)) == (
+        t.uv_mult, t.uv_luma_mult, t.uv_offset)
+    assert tuple(zip(a.lo, a.hi)) == t.clip
+
+
+def test_table_stage_rewrites_only_after_the_last_copy(monkeypatch):
+    """ops/cuda/grain.py TableStage on the CPU, torch.cuda.Event replaced
+    by a recorder, each copy out of the buffer (on a card the C entry's,
+    ahead of its launch) made here before `copied`: each picture's tables
+    go into the one reused buffer only once the event recorded behind the
+    last copy has completed (at that wait the buffer still holds what the
+    copy read), a larger picture's buffer replaces it only after that wait
+    too, one event serves every copy, and every copy delivers the tables
+    it was given."""
+    st = GK.TableStage("cpu")
+    log = []
+
+    class Recorder:
+        def __init__(self):
+            self.read = None
+            log.append("new")
+
+        def record(self, stream=None):
+            self.read = st.view.copy()  # what the copy in flight reads
+            log.append("record")
+
+        def synchronize(self):
+            assert (st.view == self.read).all(), "rewritten before the wait"
+            log.append("wait")
+
+    monkeypatch.setattr(GK, "_event", Recorder)
+    buffers = []
+    _, big, _, _ = case("444-12bit-identity")
+    big = dataclasses.replace(big, rand=np.ones((200, 300), np.uint8))
+    for name in ("420-8bit-odd", "422-10bit-odd-identity", "444-12bit-identity",
+                 big):
+        t = big if name is big else case(name)[1]
+        want, offsets = GK.table_bytes(t)
+        with st.lock:
+            host, n, got_offsets = st.write(t)
+            dst = np.frombuffer(ctypes.string_at(host, n), np.uint8)
+            st.copied()
+        assert (n, got_offsets) == (want.size, offsets)
+        np.testing.assert_array_equal(dst, want)
+        buffers.append(st.host.data_ptr())
+    assert len(set(buffers)) == 2 and buffers[0] == buffers[2]
+    assert log == ["new", "record", "wait", "record", "wait", "record",
+                   "wait", "record"]
+
+
+@pytest.mark.parametrize("bpc", [8, 10])
+def test_host_copy_hands_out_copies(bpc):
+    """engine/grain.py HostCopy: the planes handed out equal the device
+    planes and never alias the reused buffer, so the next picture's copy
+    leaves them as they were."""
+    rng = np.random.default_rng(bpc)
+    dt = torch.int16 if bpc > 8 else torch.uint8
+    hc = G.HostCopy("cpu")
+
+    def planes():
+        return [torch.from_numpy(rng.integers(0, 1 << bpc, s).astype(
+            np.int16 if bpc > 8 else np.uint8)).to(dt)
+            for s in ((128, 256), (128, 128), (128, 128))]
+
+    first, second = planes(), planes()
+    got = hc.planes(first, bpc)
+    kept = [g.copy() for g in got]
+    got2 = hc.planes(second, bpc)
+    for g, k, p in zip(got, kept, first):
+        assert g.dtype == (np.uint16 if bpc > 8 else np.uint8)
+        np.testing.assert_array_equal(g, k)
+        np.testing.assert_array_equal(g.view(p.numpy().dtype), p.numpy())
+    for g, p in zip(got2, second):
+        np.testing.assert_array_equal(g.view(p.numpy().dtype), p.numpy())
+    for g in got + got2:
+        assert not np.shares_memory(g, hc.buf.numpy())
 
 
 def test_random_table_is_the_block_chain():
@@ -307,6 +465,18 @@ def test_wrapper_takes_cuda_tensors_only():
         GK.grain_frame([torch.from_numpy(a) for a in (pic.y, pic.u, pic.v)],
                        t)
     assert GK.launches == before
+
+
+def test_earlier_wrapper_takes_cuda_tensors_only():
+    pic, t, _, _ = case("420-8bit-odd")
+    before = (GK.launches, GK.earlier_launches)
+    planes = [torch.from_numpy(a) for a in (pic.y, pic.u, pic.v)]
+    for fn in (GK.grain_frame_earlier,
+               lambda p, t: GK.trace_frame(p, t, form="earlier"),
+               lambda p, t: GK.trace_frame(p, t, form="new")):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(planes, t)
+    assert (GK.launches, GK.earlier_launches) == before
 
 
 # ------------------------------ synth streams ------------------------------
