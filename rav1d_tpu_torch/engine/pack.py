@@ -98,17 +98,22 @@ def _pack_residuals(blob, hdr, store, plan, psz, aw):
 
 
 def _pack_palette(blob, hdr, plan, psz, aw):
-    if not plan.pal:
+    if plan.native is not None:  # the native planner's scatter
+        idx, val = plan.native.pal_idx, plan.native.pal_val
+    elif plan.pal:
+        idxs, vals = [], []
+        for pl, y, x, pix in plan.pal:
+            h, w = pix.shape
+            base = pl * psz + y * aw + x
+            ii = base + np.arange(h)[:, None] * aw + np.arange(w)[None, :]
+            idxs.append(ii.ravel().astype(np.int32))
+            vals.append(pix.ravel().astype(np.int32))
+        idx = np.concatenate(idxs)
+        val = np.concatenate(vals)
+    else:
         return
-    idxs, vals = [], []
-    for pl, y, x, pix in plan.pal:
-        h, w = pix.shape
-        base = pl * psz + y * aw + x
-        ii = base + np.arange(h)[:, None] * aw + np.arange(w)[None, :]
-        idxs.append(ii.ravel().astype(np.int32))
-        vals.append(pix.ravel().astype(np.int32))
-    idx = np.concatenate(idxs)
-    val = np.concatenate(vals)
+    if not idx.size:
+        return
     d, nc = _chunked([idx, val], idx.size, PAL_B, pads=[3 * psz, 0])
     hdr[PAL0] = blob.add_words(d)
     hdr[PAL0 + 1] = nc
@@ -180,6 +185,12 @@ def _pack_wave(blob, hdr, plan, psz, aw):
         hdr[WAVE0 + 3] = blob.add_words(
             np.concatenate(plan.ii_masks).astype(np.int32)
         )
+    if plan.native is not None:  # rows written by the native planner
+        if plan.native.n_items:
+            hdr[WAVE0] = max(plan.n_waves, 1)
+            hdr[WAVE0 + 1] = blob.add_words(plan.native.rows[0])
+            hdr[WAVE0 + 2] = blob.add_words(plan.native.rows[1])
+        return
     if not plan.items:
         return
     sitems = [(it, aw) for it in plan.items if item_class(it.w, it.h) == 0]
@@ -871,10 +882,10 @@ def _inter_runs(blob, hdr):
     return out
 
 
-def _wave_classes(blob, hdr, plan, psz, aw):
+def _wave_classes(blob, hdr):
     """Host view of the wave descriptors _pack_wave wrote: per wave and
     class, the rows, the item count, the feature flags and the modes."""
-    if not plan.items:
+    if not hdr[WAVE0]:  # no wave item
         return []
     NW = int(hdr[WAVE0])
     out = []
@@ -946,6 +957,6 @@ def pack_frame(f, plan):
             hdr[SR0 + 2 * ci + 1] = f.resize_start[ci]
     lr_ws = _pack_lr(f, blob, hdr)
     return FramePack(hdr, blob, lr_ws, need_sr,
-                     _wave_classes(blob, hdr, plan, psz, aw),
+                     _wave_classes(blob, hdr),
                      _tx_valid(blob, hdr, psz), srcs,
                      _inter_runs(blob, hdr) if srcs is not None else {})

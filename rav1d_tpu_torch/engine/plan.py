@@ -18,6 +18,13 @@ but instead of computing pixels it emits flat descriptors:
 
 The entropy pass never reads pixels, so everything here is control data; no
 pixel ever flows host->device except the initial upload.
+
+On a key or intra-only frame whose block records are still pending (not yet
+WorkItems), and where the library loaded, build_plan hands the frame to the
+native planner (native/plan.py, csrc/host/plan.c): it writes the wave rows
+and the palette scatter that engine/pack.py would write from this module's
+items, and builds no per-item object. The Python planner below is its twin
+and plans inter frames, and every frame where the library is missing.
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ class FramePlan:
     __slots__ = (
         "items", "pal", "n_waves", "ah", "aw",
         "wavefront_tx", "batch_tx", "inter", "ii_masks", "ii_off",
+        "native",
     )
 
     def __init__(self):
@@ -87,6 +95,7 @@ class FramePlan:
         self.inter = None      # InterJobs (engine/inter.py) for inter frames
         self.ii_masks = []     # interintra blend masks (flat int32 chunks)
         self.ii_off = 0
+        self.native = None     # native/plan.py NativeRows (key frames)
 
 
 class _Item:
@@ -203,6 +212,13 @@ def build_plan(t, f):
     plan.ah, plan.aw = f.cur.y.shape
 
     if frame_hdr.frame_type.is_key_or_intra:
+        from ..native import plan as NP
+
+        if f._wi_pending and NP.lib() is not None:
+            # records not yet WorkItems: planned, and the waves packed, in C
+            if not _plan_native(plan, f):
+                return _fb("non-intra item in key/intra frame")
+            return plan
         for wi in f.work_items:
             if wi.kind != "intra":
                 return _fb("non-intra item in key/intra frame")
@@ -224,6 +240,23 @@ def build_plan(t, f):
 
     _assign_waves(plan, f)
     return plan
+
+
+def _plan_native(plan, f):
+    """Fill `plan` for a key or intra-only frame from its pending block
+    records in C: the Python plan's wave count, and its wave rows and
+    palette scatter as engine/pack.py would write them. False when a record
+    is not an intra block."""
+    from ..native import plan as NP
+    from .layout import N_FIELDS
+
+    st, n_waves, rows = NP.plan_frame(f, plan.ah, plan.aw, CAP, N_FIELDS)
+    if st != NP.PLAN_OK:
+        return False
+    plan.native = rows
+    plan.n_waves = n_waves
+    plan.wavefront_tx = np.arange(f.coef_store.tx_pos)
+    return True
 
 
 def _pop(store, cur):

@@ -223,13 +223,24 @@ def decode_frame_dense(f, up=None):
     from .. import engine as _engine
 
     frame_hdr = f.frame_hdr
-    materialize_work_items(f)  # deferred dense-pass input conversion
+    # deferred dense-pass input conversion; on the engine, a key or
+    # intra-only frame is planned from its records (engine/plan.py
+    # _plan_native) and needs no WorkItem unless the engine declines it
+    from ..native import plan as _nplan
+
+    if up is None or not (frame_hdr.frame_type.is_key_or_intra
+                          and _nplan.lib() is not None):
+        materialize_work_items(f)
     t, tile_states, sbrow_marks, cols = f._dense_args
-    f._dense_args = None
 
     if up is not None and _engine.run_dense(t, f, up):
+        f._dense_args = None
         f.work_items = []
+        f._wi_pending = []
     else:
+        if f._wi_pending:  # a key frame the engine declined
+            materialize_work_items(f)
+        f._dense_args = None
         # the numpy replay reads reference pixels on the host: fetch any
         # engine-decoded (device-resident) refs first
         for refp in f.refp:

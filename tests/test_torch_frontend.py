@@ -71,10 +71,12 @@ COPIES = [
 # builds the port's own C copies into rav1d_tpu_torch/build/; the decoder
 # runs the dense pass on the torch engine with its own upload context and
 # drops the JAX engine's frame ring; pictures have nothing to fetch;
-# decode_frame_dense takes that context; the planner's _fb reads no
-# environment switch; engine/inter.py (collect_inter) imports no JAX and
-# leaves out IdxBlob, _slice (unused by the v3 engine) and dev_plane (the
-# port keeps reference planes on the device in engine/run.py); cli.py has
+# decode_frame_dense takes that context, and on the engine leaves a key
+# frame's records unconverted; the planner's _fb reads no environment
+# switch, and it plans such a frame in C (native/plan.py); engine/inter.py
+# (collect_inter) imports no JAX and leaves out IdxBlob, _slice (unused by
+# the v3 engine) and dev_plane (the port keeps reference planes on the
+# device in engine/run.py); cli.py has
 # a --device option for the decoder's engine and its own VERSION; the C
 # syntax pass (csrc/host/syntax.c) keeps record_lf_inter's and
 # read_pal_indices' scratch buffers on the stack, where the original's are

@@ -191,7 +191,7 @@ def test_port_never_imports_jax():
         " [synth.still_picture(72, 40, 3)])\n"
         "assert len(md5) == 1, md5\n"
         "assert T.engine.stats == {'frames': 1, 'fallback': 0,"
-        " 'ref_uploads': 0}\n"
+        " 'ref_uploads': 0, 'plan_native': 1}\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "ref = [m for m in sys.modules if m.split('.')[0] == 'rav1d_tpu']\n"
         "assert not ref, ref\n"

@@ -83,8 +83,9 @@ def test_strip_decodes_on_the_engine(name):
     got = synth.decode_md5s(
         T.Decoder(T.Settings(apply_grain=False), device="cpu"), packets)
     assert got == host == ref and len(got) == len(packets)
+    # every strip starts with its one key frame, planned natively
     assert {k: T.engine.stats[k] - before[k] for k in before} == dict(
-        frames=len(packets), fallback=0, ref_uploads=0)
+        frames=len(packets), fallback=0, ref_uploads=0, plan_native=1)
 
 
 @pytest.fixture(scope="module")
@@ -250,8 +251,10 @@ def test_engine_capture_matches_host_capture():
     before = dict(T.engine.stats)
     engine = synth.capture_frames(packets, card_md5, device="cpu")
     assert card_md5 == host_md5 and len(engine) == len(host) == 3
+    # the capture materializes every frame's work items before it plans,
+    # so the Python planner plans the key frame too
     assert {k: T.engine.stats[k] - before[k] for k in before} == dict(
-        frames=3, fallback=0, ref_uploads=0)
+        frames=3, fallback=0, ref_uploads=0, plan_native=0)
     for (f, plan), (g, gplan) in zip(host, engine):
         a, b = pack_frame(f, plan), pack_frame(g, gplan)
         np.testing.assert_array_equal(a.words(), b.words())
